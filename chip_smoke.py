@@ -9,12 +9,14 @@ the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout, then:
 
 1. holds each kernel against its plain PyTorch version on the card, on the
-   same inputs, at the shapes the main path gives it (buckets 128 and
-   8192): the adversarial ed25519 vectors plus a seeded corpus in which
-   every 7th signature is corrupted. Tolerance: none, the decisions must
-   be identical (a verifier that differs on one signature forks
-   consensus);
-2. drives the main path through the entry points a node calls, with every
+   same inputs, at every bucket of the verifier's ladder (128, 512, 2048
+   and 8192; the main path launches at 128, 2048 and 8192): the
+   adversarial ed25519 vectors plus a seeded corpus in which every 7th
+   signature is corrupted. Tolerance: none, the decisions must be
+   identical (a verifier that differs on one signature forks consensus);
+2. calls the model entry (`graft_entry.entry()`) and checks that its
+   forward ran on the card and accepted its batch;
+3. drives the main path through the entry points a node calls, with every
    kernel's launch count set to 0 just before and read just after: a
    checkpoint-sized drain through `prewarm_many` (3 x 8192 + 1000
    signatures, the reference bench's fleet-verify drain plus a tail that
@@ -22,11 +24,15 @@ sources in the checkout, then:
    second `prewarm_many` of the same drain that must dispatch nothing, and
    20 live-SCP bursts of 100-128 `enqueue`s, each followed by `flush`.
    Every decision must equal the port's C CPU verifier and the expected
-   corruption pattern.
+   corruption pattern;
+4. runs the drain once more, from an empty cache, under `torch.profiler`,
+   and reads the card's busy share and the kernel's device time from the
+   trace.
 
 It prints the card's name and power limit, the build time, per-bucket
-kernel and plain-version times (CUDA events), drain throughput and where
-its time goes, flush latency, a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
+kernel and plain-version times (CUDA events), drain throughput, its
+host layers timed alone, the profiled drain's device busy share, flush
+latency, a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
 {...}}`. Any failed check raises (exit code 1) and prints no result; so
 does a machine without CUDA.
 """
@@ -45,7 +51,6 @@ DRAIN_CHUNK, DRAIN_CHUNKS, DRAIN_TAIL = 8192, 3, 1000
 BURSTS, BURST_MIN, BURST_MAX = 20, 100, 128
 CORRUPT_EVERY = 7
 N_KEYS = 256
-BUCKETS_CHECKED = (128, 8192)
 
 # Peak rates of the card used for bound_ms. Integer multiply: Hopper issues
 # 64 32-bit integer multiply-adds per clock per SM (half its 128 FP32
@@ -121,6 +126,38 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_drain(run) -> dict:
+    """run() under torch.profiler (CPU and CUDA activity): its result, its
+    host wall time, and from the trace the card's busy time (the union of
+    all device activity), the verify kernel's launches and device time,
+    and the device time of the five largest names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kern = [e for e in dev if "ed25519_verify_kernel" in e.name]
+    return {"result": result, "wall_ms": wall_ms, "device_events": len(dev),
+            "busy_ms": busy_us / 1e3, "kernel_launches": len(kern),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3,
+            "by_name": sorted(((k[:40], us / 1e3) for k, us
+                               in by_name.items()),
+                              key=lambda kv: -kv[1])[:5]}
+
+
 def kernel_vs_plain(E, vectors: list, corpus: list, bucket: int,
                     props) -> dict:
     """The verify kernel against verify_plain on the same CUDA tensors at
@@ -165,6 +202,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from stellar_core_tpu_torch import _build
+    from stellar_core_tpu_torch.graft_entry import entry
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
     from stellar_core_tpu_torch.crypto import keys as K
     from stellar_core_tpu_torch.native import ed25519_native
@@ -216,8 +254,9 @@ def main() -> int:
     warm = tuple(torch.from_numpy(a[:32]).cuda() for a in (
         E.prepare_batch(*zip(*corpus[:32]))[k] for k in E.ARG_KEYS))
     E.verify_plain(*warm)     # the plain version's first-call costs
+    ladder = BV.CudaSigVerifier.BUCKETS
     buckets = {}
-    for b in BUCKETS_CHECKED:
+    for b in ladder:
         r = kernel_vs_plain(E, vectors, corpus, b, props)
         check(r["decisions"][:len(vectors)] == vec_ref,
               "kernel == C verifier on every adversarial vector")
@@ -230,18 +269,17 @@ def main() -> int:
             % (b, r["ms"], b / r["ms"], r["plain_ms"], r["bound_ms"],
                r["bound_by"], r["mismatches"]))
 
-    # kernel time at the ladder's other buckets, for the drain breakdown
-    ladder = BV.CudaSigVerifier.BUCKETS
     kernel_ms = {b: r["ms"] for b, r in buckets.items()}
-    for b in ladder:
-        if b not in kernel_ms:
-            prep = E.prepare_batch(*map(list, zip(*corpus[:b])))
-            args_b = tuple(torch.from_numpy(prep[k]).cuda()
-                           for k in E.ARG_KEYS)
-            kernel_ms[b] = time_cuda(lambda: E.verify_kernel(*args_b),
-                                     reps=50)
-    log("kernel ed25519_verify ms by bucket: " + ", ".join(
-        "%d: %.4f" % (b, kernel_ms[b]) for b in ladder))
+
+    # --- the model entry, on the card -------------------------------------
+    fwd, entry_args = entry()
+    out = fwd(*entry_args)
+    torch.cuda.synchronize()
+    check(out.device.type == "cuda" and tuple(out.shape) == (128,)
+          and bool(out.all()), "entry()'s forward accepts its batch on "
+          "the card")
+    log("entry(): forward of %d signatures on %s, all accepted"
+        % (out.shape[0], out.device))
 
     # --- the main path ----------------------------------------------------
     K.flush_verify_cache()
@@ -275,12 +313,10 @@ def main() -> int:
         prep_s += time.perf_counter() - t0
     kern_s = (DRAIN_CHUNKS * kernel_ms[DRAIN_CHUNK]
               + kernel_ms[v._bucket(DRAIN_TAIL)]) / 1e3
-    log("drain breakdown: cache keys %.1f ms, host prep %.1f ms, kernel "
-        "%.1f ms, rest (padding, copies, Python) %.1f ms; device busy "
-        "%.1f%% of the drain"
-        % (keys_s * 1e3, prep_s * 1e3, kern_s * 1e3,
-           (drain_s - keys_s - prep_s - kern_s) * 1e3,
-           100.0 * kern_s / drain_s))
+    log("drain layers timed alone (estimates; they need not sum to the "
+        "drain): cache keys %.1f ms, host prep %.1f ms, kernel %.1f ms "
+        "(CUDA events by bucket)"
+        % (keys_s * 1e3, prep_s * 1e3, kern_s * 1e3))
 
     lat = []
     pos = 0
@@ -307,6 +343,23 @@ def main() -> int:
         % (BURSTS, BURST_MIN, BURST_MAX, float(np.percentile(lat, 50)),
            float(np.percentile(lat, 99)), len(lat)))
     log("main path kernel launches: ed25519_verify %d" % launches)
+
+    # --- the drain again, from an empty cache, under the profiler ----------
+    K.flush_verify_cache()
+    prof = profile_drain(lambda: v.prewarm_many(drain))
+    check(prof["result"] == drain_expect, "profiled drain decisions")
+    if prof["device_events"]:
+        log("profiled drain: %.3f ms wall, card busy %.3f ms = %.2f%% "
+            "(idle %.2f%%); ed25519_verify_kernel %d launches, %.3f ms; "
+            "device time by name: %s"
+            % (prof["wall_ms"], prof["busy_ms"],
+               100.0 * prof["busy_ms"] / prof["wall_ms"],
+               100.0 - 100.0 * prof["busy_ms"] / prof["wall_ms"],
+               prof["kernel_launches"], prof["kernel_ms"],
+               ", ".join("%s %.3f ms" % kv for kv in prof["by_name"])))
+    else:
+        log("profiled drain: %.3f ms wall; the profiler recorded no device "
+            "activity, so the busy share is not measured" % prof["wall_ms"])
 
     main_b = buckets[DRAIN_CHUNK]
     log(json.dumps({"kernels": [{

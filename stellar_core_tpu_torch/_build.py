@@ -1,7 +1,7 @@
 """Builds the port's native code at first use, into `build/` beside this file.
 
-- `csrc/*.cu`: one `nvcc` run per source, all started together, each into
-  its own shared library with a plain C interface (loaded with ctypes).
+- `csrc/*.cu`: one `nvcc` run per source, each into its own shared
+  library with a plain C interface (loaded with ctypes).
   Target `sm_90a` (Hopper). `-Xptxas -v` output (registers, spills) is
   kept beside each library as `<name>.log`.
 - `native/ed25519c.c`: the CPU ed25519 library, built with `cc`.
@@ -65,39 +65,27 @@ def build_cuda() -> Dict[str, str]:
         if not sources:
             raise RuntimeError("no CUDA sources under %s" % CSRC_DIR)
         libs: Dict[str, str] = {}
-        todo = []
         for src in sources:
             stem = os.path.splitext(os.path.basename(src))[0]
             so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (
                 stem, _digest([src] + headers, " ".join(NVCC_FLAGS))))
             libs[stem] = so
-            if not os.path.exists(so):
-                todo.append((stem, src, so))
-        nvcc = find_nvcc() if todo else ""
-        running = []
-        try:
-            for stem, src, so in todo:
-                tmp = "%s.tmp%d" % (so, os.getpid())
-                log_path = so[:-3] + ".log"
-                log = open(log_path, "w")
-                proc = subprocess.Popen(
-                    [nvcc] + NVCC_FLAGS + ["-o", tmp, src],
-                    stdout=log, stderr=subprocess.STDOUT, cwd=CSRC_DIR)
-                running.append((stem, proc, log, log_path, tmp, so))
-            for stem, proc, log, log_path, tmp, so in running:
-                rc = proc.wait(timeout=NVCC_TIMEOUT_S)
-                log.close()
-                if rc != 0:
-                    with open(log_path) as fh:
-                        raise RuntimeError("nvcc failed for %s (rc %d):\n%s"
-                                           % (stem, rc, fh.read()[-8000:]))
+            if os.path.exists(so):
+                continue
+            tmp = "%s.tmp%d" % (so, os.getpid())
+            try:
+                r = subprocess.run([find_nvcc()] + NVCC_FLAGS
+                                   + ["-o", tmp, src],
+                                   capture_output=True, text=True,
+                                   timeout=NVCC_TIMEOUT_S, cwd=CSRC_DIR)
+                with open(so[:-3] + ".log", "w") as fh:
+                    fh.write(r.stdout + r.stderr)
+                if r.returncode != 0:
+                    raise RuntimeError("nvcc failed for %s (rc %d):\n%s"
+                                       % (stem, r.returncode,
+                                          (r.stdout + r.stderr)[-8000:]))
                 os.replace(tmp, so)   # atomic: concurrent builds agree
-        finally:
-            for _stem, proc, log, _lp, tmp, _so in running:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.close()
+            finally:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         _CUDA_LIBS.update(libs)

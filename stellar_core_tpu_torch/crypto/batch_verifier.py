@@ -219,9 +219,10 @@ class CudaSigVerifier(BatchSigVerifier):
         return out
 
 
-def make_verifier(backend: str = "cpu", max_pending: int = 8192,
+def make_verifier(backend: str = "cuda", max_pending: int = 8192,
                   device=None) -> BatchSigVerifier:
-    """Backend selection by name: "cpu" or "cuda"."""
+    """Backend selection by name: "cuda" (the default; it raises without
+    a card unless `device="cpu"` is given) or "cpu" (the C verifier)."""
     if backend == "cpu":
         return CpuSigVerifier()
     if backend == "cuda":

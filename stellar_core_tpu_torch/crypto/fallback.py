@@ -1,18 +1,13 @@
-"""Self-contained crypto fallbacks for containers without `cryptography`.
+"""Self-contained ed25519 fallback for hosts without a C compiler.
 
-Copied from `stellar_core_tpu/crypto/fallback.py` at commit 6685f6a; carry
-a fix in either copy to the other. In this package it backs crypto/keys.py
-where no C compiler exists.
+Copied from `stellar_core_tpu/crypto/fallback.py` at commit 6685f6a, its
+ed25519 part only (the X25519 and ChaCha20-Poly1305 parts wait for the
+overlay slice); carry a fix in either copy to the other. In this package
+it backs crypto/keys.py where no C compiler exists.
 
-The CPU crypto boundary (keys.py, curve25519.py) prefers OpenSSL via the
-`cryptography` package; when that package is absent this module supplies
-the same primitives with identical accept/reject semantics:
-
-- ed25519 sign/verify/public — RFC 8032 cofactorless, rejecting
-  non-canonical S and non-canonical point encodings, byte-for-byte the
-  decisions of `ops.ed25519.verify_oracle` (the repo's semantics oracle).
-- X25519 ECDH (RFC 7748) for overlay peer session keys.
-- ChaCha20-Poly1305 AEAD (RFC 8439) for sealed survey responses.
+ed25519 sign/verify/public — RFC 8032 cofactorless, rejecting
+non-canonical S and non-canonical point encodings, byte-for-byte the
+decisions of `ops.ed25519.verify_oracle` (the repo's semantics oracle).
 
 Dispatch order: the native C implementation (native/ed25519c.c, loaded
 via ctypes like prep.c) when a compiler is available, else the pure-
@@ -29,7 +24,6 @@ CPU legs run in hermetic containers.
 from __future__ import annotations
 
 import hashlib
-import struct
 from typing import Optional
 
 # --- curve constants (python ints; match ops/ed25519.py) -------------------
@@ -183,170 +177,3 @@ def ed25519_verify(pub: bytes, sig: bytes, msg: bytes) -> bool:
         return lib.verify(pub, sig, msg)
     return _py_verify(pub, sig, msg)
 
-
-# --- X25519 (RFC 7748) ------------------------------------------------------
-
-_A24 = 121665
-
-
-def _x25519_ladder(k_int: int, u_int: int) -> int:
-    x1 = u_int % P
-    x2, z2, x3, z3 = 1, 0, x1, 1
-    swap = 0
-    for t in range(254, -1, -1):
-        kt = (k_int >> t) & 1
-        if swap ^ kt:
-            x2, x3 = x3, x2
-            z2, z3 = z3, z2
-        swap = kt
-        a = (x2 + z2) % P
-        aa = a * a % P
-        b = (x2 - z2) % P
-        bb = b * b % P
-        e = (aa - bb) % P
-        c = (x3 + z3) % P
-        d = (x3 - z3) % P
-        da = d * a % P
-        cb = c * b % P
-        x3 = (da + cb) % P
-        x3 = x3 * x3 % P
-        z3 = (da - cb) % P
-        z3 = z3 * z3 % P * x1 % P
-        x2 = aa * bb % P
-        z2 = e * (aa + _A24 * e) % P
-    if swap:
-        x2, x3 = x3, x2
-        z2, z3 = z3, z2
-    return x2 * pow(z2, P - 2, P) % P
-
-
-def _x25519(scalar32: bytes, u32: bytes) -> bytes:
-    k = bytearray(scalar32)
-    k[0] &= 248
-    k[31] &= 127
-    k[31] |= 64
-    k_int = int.from_bytes(bytes(k), "little")
-    u_int = int.from_bytes(u32, "little") & ((1 << 255) - 1)
-    return _x25519_ladder(k_int, u_int).to_bytes(32, "little")
-
-
-_X25519_BASE = (9).to_bytes(32, "little")
-
-
-def x25519_public(secret32: bytes) -> bytes:
-    from ..native import ed25519_native
-    lib = ed25519_native()
-    if lib is not None:
-        return lib.x25519(secret32, _X25519_BASE)
-    return _x25519(secret32, _X25519_BASE)
-
-
-def x25519_shared(secret32: bytes, public32: bytes) -> bytes:
-    """Raises ValueError on an all-zero shared secret (small-order peer
-    point), matching `cryptography`'s X25519PrivateKey.exchange."""
-    from ..native import ed25519_native
-    lib = ed25519_native()
-    out = (lib.x25519(secret32, public32) if lib is not None
-           else _x25519(secret32, public32))
-    if out == b"\x00" * 32:
-        raise ValueError("X25519 shared secret is all zeros")
-    return out
-
-
-# --- ChaCha20-Poly1305 (RFC 8439) ------------------------------------------
-
-def _rotl32(v: int, c: int) -> int:
-    return ((v << c) | (v >> (32 - c))) & 0xFFFFFFFF
-
-
-def _chacha_block(key: bytes, counter: int, nonce: bytes) -> bytes:
-    st = list(struct.unpack("<4I", b"expand 32-byte k"))
-    st += list(struct.unpack("<8I", key))
-    st.append(counter & 0xFFFFFFFF)
-    st += list(struct.unpack("<3I", nonce))
-    ws = st[:]
-
-    def qr(a, b, c, d):
-        ws[a] = (ws[a] + ws[b]) & 0xFFFFFFFF
-        ws[d] = _rotl32(ws[d] ^ ws[a], 16)
-        ws[c] = (ws[c] + ws[d]) & 0xFFFFFFFF
-        ws[b] = _rotl32(ws[b] ^ ws[c], 12)
-        ws[a] = (ws[a] + ws[b]) & 0xFFFFFFFF
-        ws[d] = _rotl32(ws[d] ^ ws[a], 8)
-        ws[c] = (ws[c] + ws[d]) & 0xFFFFFFFF
-        ws[b] = _rotl32(ws[b] ^ ws[c], 7)
-
-    for _ in range(10):
-        qr(0, 4, 8, 12)
-        qr(1, 5, 9, 13)
-        qr(2, 6, 10, 14)
-        qr(3, 7, 11, 15)
-        qr(0, 5, 10, 15)
-        qr(1, 6, 11, 12)
-        qr(2, 7, 8, 13)
-        qr(3, 4, 9, 14)
-    return struct.pack("<16I", *((w + s) & 0xFFFFFFFF
-                                 for w, s in zip(ws, st)))
-
-
-def _chacha20(key: bytes, counter: int, nonce: bytes, data: bytes) -> bytes:
-    out = bytearray()
-    for i in range(0, len(data), 64):
-        ks = _chacha_block(key, counter + i // 64, nonce)
-        chunk = data[i:i + 64]
-        out += bytes(a ^ b for a, b in zip(chunk, ks))
-    return bytes(out)
-
-
-def _poly1305(key32: bytes, msg: bytes) -> bytes:
-    r = int.from_bytes(key32[:16], "little") & \
-        0x0FFFFFFC0FFFFFFC0FFFFFFC0FFFFFFF
-    s = int.from_bytes(key32[16:], "little")
-    pp = (1 << 130) - 5
-    acc = 0
-    for i in range(0, len(msg), 16):
-        blk = msg[i:i + 16]
-        n = int.from_bytes(blk + b"\x01", "little")
-        acc = (acc + n) * r % pp
-    return ((acc + s) & ((1 << 128) - 1)).to_bytes(16, "little")
-
-
-def _pad16(b: bytes) -> bytes:
-    return b"\x00" * (-len(b) % 16)
-
-
-def _aead_tag(key: bytes, nonce: bytes, aad: bytes, ct: bytes) -> bytes:
-    poly_key = _chacha_block(key, 0, nonce)[:32]
-    mac_data = (aad + _pad16(aad) + ct + _pad16(ct) +
-                struct.pack("<QQ", len(aad), len(ct)))
-    return _poly1305(poly_key, mac_data)
-
-
-class ChaCha20Poly1305:
-    """Drop-in for cryptography.hazmat.primitives.ciphers.aead's class
-    (the two methods SurveyManager's sealed boxes use)."""
-
-    def __init__(self, key: bytes) -> None:
-        if len(key) != 32:
-            raise ValueError("ChaCha20Poly1305 key must be 32 bytes")
-        self._key = key
-
-    def encrypt(self, nonce: bytes, data: bytes, aad: bytes) -> bytes:
-        aad = aad or b""
-        ct = _chacha20(self._key, 1, nonce, data)
-        return ct + _aead_tag(self._key, nonce, aad, ct)
-
-    def decrypt(self, nonce: bytes, data: bytes, aad: bytes) -> bytes:
-        aad = aad or b""
-        if len(data) < 16:
-            raise ValueError("ciphertext too short")
-        ct, tag = data[:-16], data[-16:]
-        want = _aead_tag(self._key, nonce, aad, ct)
-        if not _consteq(want, tag):
-            raise ValueError("authentication tag mismatch")
-        return _chacha20(self._key, 1, nonce, ct)
-
-
-def _consteq(a: bytes, b: bytes) -> bool:
-    import hmac
-    return hmac.compare_digest(a, b)

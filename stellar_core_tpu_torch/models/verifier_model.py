@@ -45,11 +45,19 @@ def device_args(pubs: List[bytes], sigs: List[bytes],
                  for k in E.ARG_KEYS)
 
 
-def forward(ay, a_sign, ry, r_sign, s_nibs, k_nibs) -> torch.Tensor:
-    """The forward step: (B, ...) int32 tensors → (B,) bool, on the
-    tensors' device (the CUDA kernel on the card, the plain version on
-    the CPU)."""
-    return E.verify_kernel(ay, a_sign, ry, r_sign, s_nibs, k_nibs)
+def forward(ay, a_sign, ry, r_sign, s_nibs, k_nibs,
+            device=None) -> torch.Tensor:
+    """The forward step: (B, ...) int32 tensors → (B,) bool. It moves its
+    arguments to `device` and runs there: the card by default, where it
+    launches the CUDA kernel, and it raises when there is no card. Only a
+    caller that asks for `device="cpu"` gets the kernel's plain version."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "forward needs a CUDA device; none is available (pass "
+            "device='cpu' to run the kernel's plain version)")
+    return E.verify_kernel(*(a.to(dev) for a in (ay, a_sign, ry, r_sign,
+                                                 s_nibs, k_nibs)))
 
 
 def fixed_table_from_jax(np_table: np.ndarray

@@ -60,11 +60,6 @@ class _Ed25519Native:
             out.ctypes.data_as(ctypes.c_void_p))
         return out.astype(bool).tolist()
 
-    def x25519(self, scalar: bytes, u: bytes) -> bytes:
-        out = ctypes.create_string_buffer(32)
-        self._lib.sct_x25519(scalar, u, out)
-        return out.raw
-
 
 def ed25519_native() -> Optional[_Ed25519Native]:
     """Build + load the native ed25519 library; None only when the host
@@ -90,8 +85,6 @@ def ed25519_native() -> Optional[_Ed25519Native]:
             lib.sct_ed25519_verify_batch.argtypes = [
                 ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-            lib.sct_x25519.argtypes = [
-                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p]
             if lib.sct_ed25519_init() != 0:
                 raise RuntimeError("sct_ed25519_init failed")
             _ED_LIB = _Ed25519Native(lib)

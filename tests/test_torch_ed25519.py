@@ -215,4 +215,15 @@ def test_entry_matches_reference_entry():
     for a, r in zip(args, ref_args):
         assert a.device.type == "cpu"
         np.testing.assert_array_equal(a.numpy(), np.asarray(r))
-    assert fwd(*args).all()
+    assert fwd.keywords == {"device": None}   # the card, by default
+    fwd_cpu, _ = entry(device="cpu")
+    assert fwd_cpu(*args).all()
+
+
+def test_entry_forward_without_a_card_raises(monkeypatch):
+    """The entry's forward runs on the card unless the caller asks for the
+    CPU: with no card it raises instead of computing on the CPU."""
+    fwd, args = entry()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fwd(*args)

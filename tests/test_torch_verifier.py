@@ -148,6 +148,8 @@ def test_cuda_verifier_without_a_card_raises():
         CudaSigVerifier()
     with pytest.raises(RuntimeError, match="CUDA"):
         make_verifier("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_verifier()
 
 
 def test_make_verifier_backends():
