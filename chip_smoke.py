@@ -6,9 +6,12 @@ one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
-sources in the checkout, then:
+sources in the checkout (one nvcc per source, all started together), then
+drives two paths.
 
-1. holds each kernel against its plain PyTorch version on the card, on the
+The verify path (`ed25519_verify`):
+
+1. holds the kernel against its plain PyTorch version on the card, on the
    same inputs, at every bucket of the verifier's ladder (128, 512, 2048
    and 8192; the main path launches at 128, 2048 and 8192): the
    adversarial ed25519 vectors plus a seeded corpus in which every 7th
@@ -29,17 +32,41 @@ sources in the checkout, then:
    and reads the card's busy share and the kernel's device time from the
    trace.
 
-It prints the card's name and power limit, the build time, per-bucket
-kernel and plain-version times (CUDA events), drain throughput, its
-host layers timed alone, the profiled drain's device busy share, flush
-latency, a `{"kernels": [...]}` line and, last, `{"ok": true, "device":
-{...}}`. Any failed check raises (exit code 1) and prints no result; so
-does a machine without CUDA.
+The hash path (`sha256`):
+
+5. holds the kernel against its plain version on the card at all 15
+   (lanes x blocks) shapes of the hasher's ladder (256/1024/4096 x
+   1/2/4/8/16): every FIPS boundary length that fits, random lengths up to
+   the block bucket, and padding lanes of garbage words with count 0. All
+   8 words of every lane must be equal, and every real lane must equal
+   hashlib. Tolerance: none (a digest one bit off forks consensus). Each
+   shape's kernel time (CUDA events), bound, plain time and single-thread
+   hashlib time on the same batch are printed;
+6. drives the main path with the counts set to 0 just before and read
+   just after: a deep-level entry-root drain of 2^20 bucket-entry leaves
+   (protocol-13 XDR, 60 % accounts, 25 % trustlines, 10 % offers, 4 % data
+   entries, 1 % accounts with 1-20 signers; testing/entries.py) through
+   `make_hasher("cuda")` and `merkle_root`, every leaf and the root equal
+   to hashlib's; then 20 per-close drains of 1,000 leaves through
+   `entry_root`, each root equal to hashlib's;
+7. times the drain's layers alone on the same data (leaf assembly, host
+   padding, host->device, kernel, device->host, digests_to_bytes, Merkle
+   interior), runs the drain once more under `torch.profiler` for the
+   card's busy share, and sends messages shaped like the reference's
+   mixed test batch (two oversize lengths) through `CudaBatchHasher` on the
+   card, which must hash the 6 oversize ones on the host.
+
+It prints the card's name and power limit, the build time, the kernels'
+times, the paths' throughput and latency, their host layers timed alone,
+the profiled drains' device busy share, a `{"kernels": [...]}` line and,
+last, `{"ok": true, "device": {...}}`. Any failed check raises (exit code
+1) and prints no result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -51,6 +78,9 @@ DRAIN_CHUNK, DRAIN_CHUNKS, DRAIN_TAIL = 8192, 3, 1000
 BURSTS, BURST_MIN, BURST_MAX = 20, 100, 128
 CORRUPT_EVERY = 7
 N_KEYS = 256
+# time_cuda's sleep per timed launch: about 100 us at 2 GHz, several times
+# the host's cost of one launch through a wrapper
+SLEEP_CYCLES_PER_REP = 200_000
 
 # Peak rates of the card used for bound_ms. Integer multiply: Hopper issues
 # 64 32-bit integer multiply-adds per clock per SM (half its 128 FP32
@@ -69,6 +99,22 @@ FE_MUL_PER_VERIFY = 2 * 19 + 2 + 40 + 64 * 20 + 1 + 64 * 7 + 2
 FE_SQ_PER_VERIFY = 2 * 255 + 16 + 64 * 16
 PRODUCTS_PER_VERIFY = 100 * FE_MUL_PER_VERIFY + 55 * FE_SQ_PER_VERIFY
 IN_BYTES_PER_VERIFY = 4 * (20 + 1 + 20 + 1 + 64 + 64) + 1   # inputs + out
+
+# SHA-256: integer instructions per 64-byte block, counted from
+# csrc/sha256.cu with each C operation as the one SASS instruction it can
+# become (rotate = one funnel shift, three-input xor/and/or = one LOP3,
+# three-term add = one IADD3): 64 rounds of 14, 48 schedule steps of 10,
+# 8 final adds. Hopper issues 64 INT32 operations per clock per SM.
+# Bytes per message: its real blocks (64 B each), its count (4 B) and its
+# digest (32 B).
+INT32_PER_CLOCK_PER_SM = 64
+INSTR_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+HASH_LANES = (256, 1024, 4096)
+HASH_BLOCKS = (1, 2, 4, 8, 16)
+FIPS_LENS = (0, 55, 56, 63, 64, 119, 120, 1015)
+DRAIN_LEAVES = 1 << 20
+HASH_MAIN_SHAPE = "4096x2"     # most of the drain's chunks: 2-block leaves
+CLOSES, CLOSE_LEAVES = 20, 1000
 
 
 def log(msg: str) -> None:
@@ -113,24 +159,37 @@ def make_corpus(rng: np.random.Generator, n: int, keys: list) -> tuple:
 
 
 def time_cuda(fn, reps: int) -> float:
-    """Mean ms of fn() over reps launches, after one warm-up call."""
+    """Mean device ms of fn() over reps launches, after one warm-up call.
+    A sleep kernel holds the stream while the host enqueues the launches,
+    so they run back to back on the card and the wrapper's host time per
+    launch (tens of us, more than a small kernel takes) is not counted.
+    If the card reached the start event before the host had enqueued every
+    launch, the sleep is doubled and the measurement taken again."""
     import torch
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = SLEEP_CYCLES_PER_REP * reps
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        all_queued = not start.query()
+        torch.cuda.synchronize()
+        if all_queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
 
 
-def profile_drain(run) -> dict:
+def profile_drain(run, kernel: str) -> dict:
     """run() under torch.profiler (CPU and CUDA activity): its result, its
     host wall time, and from the trace the card's busy time (the union of
-    all device activity), the verify kernel's launches and device time,
-    and the device time of the five largest names."""
+    all device activity), the launches and device time of the kernel
+    whose name contains `kernel`, and the device time of the five largest
+    names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -149,7 +208,7 @@ def profile_drain(run) -> dict:
     by_name: dict = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    kern = [e for e in dev if "ed25519_verify_kernel" in e.name]
+    kern = [e for e in dev if kernel in e.name]
     return {"result": result, "wall_ms": wall_ms, "device_events": len(dev),
             "busy_ms": busy_us / 1e3, "kernel_launches": len(kern),
             "kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3,
@@ -192,6 +251,218 @@ def kernel_vs_plain(E, vectors: list, corpus: list, bucket: int,
             else "bytes"}
 
 
+def log_profile(what: str, prof: dict, kernel: str) -> None:
+    if prof["device_events"]:
+        log("profiled %s: %.3f ms wall, card busy %.3f ms = %.2f%% "
+            "(idle %.2f%%); %s %d launches, %.3f ms; device time by name: "
+            "%s" % (what, prof["wall_ms"], prof["busy_ms"],
+                    100.0 * prof["busy_ms"] / prof["wall_ms"],
+                    100.0 - 100.0 * prof["busy_ms"] / prof["wall_ms"],
+                    kernel, prof["kernel_launches"], prof["kernel_ms"],
+                    ", ".join("%s %.3f ms" % kv for kv in prof["by_name"])))
+    else:
+        log("profiled %s: %.3f ms wall; the profiler recorded no device "
+            "activity, so the busy share is not measured"
+            % (what, prof["wall_ms"]))
+
+
+def hash_bound(real_blocks: int, lanes: int, props) -> tuple:
+    """(bound ms, "operations" or "bytes") of one SHA-256 launch."""
+    ops_s = props["sms"] * INT32_PER_CLOCK_PER_SM * props["clock_hz"]
+    ops_ms = INSTR_PER_BLOCK * real_blocks / ops_s * 1e3
+    bytes_ms = (64 * real_blocks + 36 * lanes) / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def hash_batch(S, rng: np.random.Generator, lanes: int, blocks: int):
+    """One ladder shape's batch: every FIPS boundary length that fits, then
+    random lengths up to the block bucket (ragged counts), then padding
+    lanes (a tenth) of garbage words with count 0. Returns (messages,
+    words uint32, counts int32)."""
+    n = lanes - lanes // 10
+    fits = [x for x in FIPS_LENS if S.blocks_for_len(x) <= blocks]
+    lens = fits + [int(x) for x in rng.integers(0, 64 * blocks - 8,
+                                                n - len(fits))]
+    msgs = [rng.bytes(x) for x in lens]
+    words = rng.integers(0, 1 << 32, (lanes, blocks, 16),
+                         dtype=np.uint64).astype(np.uint32)
+    counts = np.zeros((lanes,), np.int32)
+    words[:n], counts[:n] = S.pad_messages_np(msgs, blocks)
+    return msgs, words, counts
+
+
+def hash_kernel_vs_plain(S, rng, lanes: int, blocks: int, props) -> dict:
+    """The SHA-256 kernel against hash_blocks_plain on the same CUDA
+    tensors at one ladder shape; their times, hashlib's and the bound."""
+    import torch
+    msgs, words, counts = hash_batch(S, rng, lanes, blocks)
+    w = torch.from_numpy(words.view(np.int32)).cuda()
+    c = torch.from_numpy(counts).cuda()
+    got = S.hash_blocks_kernel(w, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = S.hash_blocks_plain(w, c)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mismatches = int((got != want).sum())
+    check(mismatches == 0, "sha256 kernel == plain at %dx%d (%d words "
+          "differ)" % (lanes, blocks, mismatches))
+    host = got.cpu().numpy().view(np.uint32)
+    t0 = time.perf_counter()
+    oracle = [hashlib.sha256(m).digest() for m in msgs]
+    hashlib_ms = (time.perf_counter() - t0) * 1e3
+    check(S.digests_to_bytes(host[:len(msgs)]) == oracle,
+          "sha256 kernel == hashlib at %dx%d" % (lanes, blocks))
+    check((host[len(msgs):] == S._H0).all(),
+          "padding lanes keep H0 at %dx%d" % (lanes, blocks))
+    ms = time_cuda(lambda: S.hash_blocks_kernel(w, c), reps=200)
+    bound_ms, bound_by = hash_bound(int(counts.sum()), lanes, props)
+    return {"ms": ms, "plain_ms": plain_ms, "hashlib_ms": hashlib_ms,
+            "mismatches": mismatches, "real_blocks": int(counts.sum()),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def hash_drain_layers(S, hasher, records: list) -> dict:
+    """The entry-leaf drain's layers timed alone on the host clock, on the
+    same data, one chunk at a time as hash_many runs them, with a
+    synchronise after each device step: ms per layer. The kernel's device
+    time comes from the profiled drain."""
+    import torch
+    t = dict.fromkeys(("leaf assembly", "plan", "host padding",
+                       "host->device", "launch + kernel",
+                       "device->host", "digests_to_bytes"), 0.0)
+    t0 = time.perf_counter()
+    msgs = [b"\x00" + r for r in records]
+    t1 = time.perf_counter()
+    _over, chunks = hasher.plan([S.blocks_for_len(len(m)) for m in msgs])
+    t2 = time.perf_counter()
+    t["leaf assembly"] += t1 - t0
+    t["plan"] += t2 - t1
+    for idx, lanes, blk in chunks:
+        t0 = time.perf_counter()
+        words, counts = hasher.stage([msgs[i] for i in idx], lanes, blk)
+        t1 = time.perf_counter()
+        w = torch.from_numpy(words).to(hasher.device)
+        c = torch.from_numpy(counts).to(hasher.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dig = S.hash_blocks_kernel(w, c)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host = dig[:len(idx)].cpu().numpy().view(np.uint32)
+        t4 = time.perf_counter()
+        S.digests_to_bytes(host)
+        t5 = time.perf_counter()
+        for k, a, b in (("host padding", t0, t1), ("host->device", t1, t2),
+                        ("launch + kernel", t2, t3),
+                        ("device->host", t3, t4),
+                        ("digests_to_bytes", t4, t5)):
+            t[k] += b - a
+    return {k: v * 1e3 for k, v in t.items()}
+
+
+def hash_path(torch, rng: np.random.Generator, props) -> tuple:
+    """Phases 5-7 of the module docstring: the SHA-256 kernel at every
+    ladder shape, the hash main path, its layers, the profiled drain and
+    the oversize route. Returns (per-shape results, main-path launches)."""
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.ops import ed25519 as E
+    from stellar_core_tpu_torch.ops import sha256 as S
+    from stellar_core_tpu_torch.testing.entries import entry_records
+
+    # --- the SHA-256 kernel against its plain version, every ladder shape --
+    S.hash_blocks_plain(torch.zeros((8, 1, 16), dtype=torch.int32).cuda(),
+                        torch.ones(8, dtype=torch.int32).cuda())
+    shapes = {}
+    for lanes in HASH_LANES:
+        for blk in HASH_BLOCKS:
+            r = hash_kernel_vs_plain(S, rng, lanes, blk, props)
+            shapes["%dx%d" % (lanes, blk)] = r
+            log("kernel sha256 %dx%d: %.4f ms (%.1f blocks/us), plain "
+                "%.1f ms, hashlib (one thread) %.3f ms, bound %.5f ms (%s), "
+                "mismatches %d"
+                % (lanes, blk, r["ms"], r["real_blocks"] / r["ms"] / 1e3,
+                   r["plain_ms"], r["hashlib_ms"], r["bound_ms"],
+                   r["bound_by"], r["mismatches"]))
+
+    # --- the hash path: a deep-level entry-root drain, then per-close ------
+    t0 = time.perf_counter()
+    records = entry_records(rng, DRAIN_LEAVES)
+    log("data: %d bucket-entry records (%d bytes) in %.1f s"
+        % (len(records), sum(map(len, records)), time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    want_leaves = SC.entry_leaves(records)
+    hashlib_s = time.perf_counter() - t0
+    want_root = SC.merkle_root(want_leaves)
+    log("hashlib (one thread): %d leaves in %.3f s = %.0f leaves/s"
+        % (len(records), hashlib_s, len(records) / hashlib_s))
+    hasher = make_hasher("cuda")
+    E.LAUNCHES = S.LAUNCHES = 0
+    t0 = time.perf_counter()
+    leaves = SC.entry_leaves(records, hasher)
+    t1 = time.perf_counter()
+    root = SC.merkle_root(leaves)
+    t2 = time.perf_counter()
+    drain_launches = S.LAUNCHES
+    check(leaves == want_leaves, "every drain leaf == hashlib")
+    check(root == want_root, "drain root == the all-hashlib root")
+    check(hasher.oversize_msgs == 0, "no oversize entry in the drain")
+    check(drain_launches == hasher.batches
+          >= DRAIN_LEAVES // hasher.LANE_BUCKETS[-1],
+          "drain launched %d chunks" % drain_launches)
+    check(E.LAUNCHES == 0, "the hash path launched no verify kernel")
+    log("entry-root drain: %d leaves in %.3f s = %.0f leaves/s (hash_many "
+        "%.3f s, Merkle interior %.3f s); %d launches, %d real blocks, "
+        "%d pad blocks, %d oversize"
+        % (len(records), t2 - t0, len(records) / (t2 - t0), t1 - t0,
+           t2 - t1, drain_launches, hasher.real_blocks, hasher.pad_blocks,
+           hasher.oversize_msgs))
+    lat = []
+    for _ in range(CLOSES):
+        batch = entry_records(rng, CLOSE_LEAVES)
+        want = SC.entry_root(batch)
+        t0 = time.perf_counter()
+        got = SC.entry_root(batch, hasher)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(got == want, "per-close entry root == hashlib")
+    hash_launches = S.LAUNCHES
+    check(hash_launches == drain_launches + CLOSES,
+          "one launch per per-close drain (%d launches)" % hash_launches)
+    check(E.LAUNCHES == 0, "the hash path launched no verify kernel")
+    log("per-close entry_root, %d drains of %d leaves: p50 %.3f ms, "
+        "p99 %.3f ms (p99 of %d samples is their maximum)"
+        % (CLOSES, CLOSE_LEAVES, float(np.percentile(lat, 50)),
+           float(np.percentile(lat, 99)), len(lat)))
+    log("main path kernel launches: sha256 %d" % hash_launches)
+
+    # --- where the drain's time goes; the profiled drain; oversize --------
+    t0 = time.perf_counter()
+    SC.merkle_root(leaves)
+    merkle_ms = (time.perf_counter() - t0) * 1e3
+    layers = hash_drain_layers(S, hasher, records)
+    log("drain layers timed alone (they need not sum to the drain): %s, "
+        "Merkle interior %.1f ms"
+        % (", ".join("%s %.1f ms" % kv for kv in layers.items()),
+           merkle_ms))
+    prof = profile_drain(lambda: SC.entry_root(records, hasher),
+                         "sha256_blocks_kernel")
+    check(prof["result"] == want_root, "profiled drain root")
+    log_profile("entry-root drain", prof, "sha256_blocks_kernel")
+    mixed = [rng.bytes(n) for n in
+             (0, 3, 40, 64, 119, 300, 900, 1015, 1016, 2048)] * 3
+    h2 = make_hasher("cuda")
+    check(h2.hash_many(mixed, site="bench") == S.sha256_batch_host(mixed),
+          "mixed batch with oversize messages == hashlib")
+    check(h2.oversize_msgs == 6 and h2.batches == 1,
+          "6 oversize messages hashed on the host, one launch")
+    log("mixed batch: %d messages, %d oversize on the host, %d launch"
+        % (len(mixed), h2.oversize_msgs, h2.batches))
+
+    return shapes, hash_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -207,6 +478,7 @@ def main() -> int:
     from stellar_core_tpu_torch.crypto import keys as K
     from stellar_core_tpu_torch.native import ed25519_native
     from stellar_core_tpu_torch.ops import ed25519 as E
+    from stellar_core_tpu_torch.ops import sha256 as S
     from stellar_core_tpu_torch.testing.vectors import _vectors
 
     card = nvidia_smi("name,power.limit")
@@ -225,10 +497,13 @@ def main() -> int:
     check(ed25519_native() is not None, "the C CPU verifier builds")
     log("build: %.1f s (%s)" % (time.perf_counter() - t0,
                                 ", ".join(sorted(libs))))
-    with open(libs["ed25519_verify"][:-3] + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "spill" in line:
-                log("ptxas: " + line.strip())
+    check(sorted(libs) == ["ed25519_verify", "sha256"],
+          "both kernels built")
+    for stem in sorted(libs):
+        with open(libs[stem][:-3] + ".log") as fh:
+            for line in fh:
+                if "registers" in line or "spill" in line:
+                    log("ptxas %s: %s" % (stem, line.strip()))
 
     # --- data -------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -284,7 +559,7 @@ def main() -> int:
     # --- the main path ----------------------------------------------------
     K.flush_verify_cache()
     v = BV.make_verifier("cuda")
-    E.LAUNCHES = 0
+    E.LAUNCHES = S.LAUNCHES = 0
     t0 = time.perf_counter()
     got = v.prewarm_many(drain)
     drain_s = time.perf_counter() - t0
@@ -338,6 +613,7 @@ def main() -> int:
     check(launches == drain_launches + BURSTS,
           "one launch per flush (%d launches)" % launches)
     check(launches > 0, "the main path launched the verify kernel")
+    check(S.LAUNCHES == 0, "the verify path launched no hash kernel")
     log("flush latency, 128 bucket, %d bursts of %d-%d: p50 %.3f ms, "
         "p99 %.3f ms (p99 of %d samples is their maximum)"
         % (BURSTS, BURST_MIN, BURST_MAX, float(np.percentile(lat, 50)),
@@ -346,22 +622,15 @@ def main() -> int:
 
     # --- the drain again, from an empty cache, under the profiler ----------
     K.flush_verify_cache()
-    prof = profile_drain(lambda: v.prewarm_many(drain))
+    prof = profile_drain(lambda: v.prewarm_many(drain),
+                         "ed25519_verify_kernel")
     check(prof["result"] == drain_expect, "profiled drain decisions")
-    if prof["device_events"]:
-        log("profiled drain: %.3f ms wall, card busy %.3f ms = %.2f%% "
-            "(idle %.2f%%); ed25519_verify_kernel %d launches, %.3f ms; "
-            "device time by name: %s"
-            % (prof["wall_ms"], prof["busy_ms"],
-               100.0 * prof["busy_ms"] / prof["wall_ms"],
-               100.0 - 100.0 * prof["busy_ms"] / prof["wall_ms"],
-               prof["kernel_launches"], prof["kernel_ms"],
-               ", ".join("%s %.3f ms" % kv for kv in prof["by_name"])))
-    else:
-        log("profiled drain: %.3f ms wall; the profiler recorded no device "
-            "activity, so the busy share is not measured" % prof["wall_ms"])
+    log_profile("drain", prof, "ed25519_verify_kernel")
+
+    shapes, hash_launches = hash_path(torch, rng, props)
 
     main_b = buckets[DRAIN_CHUNK]
+    main_s = shapes[HASH_MAIN_SHAPE]
     log(json.dumps({"kernels": [{
         "name": "ed25519_verify", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
@@ -372,7 +641,18 @@ def main() -> int:
         "library_ms": None, "check": "ok",
         "buckets": {str(b): {k: r[k] for k in ("ms", "plain_ms",
                                                 "bound_ms", "mismatches")}
-                    for b, r in buckets.items()}}]}))
+                    for b, r in buckets.items()}}, {
+        "name": "sha256", "route": "cuda",
+        "source": "stellar_core_tpu_torch/csrc/sha256.cu",
+        "replaces": "stellar_core_tpu/ops/sha256.py:112",
+        "launches": hash_launches,
+        "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
+        "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
+        "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],
+        "library_ms": None, "check": "ok", "main_shape": HASH_MAIN_SHAPE,
+        "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "hashlib_ms",
+                                         "bound_ms", "mismatches")}
+                   for k, r in shapes.items()}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

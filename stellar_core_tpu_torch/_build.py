@@ -1,7 +1,8 @@
 """Builds the port's native code at first use, into `build/` beside this file.
 
-- `csrc/*.cu`: one `nvcc` run per source, each into its own shared
-  library with a plain C interface (loaded with ctypes).
+- `csrc/*.cu`: one `nvcc` run per source, all started together, each
+  into its own shared library with a plain C interface (loaded with
+  ctypes).
   Target `sm_90a` (Hopper). `-Xptxas -v` output (registers, spills) is
   kept beside each library as `<name>.log`.
 - `native/ed25519c.c`: the CPU ed25519 library, built with `cc`.
@@ -54,8 +55,9 @@ def find_nvcc() -> str:
 
 
 def build_cuda() -> Dict[str, str]:
-    """Build every `csrc/*.cu` (each with all `csrc/*.cuh` in its hash);
-    return {source stem: shared-library path}."""
+    """Build every `csrc/*.cu` (each with all `csrc/*.cuh` in its hash),
+    one `nvcc` process per source, all started together; return {source
+    stem: shared-library path}. Any failed build raises."""
     with _LOCK:
         if _CUDA_LIBS:
             return dict(_CUDA_LIBS)
@@ -65,27 +67,35 @@ def build_cuda() -> Dict[str, str]:
         if not sources:
             raise RuntimeError("no CUDA sources under %s" % CSRC_DIR)
         libs: Dict[str, str] = {}
-        for src in sources:
-            stem = os.path.splitext(os.path.basename(src))[0]
-            so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (
-                stem, _digest([src] + headers, " ".join(NVCC_FLAGS))))
-            libs[stem] = so
-            if os.path.exists(so):
-                continue
-            tmp = "%s.tmp%d" % (so, os.getpid())
-            try:
-                r = subprocess.run([find_nvcc()] + NVCC_FLAGS
-                                   + ["-o", tmp, src],
-                                   capture_output=True, text=True,
-                                   timeout=NVCC_TIMEOUT_S, cwd=CSRC_DIR)
-                with open(so[:-3] + ".log", "w") as fh:
-                    fh.write(r.stdout + r.stderr)
-                if r.returncode != 0:
+        jobs = []      # (stem, library, temporary output, process)
+        try:
+            for src in sources:
+                stem = os.path.splitext(os.path.basename(src))[0]
+                so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (
+                    stem, _digest([src] + headers, " ".join(NVCC_FLAGS))))
+                libs[stem] = so
+                if os.path.exists(so):
+                    continue
+                tmp = "%s.tmp%d" % (so, os.getpid())
+                with open(so[:-3] + ".log", "w") as log:
+                    proc = subprocess.Popen(
+                        [find_nvcc()] + NVCC_FLAGS + ["-o", tmp, src],
+                        stdout=log, stderr=subprocess.STDOUT, cwd=CSRC_DIR)
+                jobs.append((stem, so, tmp, proc))
+            for stem, so, tmp, proc in jobs:
+                proc.wait(timeout=NVCC_TIMEOUT_S)
+                with open(so[:-3] + ".log") as fh:
+                    out = fh.read()
+                if proc.returncode != 0:
                     raise RuntimeError("nvcc failed for %s (rc %d):\n%s"
-                                       % (stem, r.returncode,
-                                          (r.stdout + r.stderr)[-8000:]))
+                                       % (stem, proc.returncode,
+                                          out[-8000:]))
                 os.replace(tmp, so)   # atomic: concurrent builds agree
-            finally:
+        finally:
+            for _stem, _so, tmp, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
         _CUDA_LIBS.update(libs)

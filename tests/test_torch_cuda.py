@@ -1,26 +1,34 @@
-"""The CUDA verify kernel on the card (marked `cuda`; skipped without one).
+"""The CUDA kernels on the card (marked `cuda`; skipped without one).
 
 Run on a machine with a CUDA card (no JAX needed):
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-The kernel's decisions must equal its plain version's on the same CUDA
-tensors, lane for lane (adversarial vectors plus a seeded corpus), the
-wrapper must count each launch and reject what the kernel does not take,
-and `CudaSigVerifier` on its default device must match the CPU verifier.
-Tolerance: none.
+The verify kernel's decisions must equal its plain version's on the same
+CUDA tensors, lane for lane (adversarial vectors plus a seeded corpus);
+the SHA-256 kernel's digest words must equal its plain version's, every
+lane including padding lanes and out-of-range counts, and hashlib's. Each
+wrapper must count each launch and reject what its kernel does not take,
+and `CudaSigVerifier` / `CudaBatchHasher` on their default device must
+match the CPU backends. Tolerance: none.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import hashlib
+
 from stellar_core_tpu_torch.crypto import keys as K
+from stellar_core_tpu_torch.crypto.batch_hasher import (
+    CudaBatchHasher, make_hasher,
+)
 from stellar_core_tpu_torch.crypto.batch_verifier import (
     CpuSigVerifier, CudaSigVerifier,
 )
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.ops import ed25519 as E
+from stellar_core_tpu_torch.ops import sha256 as S
 from stellar_core_tpu_torch.testing.vectors import _vectors
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +99,66 @@ def test_cuda_verifier_matches_cpu(card):
     assert v.verify_many(triples) == CpuSigVerifier().verify_many(triples)
     assert v.batches_dispatched == 1
     K.flush_verify_cache()
+
+
+# --- SHA-256 ------------------------------------------------------------------
+
+def _hash_args(lanes: int, blocks: int, device, seed: int = 13):
+    """Real padded messages in most lanes, then lanes of random words with
+    counts in [-1, blocks + 3]."""
+    rng = np.random.default_rng(seed)
+    n = max(1, lanes * 3 // 4)
+    msgs = [rng.bytes(int(x)) for x in rng.integers(0, 64 * blocks - 8, n)]
+    words = rng.integers(0, 1 << 32, (lanes, blocks, 16),
+                         dtype=np.uint64).astype(np.uint32)
+    counts = rng.integers(-1, blocks + 4, lanes).astype(np.int32)
+    words[:n], counts[:n] = S.pad_messages_np(msgs, blocks)
+    return msgs, (torch.from_numpy(words.view(np.int32)).to(device),
+                  torch.from_numpy(counts).to(device))
+
+
+@pytest.mark.parametrize("lanes,blocks", [(1, 1), (33, 2), (256, 16),
+                                          (4096, 2), (1000, 5)])
+def test_sha256_kernel_matches_plain_on_card(card, lanes, blocks):
+    msgs, args = _hash_args(lanes, blocks, card)
+    before = S.LAUNCHES
+    got = S.hash_blocks_kernel(*args)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, S.hash_blocks_plain(*args))
+    host = got.cpu().numpy().view(np.uint32)
+    assert S.digests_to_bytes(host[:len(msgs)]) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+
+
+def test_sha256_empty_batch_launches_nothing(card):
+    _msgs, (w, c) = _hash_args(4, 1, card)
+    before = S.LAUNCHES
+    out = S.hash_blocks_kernel(w[:0], c[:0])
+    assert out.shape == (0, 8) and S.LAUNCHES == before
+
+
+def test_sha256_wrapper_rejects_mixed_devices_and_misalignment(card):
+    _msgs, (w, c) = _hash_args(4, 2, card)
+    with pytest.raises(ValueError):
+        S.hash_blocks_kernel(w.cpu(), c)
+    with pytest.raises(ValueError):
+        S.hash_blocks_kernel(w, c.cpu())
+    flat = torch.zeros(4 * 2 * 16 + 1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        S.hash_blocks_kernel(flat[1:].view(4, 2, 16), c)
+
+
+def test_cuda_hasher_matches_hashlib(card):
+    rng = np.random.default_rng(14)
+    msgs = [rng.bytes(n) for n in
+            (0, 3, 40, 64, 119, 300, 900, 1015, 1016, 2048)] * 3
+    msgs += [rng.bytes(int(n)) for n in rng.integers(0, 200, 5000)]
+    h = make_hasher("cuda")
+    assert isinstance(h, CudaBatchHasher) and h.device.type == "cuda"
+    before = S.LAUNCHES
+    assert h.hash_many(msgs, site="bench") == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    assert h.oversize_msgs == 6 and h.batches == 2
+    assert S.LAUNCHES == before + 2

@@ -41,7 +41,10 @@ def _forbidden(name: str) -> bool:
 
 def test_port_modules_import_no_jax():
     mods = sorted(_module_names())
-    assert "stellar_core_tpu_torch.ops.ed25519" in mods
+    for m in ("ops.ed25519", "ops.sha256", "crypto.hashing",
+              "crypto.batch_hasher", "ledger.state_commitment",
+              "testing.entries"):
+        assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         "for m in %r:\n"
