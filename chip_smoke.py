@@ -48,7 +48,8 @@ The hash path (`sha256`):
    entries, 1 % accounts with 1-20 signers; testing/entries.py) through
    `make_hasher("cuda")` and `merkle_root`, every leaf and the root equal
    to hashlib's; then 20 per-close drains of 1,000 leaves through
-   `entry_root`, each root equal to hashlib's;
+   `entry_root`, each root equal to hashlib's, with the shapes of their
+   launches and their padding printed;
 7. times the drain's layers alone on the same data (leaf assembly, host
    padding, host->device, kernel, device->host, digests_to_bytes, Merkle
    interior), runs the drain once more under `torch.profiler` for the
@@ -56,8 +57,9 @@ The hash path (`sha256`):
    mixed test batch (two oversize lengths) through `CudaBatchHasher` on the
    card, which must hash the 6 oversize ones on the host.
 
-It prints the card's name and power limit, the build time, the kernels'
-times, the paths' throughput and latency, their host layers timed alone,
+It prints the card's name and power limit, the build time, the SHA-256
+kernel's SASS opcode counts (cuobjdump, where the toolkit has it), the
+kernels' times, the paths' throughput and latency, their host layers timed alone,
 the profiled drains' device busy share, a `{"kernels": [...]}` line and,
 last, `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -68,9 +70,13 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -103,12 +109,21 @@ IN_BYTES_PER_VERIFY = 4 * (20 + 1 + 20 + 1 + 64 + 64) + 1   # inputs + out
 # SHA-256: integer instructions per 64-byte block, counted from
 # csrc/sha256.cu with each C operation as the one SASS instruction it can
 # become (rotate = one funnel shift, three-input xor/and/or = one LOP3,
-# three-term add = one IADD3): 64 rounds of 14, 48 schedule steps of 10,
-# 8 final adds. Hopper issues 64 INT32 operations per clock per SM.
-# Bytes per message: its real blocks (64 B each), its count (4 B) and its
-# digest (32 B).
-INT32_PER_CLOCK_PER_SM = 64
-INSTR_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+# three-term add = one IADD3). A round is 6 shifts, 4 LOP3 and 4 adds, a
+# schedule step 6 shifts, 2 LOP3 and 2 adds; 64 rounds, 48 steps and 8
+# final adds. The shifts and LOP3 must run on Hopper's INT32 pipe, 64 per
+# clock per SM; an add may also issue as an IMAD on the FMA pipe, so the
+# adds are held only by the issue rate, one warp instruction per clock per
+# scheduler, 128 per clock per SM. Floor per block per SM: the larger of
+# the two. Bytes per message: its real blocks (64 B each), its count (4 B)
+# and its digest (32 B).
+INT32_PIPE_PER_CLOCK_PER_SM = 64
+ISSUE_PER_CLOCK_PER_SM = 128
+PIPE_INSTR_PER_BLOCK = 64 * (6 + 4) + 48 * (6 + 2)
+INSTR_PER_BLOCK = PIPE_INSTR_PER_BLOCK + 64 * 4 + 48 * 2 + 8
+CLOCKS_PER_BLOCK_PER_SM = max(
+    PIPE_INSTR_PER_BLOCK / INT32_PIPE_PER_CLOCK_PER_SM,
+    INSTR_PER_BLOCK / ISSUE_PER_CLOCK_PER_SM)
 HASH_LANES = (256, 1024, 4096)
 HASH_BLOCKS = (1, 2, 4, 8, 16)
 FIPS_LENS = (0, 55, 56, 63, 64, 119, 120, 1015)
@@ -268,11 +283,38 @@ def log_profile(what: str, prof: dict, kernel: str) -> None:
 
 def hash_bound(real_blocks: int, lanes: int, props) -> tuple:
     """(bound ms, "operations" or "bytes") of one SHA-256 launch."""
-    ops_s = props["sms"] * INT32_PER_CLOCK_PER_SM * props["clock_hz"]
-    ops_ms = INSTR_PER_BLOCK * real_blocks / ops_s * 1e3
+    ops_ms = CLOCKS_PER_BLOCK_PER_SM * real_blocks \
+        / (props["sms"] * props["clock_hz"]) * 1e3
     bytes_ms = (64 * real_blocks + 36 * lanes) / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def hashlib_leaves(records: list) -> list:
+    """The oracle's entry leaves: SHA256(0x00 || record), one hashlib call
+    each."""
+    return [hashlib.sha256(b"\x00" + r).digest() for r in records]
+
+
+def sass_opcodes(lib: str, kernel: str):
+    """Opcode counts (without modifiers) of the SASS of the function whose
+    name contains `kernel` in the built library, from the toolkit's
+    cuobjdump; None where the toolkit has none."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, inside = Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] += 1
+    return counts
 
 
 def hash_batch(S, rng: np.random.Generator, lanes: int, blocks: int):
@@ -393,7 +435,7 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     log("data: %d bucket-entry records (%d bytes) in %.1f s"
         % (len(records), sum(map(len, records)), time.perf_counter() - t0))
     t0 = time.perf_counter()
-    want_leaves = SC.entry_leaves(records)
+    want_leaves = hashlib_leaves(records)
     hashlib_s = time.perf_counter() - t0
     want_root = SC.merkle_root(want_leaves)
     log("hashlib (one thread): %d leaves in %.3f s = %.0f leaves/s"
@@ -419,14 +461,19 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
         % (len(records), t2 - t0, len(records) / (t2 - t0), t1 - t0,
            t2 - t1, drain_launches, hasher.real_blocks, hasher.pad_blocks,
            hasher.oversize_msgs))
-    lat = []
+    lat, close_shapes = [], Counter()
+    real0, pad0 = hasher.real_blocks, hasher.pad_blocks
     for _ in range(CLOSES):
         batch = entry_records(rng, CLOSE_LEAVES)
-        want = SC.entry_root(batch)
+        want = SC.merkle_root(hashlib_leaves(batch))
         t0 = time.perf_counter()
         got = SC.entry_root(batch, hasher)
         lat.append((time.perf_counter() - t0) * 1e3)
         check(got == want, "per-close entry root == hashlib")
+        _over, chunks = hasher.plan([S.blocks_for_len(1 + len(r))
+                                     for r in batch])
+        close_shapes.update("%dx%d" % (lanes, blk)
+                            for _i, lanes, blk in chunks)
     hash_launches = S.LAUNCHES
     check(hash_launches == drain_launches + CLOSES,
           "one launch per per-close drain (%d launches)" % hash_launches)
@@ -435,6 +482,12 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
         "p99 %.3f ms (p99 of %d samples is their maximum)"
         % (CLOSES, CLOSE_LEAVES, float(np.percentile(lat, 50)),
            float(np.percentile(lat, 99)), len(lat)))
+    real = hasher.real_blocks - real0
+    pad = hasher.pad_blocks - pad0
+    log("per-close launch shapes (lanes x blocks): %s; %d real blocks, "
+        "%d pad blocks (%.1f %% of those shipped)"
+        % (", ".join("%s x%d" % kv for kv in sorted(close_shapes.items())),
+           real, pad, 100.0 * pad / (real + pad)))
     log("main path kernel launches: sha256 %d" % hash_launches)
 
     # --- where the drain's time goes; the profiled drain; oversize --------
@@ -504,6 +557,17 @@ def main() -> int:
             for line in fh:
                 if "registers" in line or "spill" in line:
                     log("ptxas %s: %s" % (stem, line.strip()))
+    ops = sass_opcodes(libs["sha256"], "sha256_blocks_kernel")
+    if ops is None:
+        log("sass sha256_blocks_kernel: no cuobjdump in the toolkit")
+    else:
+        log("sass sha256_blocks_kernel: %d instructions; %s"
+            % (sum(ops.values()),
+               ", ".join("%s %d" % kv for kv in ops.most_common(12))))
+    log("sha256 bound: %d INT32-pipe + %d other instructions per block, "
+        "%.2f clocks per block per SM"
+        % (PIPE_INSTR_PER_BLOCK, INSTR_PER_BLOCK - PIPE_INSTR_PER_BLOCK,
+           CLOCKS_PER_BLOCK_PER_SM))
 
     # --- data -------------------------------------------------------------
     rng = np.random.default_rng(args.seed)

@@ -85,15 +85,13 @@ def merkle_climb(leaf: bytes, path: List[dict]) -> bytes:
     return h
 
 
-def entry_leaves(records: Sequence[bytes], hasher=None) -> List[bytes]:
+def entry_leaves(records: Sequence[bytes], hasher) -> List[bytes]:
     """Entry leaf hashes of one bucket, from its XDR entry bodies, through
-    `hasher` (a BatchHasher) in one drain; hashlib when none is given."""
-    msgs = [ENTRY_LEAF_PREFIX + r for r in records]
-    if hasher is not None and msgs:
-        return hasher.hash_many(msgs, site="bucket-entries")
-    return [sha256(m) for m in msgs]
+    `hasher` (a BatchHasher, `make_hasher()` for the card) in one drain."""
+    return hasher.hash_many([ENTRY_LEAF_PREFIX + r for r in records],
+                            site="bucket-entries")
 
 
-def entry_root(records: Sequence[bytes], hasher=None) -> bytes:
-    """Merkle root over one bucket's entry leaves."""
+def entry_root(records: Sequence[bytes], hasher) -> bytes:
+    """Merkle root over one bucket's entry leaves, hashed by `hasher`."""
     return merkle_root(entry_leaves(records, hasher))

@@ -226,9 +226,10 @@ def digests_to_bytes(digests: np.ndarray) -> List[bytes]:
 def sha256_batch_device(msgs: Sequence[bytes], max_blocks: int = 0,
                         device=None) -> List[bytes]:
     """End-to-end batched hash (host prep + one kernel launch) on `device`:
-    the card unless the caller asks for the CPU. The convenience path of
-    tests and `chip_smoke.py`; production dispatch goes through
-    crypto/batch_hasher.py's bucketed shapes."""
+    the card unless the caller asks for the CPU. A one-launch convenience
+    for a small batch whose messages all fit the kernel (no bucketing, no
+    oversize routing); a ledger's drains go through
+    crypto/batch_hasher.py's `CudaBatchHasher`."""
     if not msgs:
         return []
     dev = torch.device("cuda" if device is None else device)

@@ -10,12 +10,13 @@ against that codec byte for byte.
 
 Scalar fields are fixed values (below); every 32-byte key field (account
 IDs, issuers, signer keys, the data value) is a slot that the bulk
-generator fills from a seeded numpy generator. The mix of
-`entry_records` is that of a deep bucket of a busy ledger: 60 % accounts
-with no signers and no home domain, 25 % trustlines to a 4-character
-asset, 10 % offers selling such an asset for the native one, 4 % data
-entries with a 32-byte value, 1 % accounts with 1-20 signers (20 is the
-protocol's most).
+generator fills from a seeded numpy generator. The entry sizes are the
+codec's; the mix of `entry_records` is an assumption with no published
+source behind it: 60 % accounts with no signers and no home domain, 25 %
+trustlines to a 4-character asset, 10 % offers selling such an asset for
+the native one, 4 % data entries with a 32-byte value, 1 % accounts with
+1-20 signers (20 is the protocol's most, signer counts uniform). It drives
+a smoke run; a benchmark cell needs a mix measured on a real ledger.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@
 - `entry_root(records)` over the XDR records of a real JAX `Bucket`
   (built by `Bucket.fresh` from accounts, trustlines, offers, data entries
   and tombstones) equals `StateCommitmentEngine.entry_root(bucket)`, with
-  no hasher, `CpuBatchHasher` and `CudaBatchHasher(device="cpu")`.
+  `CpuBatchHasher` and `CudaBatchHasher(device="cpu")`; without a hasher
+  it raises rather than hash on the host.
 - The entry bodies that `chip_smoke.py`'s generator writes
   (`testing/entries.py`) equal the reference codec's
   `entry_record(e)[4:]` byte for byte for each kind and every signer
@@ -146,14 +147,14 @@ def bucket():
     return Bucket.fresh(PROTO, inits, lives, deads)
 
 
-@pytest.mark.parametrize("hasher", ["none", "cpu", "cuda-on-cpu"])
+@pytest.mark.parametrize("hasher", ["cpu", "cuda-on-cpu"])
 def test_entry_root_equals_the_engine(bucket, hasher):
     records = [entry_record(e)[4:] for e in bucket.entries]
     assert len(records) == 81     # META + 80 entries
     engine = JC.StateCommitmentEngine(SimpleNamespace(metrics=None,
                                                       config=None))
     want = engine.entry_root(bucket)
-    h = {"none": None, "cpu": CpuBatchHasher(),
+    h = {"cpu": CpuBatchHasher(),
          "cuda-on-cpu": CudaBatchHasher(device="cpu")}[hasher]
     assert TC.entry_leaves(records, h) == engine._entry_leaves(bucket)
     assert TC.entry_root(records, h) == want
@@ -161,6 +162,14 @@ def test_entry_root_equals_the_engine(bucket, hasher):
         assert h.batches == 2 and h.oversize_msgs == 0   # two drains
 
 
+def test_entry_root_needs_a_hasher(bucket):
+    records = [entry_record(e)[4:] for e in bucket.entries]
+    with pytest.raises(TypeError):
+        TC.entry_leaves(records)       # no silent hashing on the host
+    with pytest.raises(TypeError):
+        TC.entry_root(records)
+
+
 def test_entry_root_of_no_entries_is_the_zero_hash():
-    assert TC.entry_root([]) == TC.ZERO_HASH
+    assert TC.entry_root([], CpuBatchHasher()) == TC.ZERO_HASH
     assert TC.entry_root([], CudaBatchHasher(device="cpu")) == TC.ZERO_HASH
