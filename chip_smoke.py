@@ -7,7 +7,7 @@ one NVIDIA GPU.
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout (one nvcc per source, all started together), then
-drives two paths.
+drives three paths.
 
 The verify path (`ed25519_verify`):
 
@@ -31,6 +31,33 @@ The verify path (`ed25519_verify`):
 4. runs the drain once more, from an empty cache, under `torch.profiler`,
    and reads the card's busy share and the kernel's device time from the
    trace.
+
+The verify fleet (`ed25519_verify_sharded`: the verify kernel launched once
+per fleet member on the member's own stream, then a gather;
+parallel/mesh.py). The machine has one card, so fleets of 2, 3 and 4
+members share cuda:0, each member on its own streams:
+
+4b. holds `sharded_verify` over 2, 3 and 4 members against
+   `verify_plain` over the whole batch on the card, lane for lane (on 3
+   members padded to 129 and 8193 lanes, 43 and 2731 per member, as the
+   verifier pads them), and against the C verifier, at 128 (the
+   adversarial vectors plus corpus) and 8192; times
+   the sharded launch (CUDA events behind a sleep kernel) at 8192 over 1,
+   2, 3 and 4 members and at 128 over 1 and 4, and the gather's copies;
+4c. drives the checkpoint drain (with the counts set to 0 just before and
+   read just after) through `make_verifier("cuda")`, whose fleet is one
+   member per visible card, and through `CudaSigVerifier(devices=
+   ["cuda:0"] * k)` for k = 2, 3 and 4, three times each from an empty
+   cache: every decision equal to the C verifier, 3·k + 1 launches per
+   drain (each 8192 chunk sharded over every member, the 1,000 tail on
+   one), the per-member stats adding up to the drains;
+4d. trips member 0 of a 4-member fleet with the `verify.device-lost` fault
+   point: the next drain runs on members 1-3 (8,193 lanes per chunk) with
+   correct decisions, and the drain after the injected clock passes the
+   cooldown re-closes the breaker; runs `graft_entry.dryrun_multichip(4)`
+   over 4 members of cuda:0; profiles one 4-member drain for the kernels'
+   device time per stream, whether launches on different streams
+   overlapped, the staging overlap and the card's busy share.
 
 The hash path (`sha256`):
 
@@ -59,9 +86,10 @@ The hash path (`sha256`):
 
 It prints the card's name and power limit, the build time, the SHA-256
 kernel's SASS opcode counts (cuobjdump, where the toolkit has it), the
-kernels' times, the paths' throughput and latency, their host layers timed alone,
-the profiled drains' device busy share, a `{"kernels": [...]}` line and,
-last, `{"ok": true, "device": {...}}`. Any failed check raises (exit code
+kernels' times, the paths' throughput and latency, their host layers
+timed alone, the profiled drains' device busy share, a
+`{"kernels": [...]}` line (three entries) and, last,
+`{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
 """
 
@@ -130,6 +158,12 @@ FIPS_LENS = (0, 55, 56, 63, 64, 119, 120, 1015)
 DRAIN_LEAVES = 1 << 20
 HASH_MAIN_SHAPE = "4096x2"     # most of the drain's chunks: 2-block leaves
 CLOSES, CLOSE_LEAVES = 20, 1000
+# the fleet phase: drains over 2, 3 and 4 members sharing cuda:0, each
+# three times from an empty cache; the sharded launch timed at these
+# (bucket: member counts)
+FLEET_SIZES = (2, 3, 4)
+FLEET_RUNS = 3
+FLEET_TIMES = {128: (1, 4), 8192: (1, 2, 3, 4)}
 
 
 def log(msg: str) -> None:
@@ -254,16 +288,25 @@ def kernel_vs_plain(E, vectors: list, corpus: list, bucket: int,
           % (bucket, mismatches))
     ms = time_cuda(lambda: E.verify_kernel(*args),
                    reps=200 if bucket <= 512 else 20)
-    ops_s = (props["sms"] * IMAD_PER_CLOCK_PER_SM * props["clock_hz"])
-    param_bytes = 4 * 64 * 9 * 3 * 10 + 4 * 30
-    bound_ops_ms = PRODUCTS_PER_VERIFY * bucket / ops_s * 1e3
-    bound_bytes_ms = (IN_BYTES_PER_VERIFY * bucket + param_bytes) \
-        / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = verify_bound(bucket, props)
     return {"decisions": (got.cpu().numpy() & prep["pre_ok"]).tolist(),
             "ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
-            "bound_ms": max(bound_ops_ms, bound_bytes_ms),
-            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms
-            else "bytes"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def verify_bound(lanes: int, props) -> tuple:
+    """(bound ms, "operations" or "bytes") of verifying `lanes` signatures:
+    the products over the card's IMAD rate, or the inputs, outputs and one
+    parameter block over its memory rate, whichever is larger. The count
+    does not depend on how the lanes are split over launches: on N cards
+    each would take 1/N of it."""
+    ops_s = props["sms"] * IMAD_PER_CLOCK_PER_SM * props["clock_hz"]
+    param_bytes = 4 * 64 * 9 * 3 * 10 + 4 * 30
+    ops_ms = PRODUCTS_PER_VERIFY * lanes / ops_s * 1e3
+    bytes_ms = (IN_BYTES_PER_VERIFY * lanes + param_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def log_profile(what: str, prof: dict, kernel: str) -> None:
@@ -516,6 +559,358 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     return shapes, hash_launches
 
 
+def time_sharded(M, fleet, arrays, reps: int) -> float:
+    """Mean device ms of one sharded launch (each member's kernel on its
+    own stream, on its lanes) over reps, as time_cuda measures: a sleep
+    kernel holds the current stream, every member's stream waits for the
+    start event, and the end event waits for every member's stream."""
+    import torch
+    shards = M.place_shards(fleet, arrays)
+    M.launch_shards(*shards).gather()
+    cur = torch.cuda.current_stream()
+    cycles = SLEEP_CYCLES_PER_REP * reps * len(fleet)
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record(cur)
+        for m in fleet:
+            m.stream.wait_event(start)
+        for _ in range(reps):
+            M.launch_shards(*shards)
+        for m in fleet:
+            cur.wait_stream(m.stream)
+        end.record(cur)
+        all_queued = not start.query()
+        torch.cuda.synchronize()
+        if all_queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+
+
+def time_gather(M, fleet, arrays, reps: int) -> float:
+    """Mean device ms of the gather alone: one device->host copy per
+    member, on its stream, into one pinned buffer (timed as
+    time_sharded times the launches)."""
+    import torch
+    outs = M.launch_shards(*M.place_shards(fleet, arrays)).outs
+    torch.cuda.synchronize()
+    host = torch.empty(sum(o.shape[0] for o in outs), dtype=torch.bool,
+                       pin_memory=True)
+    cur = torch.cuda.current_stream()
+    cycles = SLEEP_CYCLES_PER_REP * reps
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record(cur)
+        for m in fleet:
+            m.stream.wait_event(start)
+        for _ in range(reps):
+            off = 0
+            for m, o in zip(fleet, outs):
+                with torch.cuda.stream(m.stream):
+                    host[off:off + o.shape[0]].copy_(o, non_blocking=True)
+                off += o.shape[0]
+        for m in fleet:
+            cur.wait_stream(m.stream)
+        end.record(cur)
+        all_queued = not start.query()
+        torch.cuda.synchronize()
+        if all_queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+
+
+def sharded_vs_plain(E, M, K, vectors, corpus, bucket: int, props) -> dict:
+    """sharded_verify over 2, 3 and 4 members of cuda:0 against
+    verify_plain over the whole batch on the card, lane for lane (padding
+    lanes included: on 3 members the batch is padded to the next multiple
+    of 3, 129 or 8193, as the verifier's route pads it), and its real
+    lanes against the C verifier; then the sharded launch's device time
+    over each member count of FLEET_TIMES, and the gather's."""
+    import torch
+    triples = ([(p, s, m) for (_l, p, s, m) in vectors] +
+               corpus[:bucket - len(vectors)])
+    prep = E.prepare_batch(*map(list, zip(*triples)))
+    arrays = [prep[k] for k in E.ARG_KEYS]
+    dev_args = tuple(torch.from_numpy(a).cuda() for a in arrays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = E.verify_plain(*dev_args).cpu()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    c_ref = K.raw_verify_batch(triples)
+    wants = {bucket: want}
+    mismatches = 0
+    for k in FLEET_SIZES:
+        lanes = -(-bucket // k) * k
+        padded = M.pad_batch_to(prep, lanes)
+        pa = [padded[a] for a in E.ARG_KEYS]
+        if lanes not in wants:
+            wants[lanes] = E.verify_plain(
+                *(torch.from_numpy(a).cuda() for a in pa)).cpu()
+        got = M.sharded_verify(M.make_fleet(["cuda:0"] * k))(*pa)
+        mismatches += int((got != wants[lanes]).sum())
+        check(torch.equal(got, wants[lanes]), "sharded_verify over %d "
+              "members == verify_plain at %d lanes" % (k, lanes))
+        check((got[:bucket].numpy() & prep["pre_ok"]).tolist() == c_ref,
+              "sharded_verify over %d members == C verifier at %d"
+              % (k, bucket))
+    ms = {}
+    for k in FLEET_TIMES[bucket]:
+        lanes = -(-bucket // k) * k
+        padded = M.pad_batch_to(prep, lanes)
+        ms[k] = time_sharded(M, M.make_fleet(["cuda:0"] * k),
+                             [padded[a] for a in E.ARG_KEYS],
+                             reps=100 if bucket <= 512 else 10)
+    gather_ms = time_gather(M, M.make_fleet(["cuda:0"] * 4), arrays,
+                            reps=100)
+    bound_ms, bound_by = verify_bound(bucket, props)
+    return {"ms": ms, "gather_ms": gather_ms, "plain_ms": plain_ms,
+            "mismatches": mismatches, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def fleet_drain(BV, K, E, v, drain: list, cpu_ref: list, what: str) -> float:
+    """One checkpoint drain from an empty cache through v.prewarm_many:
+    every decision == the C verifier, 3·k + 1 launches on a fleet of k
+    (each 8192 chunk sharded over every member, the tail on one). Returns
+    the drain's seconds."""
+    K.flush_verify_cache()
+    k = len(v._members)
+    before = E.LAUNCHES
+    t0 = time.perf_counter()
+    got = v.prewarm_many(drain)
+    dt = time.perf_counter() - t0
+    check(got == cpu_ref, "%s drain decisions == C verifier" % what)
+    check(E.LAUNCHES - before == DRAIN_CHUNKS * k + 1,
+          "%s drain launched %d kernels (want %d)"
+          % (what, E.LAUNCHES - before, DRAIN_CHUNKS * k + 1))
+    return dt
+
+
+def union_ms(intervals) -> float:
+    """ms covered by the union of (start us, end us) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def trace_streams(prof_run, kernel: str) -> dict:
+    """prof_run() under torch.profiler, its Chrome trace read back: the
+    kernel's device ms per stream, whether launches on different streams
+    overlapped on the card, and the card's busy ms (union of kernels and
+    copies) against the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = prof_run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from stellar_core_tpu_torch import _build
+    path = os.path.join(_build.BUILD_DIR, "fleet-drain-trace-%d.json"
+                        % os.getpid())
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as fh:
+            trace = json.load(fh)
+    finally:
+        os.unlink(path)
+    evs = [e for e in trace.get("traceEvents", [])
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                       "gpu_memset")]
+    kern = [e for e in evs if e["cat"] == "kernel" and kernel in e["name"]]
+    per_stream: dict = {}
+    for e in kern:
+        st = e.get("args", {}).get("stream", "?")
+        per_stream[st] = per_stream.get(st, 0.0) + e["dur"] / 1e3
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern)
+    overlapped = any(b[0] < a[1] for a, b in zip(spans, spans[1:]))
+    return {"result": result, "wall_ms": wall_ms, "launches": len(kern),
+            "spans": spans,
+            "per_stream_ms": per_stream, "overlapped": overlapped,
+            "kernel_union_ms": union_ms(spans),
+            "kernel_sum_ms": sum(per_stream.values()),
+            "busy_ms": union_ms([(e["ts"], e["ts"] + e["dur"])
+                                 for e in evs]),
+            "device_events": len(evs)}
+
+
+class _Clock:
+    """An injected app clock: the breakers read `now`."""
+
+    def __init__(self) -> None:
+        self.t = 1000.0
+
+    def now(self) -> float:
+        return self.t
+
+
+def fleet_path(torch, vectors: list, corpus: list, drain: list,
+               cpu_ref: list, props) -> dict:
+    """Phase 4b of the module docstring: the sharded verify against its
+    plain version and timed, the checkpoint drain over the real fleet and
+    over 2, 3 and 4 members of cuda:0, a member's breaker tripped and
+    recovered, the multi-device dry run, one profiled 4-member drain.
+    Returns the numbers for the kernels line."""
+    from stellar_core_tpu_torch import graft_entry
+    from stellar_core_tpu_torch.crypto import batch_verifier as BV
+    from stellar_core_tpu_torch.crypto import keys as K
+    from stellar_core_tpu_torch.ops import ed25519 as E
+    from stellar_core_tpu_torch.ops import sha256 as S
+    from stellar_core_tpu_torch.parallel import mesh as M
+    from stellar_core_tpu_torch.util.faults import FaultInjector
+
+    # --- the sharded verify against verify_plain, and its times ----------
+    shard = {}
+    for b in sorted(FLEET_TIMES):
+        r = sharded_vs_plain(E, M, K, vectors, corpus, b, props)
+        shard[b] = r
+        log("sharded ed25519_verify at %d on cuda:0: %s; gather (4 "
+            "members) %.4f ms; plain (whole batch) %.1f ms; bound %.4f ms "
+            "(%s; on N cards 1/N of it); mismatches %d"
+            % (b, ", ".join("%d member%s %.4f ms" % (k, "s"[:k > 1], t)
+                            for k, t in r["ms"].items()),
+               r["gather_ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+               r["mismatches"]))
+
+    # --- the main path: the checkpoint drain over each fleet -------------
+    n_drain = len(drain)
+    E.LAUNCHES = S.LAUNCHES = 0
+    real = BV.make_verifier("cuda")
+    check(len(real._members) == torch.cuda.device_count(),
+          "make_verifier('cuda') builds one member per visible card")
+    secs = {"real": [fleet_drain(BV, K, E, real, drain, cpu_ref,
+                                 "real fleet") for _ in range(FLEET_RUNS)]}
+    for k in FLEET_SIZES:
+        v = BV.CudaSigVerifier(devices=["cuda:0"] * k)
+        v.stats = BV.VerifierStats()
+        secs[k] = [fleet_drain(BV, K, E, v, drain, cpu_ref,
+                               "%d-member" % k) for _ in range(FLEET_RUNS)]
+        rows = v.stats.to_json()["devices"]
+        check(sorted(rows) == [str(i) for i in range(k)],
+              "every member of %d served the drain" % k)
+        shipped = FLEET_RUNS * (
+            DRAIN_CHUNKS * -(-DRAIN_CHUNK // k) * k + v._bucket(DRAIN_TAIL))
+        check(sum(r["sigs"] for r in rows.values()) == FLEET_RUNS * n_drain
+              and sum(r["sigs"] + r["pad_total"] for r in rows.values())
+              == shipped, "%d members' stats add up to the drains" % k)
+        log("fleet of %d on cuda:0: per-member sigs %s, pad %s; staging "
+            "overlap %s %%"
+            % (k, [rows[str(i)]["sigs"] for i in range(k)],
+               [rows[str(i)]["pad_total"] for i in range(k)],
+               v.stats.to_json()["staging"]["last_overlap_pct"]))
+    launches = E.LAUNCHES
+    check(S.LAUNCHES == 0, "the fleet path launched no hash kernel")
+    check(launches == FLEET_RUNS * sum(DRAIN_CHUNKS * k + 1 for k in
+                                       (len(real._members),) + FLEET_SIZES),
+          "fleet path launches (%d)" % launches)
+    for key, ss in secs.items():
+        log("checkpoint drain, %s: %s s = %s sigs/s"
+            % ("make_verifier('cuda') fleet of %d" % len(real._members)
+               if key == "real" else "%d members of cuda:0" % key,
+               " / ".join("%.3f" % x for x in ss),
+               " / ".join("%.0f" % (n_drain / x) for x in ss)))
+    log("fleet path kernel launches: ed25519_verify %d" % launches)
+
+    # --- a member's breaker: tripped, then recovered ----------------------
+    clock = _Clock()
+    faults = FaultInjector(seed=7)
+    v = BV.CudaSigVerifier(devices=["cuda:0"] * 4, now_fn=clock.now,
+                           device_breaker_threshold=2,
+                           device_breaker_cooldown=30.0)
+    v.faults = faults
+    v.stats = BV.VerifierStats(now_fn=clock.now)
+    faults.configure("verify.device-lost", count=2)
+    K.flush_verify_cache()
+    check(v.prewarm_many(drain) == cpu_ref, "drain with member 0 lost")
+    br = v.fleet_health.breakers[0]
+    check(br.state == "open" and br.trips == 1, "member 0's breaker open")
+    rows0 = v.stats.to_json()["devices"]
+    before = E.LAUNCHES
+    K.flush_verify_cache()
+    check(v.prewarm_many(drain) == cpu_ref,
+          "drain on members 1-3 == C verifier")
+    check(E.LAUNCHES - before == DRAIN_CHUNKS * 3 + 1,
+          "degraded drain: 3 launches per chunk + 1")
+    rows1 = v.stats.to_json()["devices"]
+    check(rows1.get("0") == rows0.get("0"),
+          "member 0 served nothing while open")
+    lanes = -(-DRAIN_CHUNK // 3) * 3
+    check(all(rows1[str(i)]["sigs"] + rows1[str(i)]["pad_total"]
+              - rows0[str(i)]["sigs"] - rows0[str(i)]["pad_total"]
+              == DRAIN_CHUNKS * lanes // 3
+              + (v._bucket(DRAIN_TAIL) if i == 1 else 0)
+              for i in (1, 2, 3)),
+          "members 1-3 took %d lanes per chunk" % lanes)
+    check((1, 2, 3) in v._mesh_fns, "the 3-member membership was used")
+    clock.t += 31.0
+    K.flush_verify_cache()
+    check(v.prewarm_many(drain) == cpu_ref, "drain after the cooldown")
+    check(br.state == "closed" and br.recoveries == 1,
+          "member 0's breaker re-closed")
+    log("breaker: member 0 tripped by verify.device-lost (2 fires), the "
+        "next drain ran on members 1-3 at %d lanes per chunk, and the "
+        "drain after the 30 s cooldown re-closed it (breaker JSON %s)"
+        % (lanes, json.dumps(br.to_json())))
+
+    # --- the multi-device dry run ------------------------------------------
+    graft_entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
+
+    # --- one 4-member drain under the profiler -----------------------------
+    v4 = BV.CudaSigVerifier(devices=["cuda:0"] * 4)
+    v4.stats = BV.VerifierStats()
+    K.flush_verify_cache()
+    prof = trace_streams(lambda: v4.prewarm_many(drain),
+                         "ed25519_verify_kernel")
+    check(prof["result"] == cpu_ref, "profiled 4-member drain decisions")
+    overlap = v4.stats.to_json()["staging"]["last_overlap_pct"]
+    if prof["device_events"]:
+        log("profiled 4-member drain: %.3f ms wall, card busy %.3f ms = "
+            "%.2f %%; %d kernel launches, device ms per stream %s; kernel "
+            "sum %.3f ms, union %.3f ms: launches on different streams %s; "
+            "staging overlap %s %%"
+            % (prof["wall_ms"], prof["busy_ms"],
+               100.0 * prof["busy_ms"] / prof["wall_ms"], prof["launches"],
+               {k: round(x, 3) for k, x in prof["per_stream_ms"].items()},
+               prof["kernel_sum_ms"], prof["kernel_union_ms"],
+               "overlapped" if prof["overlapped"] else "did not overlap",
+               overlap))
+    else:
+        log("profiled 4-member drain: %.3f ms wall; the profiler recorded "
+            "no device activity (not measured); staging overlap %s %%"
+            % (prof["wall_ms"], overlap))
+    # the same chunks one verify_many each: no staging worker runs beside
+    # the dispatch thread, so nothing competes with it for the
+    # interpreter between the members' launches
+    K.flush_verify_cache()
+    alone = trace_streams(
+        lambda: sum((v4.verify_many(drain[i:i + DRAIN_CHUNK]) for i in
+                     range(0, DRAIN_CHUNKS * DRAIN_CHUNK, DRAIN_CHUNK)), []),
+        "ed25519_verify_kernel")
+    check(alone["result"] == cpu_ref[:DRAIN_CHUNKS * DRAIN_CHUNK],
+          "profiled chunks-alone decisions")
+    for what, p in (("in the drain", prof), ("each alone", alone)):
+        groups = [p["spans"][i:i + 4] for i in
+                  range(0, 4 * DRAIN_CHUNKS, 4)]
+        if p["launches"] < 4 * DRAIN_CHUNKS:
+            log("8192 chunks over 4 members, %s: the profiler recorded %d "
+                "kernels (%d device events); stagger not measured"
+                % (what, p["launches"], p["device_events"]))
+            continue
+        log("8192 chunks over 4 members, %s: first to last member's kernel "
+            "start %s ms, the chunk's kernels spread over %s ms of the card"
+            % (what, " / ".join("%.3f" % ((g[-1][0] - g[0][0]) / 1e3)
+                                for g in groups),
+               " / ".join("%.3f" % union_ms(g) for g in groups)))
+    return {"shard": shard, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -691,10 +1086,14 @@ def main() -> int:
     check(prof["result"] == drain_expect, "profiled drain decisions")
     log_profile("drain", prof, "ed25519_verify_kernel")
 
+    fleet = fleet_path(torch, vectors, corpus, drain, cpu_ref[:n_drain],
+                       props)
+
     shapes, hash_launches = hash_path(torch, rng, props)
 
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
+    main_f = fleet["shard"][DRAIN_CHUNK]
     log(json.dumps({"kernels": [{
         "name": "ed25519_verify", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
@@ -716,7 +1115,23 @@ def main() -> int:
         "library_ms": None, "check": "ok", "main_shape": HASH_MAIN_SHAPE,
         "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "hashlib_ms",
                                          "bound_ms", "mismatches")}
-                   for k, r in shapes.items()}}]}))
+                   for k, r in shapes.items()}}, {
+        "name": "ed25519_verify_sharded", "route": "cuda",
+        "source": "stellar_core_tpu_torch/parallel/mesh.py + "
+                  "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
+        "replaces": "stellar_core_tpu/parallel/mesh.py:33",
+        "launches": fleet["launches"],
+        "max_abs_err": float(sum(r["mismatches"]
+                                 for r in fleet["shard"].values())),
+        "ms": main_f["ms"][4], "plain_ms": main_f["plain_ms"],
+        "bound_ms": main_f["bound_ms"], "bound_by": main_f["bound_by"],
+        "library_ms": None, "check": "ok",
+        "main_shape": "%d lanes over 4 members of cuda:0" % DRAIN_CHUNK,
+        "members": {str(b): {"ms": {str(k): t for k, t in r["ms"].items()},
+                             "gather_ms": r["gather_ms"],
+                             "plain_ms": r["plain_ms"],
+                             "bound_ms": r["bound_ms"]}
+                    for b, r in fleet["shard"].items()}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,6 +54,28 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin and PATH)")
 
 
+def _cuda_targets() -> List[tuple]:
+    """(stem, source, shared-library path) of every `csrc/*.cu`; each
+    library's name hashes its source, all `csrc/*.cuh` and the flags."""
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if not sources:
+        raise RuntimeError("no CUDA sources under %s" % CSRC_DIR)
+    out = []
+    for src in sources:
+        stem = os.path.splitext(os.path.basename(src))[0]
+        out.append((stem, src, os.path.join(BUILD_DIR, "lib%s-%s.so" % (
+            stem, _digest([src] + headers, " ".join(NVCC_FLAGS))))))
+    return out
+
+
+def cuda_built(stem: str) -> bool:
+    """Whether the library of `csrc/<stem>.cu` for the current sources is
+    already built (a later `build_cuda` reuses it without `nvcc`)."""
+    return any(s == stem and os.path.exists(so)
+               for s, _src, so in _cuda_targets())
+
+
 def build_cuda() -> Dict[str, str]:
     """Build every `csrc/*.cu` (each with all `csrc/*.cuh` in its hash),
     one `nvcc` process per source, all started together; return {source
@@ -62,17 +84,10 @@ def build_cuda() -> Dict[str, str]:
         if _CUDA_LIBS:
             return dict(_CUDA_LIBS)
         os.makedirs(BUILD_DIR, exist_ok=True)
-        headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-        sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        if not sources:
-            raise RuntimeError("no CUDA sources under %s" % CSRC_DIR)
         libs: Dict[str, str] = {}
         jobs = []      # (stem, library, temporary output, process)
         try:
-            for src in sources:
-                stem = os.path.splitext(os.path.basename(src))[0]
-                so = os.path.join(BUILD_DIR, "lib%s-%s.so" % (
-                    stem, _digest([src] + headers, " ".join(NVCC_FLAGS))))
+            for stem, src, so in _cuda_targets():
                 libs[stem] = so
                 if os.path.exists(so):
                     continue

@@ -413,6 +413,8 @@ LAUNCHES = 0
 _LIB_LOCK = threading.Lock()
 _LIB = None
 _PARAMS: dict = {}     # device -> kernel parameter block on that device
+# the verify fleet launches from its dispatch thread and its warmup thread
+_LAUNCH_LOCK = threading.Lock()
 
 
 def _cuda_lib():
@@ -432,11 +434,17 @@ def _cuda_lib():
 
 
 def _kernel_params_on(device: torch.device) -> torch.Tensor:
+    """The parameter block on `device`, copied there once. The copy is
+    waited for before the block is handed out: members of a fleet read it
+    from streams of their own, and a copy ordered on one member's stream
+    is not ordered before another stream's launch."""
     key = str(device)
-    t = _PARAMS.get(key)
-    if t is None:
-        t = _PARAMS[key] = torch.from_numpy(
-            kernel_params(fixed_table())).to(device)
+    with _LIB_LOCK:
+        t = _PARAMS.get(key)
+        if t is None:
+            t = torch.from_numpy(kernel_params(fixed_table())).to(device)
+            torch.cuda.current_stream(device).synchronize()
+            _PARAMS[key] = t
     return t
 
 
@@ -488,7 +496,8 @@ def verify_kernel(ay: torch.Tensor, a_sign: torch.Tensor,
     if rc != 0:
         raise RuntimeError("ed25519 verify kernel launch failed: %s"
                            % lib.sct_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 

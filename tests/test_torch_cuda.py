@@ -10,7 +10,9 @@ the SHA-256 kernel's digest words must equal its plain version's, every
 lane including padding lanes and out-of-range counts, and hashlib's. Each
 wrapper must count each launch and reject what its kernel does not take,
 and `CudaSigVerifier` / `CudaBatchHasher` on their default device must
-match the CPU backends. Tolerance: none.
+match the CPU backends, as must fleets of 2 and 3 members sharing the
+card (a staged drain repeated five times), and a 3-member sharded verify
+on a ragged lane count must equal verify_plain. Tolerance: none.
 """
 
 import numpy as np
@@ -98,6 +100,54 @@ def test_cuda_verifier_matches_cpu(card):
     assert v.device.type == "cuda"
     assert v.verify_many(triples) == CpuSigVerifier().verify_many(triples)
     assert v.batches_dispatched == 1
+    K.flush_verify_cache()
+
+
+def test_two_member_fleet_on_one_card_matches_cpu(card):
+    """Two members sharing the card, each on its own streams: a 2048
+    chunk sharded 1024 + 1024 (two launches), the 300 tail on member 0."""
+    K.flush_verify_cache()
+    triples = _triples(2048 + 300, seed=15)
+    v = CudaSigVerifier(devices=["cuda:0", "cuda:0"])
+    v.BUCKETS = (512, 2048)
+    before = E.LAUNCHES
+    assert v.verify_many(triples) == CpuSigVerifier().verify_many(triples)
+    assert E.LAUNCHES == before + 3
+    assert list(v._mesh_fns) == [(0, 1)]
+    K.flush_verify_cache()
+
+
+def test_three_member_sharded_verify_equals_plain_on_ragged_lanes(card):
+    """129 lanes over three members of the card, 43 each (not a multiple
+    of the kernel's block): every lane, the padding lane too, equals
+    verify_plain over the whole batch."""
+    from stellar_core_tpu_torch.parallel.mesh import (
+        make_fleet, pad_batch_to, sharded_verify,
+    )
+    triples = [(p, s, m) for (_l, p, s, m) in _vectors()][:64]
+    triples += _triples(128 - len(triples), seed=17)
+    prep = pad_batch_to(E.prepare_batch(*map(list, zip(*triples))), 129)
+    arrays = [prep[k] for k in E.ARG_KEYS]
+    got = sharded_verify(make_fleet(["cuda:0"] * 3))(*arrays)
+    want = E.verify_plain(*(torch.from_numpy(a).cuda() for a in arrays))
+    assert torch.equal(got, want.cpu())
+    assert (got[:128].numpy() & prep["pre_ok"][:128]).tolist() == \
+        K.raw_verify_batch(triples)
+
+
+def test_staged_drain_repeats_identically(card):
+    """A multi-chunk drain over three members of the card, five times:
+    chunk K+1 is copied on the staging streams while chunk K runs, so a
+    launch that does not wait for its copies would read a half-copied
+    batch and give other decisions on some run."""
+    K.flush_verify_cache()
+    triples = _triples(4 * 1024 + 77, seed=16)
+    want = CpuSigVerifier().verify_many(triples)
+    v = CudaSigVerifier(devices=["cuda:0"] * 3)
+    v.BUCKETS = (128, 1024)
+    for _ in range(5):
+        assert v.verify_many(triples) == want
+    assert v.batches_dispatched == 5 * 5
     K.flush_verify_cache()
 
 
