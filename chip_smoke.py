@@ -13,10 +13,12 @@ The verify path (`ed25519_verify`):
 
 1. holds the kernel against its plain PyTorch version on the card, on the
    same inputs, at every bucket of the verifier's ladder (128, 512, 2048
-   and 8192; the main path launches at 128, 2048 and 8192): the
-   adversarial ed25519 vectors plus a seeded corpus in which every 7th
-   signature is corrupted. Tolerance: none, the decisions must be
-   identical (a verifier that differs on one signature forks consensus);
+   and 8192; the main path launches at 128, 2048 and 8192) and at 1, 129
+   and 2731 lanes (a lone signature, one past a block of 32 signatures, a
+   3-member shard of 8193): the adversarial ed25519 vectors plus a seeded corpus in
+   which every 7th signature is corrupted. Tolerance: none, the decisions
+   must be identical (a verifier that differs on one signature forks
+   consensus). With --verify-kernel-only the run stops here;
 2. calls the model entry (`graft_entry.entry()`) and checks that its
    forward ran on the card and accepted its batch;
 3. drives the main path through the entry points a node calls, with every
@@ -84,8 +86,10 @@ The hash path (`sha256`):
    mixed test batch (two oversize lengths) through `CudaBatchHasher` on the
    card, which must hash the 6 oversize ones on the host.
 
-It prints the card's name and power limit, the build time, the SHA-256
-kernel's SASS opcode counts (cuobjdump, where the toolkit has it), the
+It prints the card's name and power limit, the build time, the verify
+kernel's ptxas report (registers, stack frame, spills, shared memory), its
+product count per verify beside the bound's, both kernels' SASS opcode
+counts (cuobjdump, where the toolkit has it), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries) and, last,
@@ -132,6 +136,21 @@ HBM_BYTES_PER_S = 3.35e12
 FE_MUL_PER_VERIFY = 2 * 19 + 2 + 40 + 64 * 20 + 1 + 64 * 7 + 2
 FE_SQ_PER_VERIFY = 2 * 255 + 16 + 64 * 16
 PRODUCTS_PER_VERIFY = 100 * FE_MUL_PER_VERIFY + 55 * FE_SQ_PER_VERIFY
+# The quad design (four lanes per signature) issues more products for the
+# same work; the bound keeps the count above as its yardstick. Per verify,
+# summed over the quad's lanes: four decompressions, -A (4 mul), 8 cached
+# conversions (4 mul each), the table's 4 doublings (4 sq + 4 mul each)
+# and 3 adds (8 mul each), 256 ladder doublings, 64 ladder adds, 64
+# fixed-base adds, the fixed-base sum's conversion and add (12 mul), the
+# compare (4 mul).
+QUAD_FE_MUL = 4 * 19 + 4 + 8 * 4 + 4 * 4 + 3 * 8 + 256 * 4 + 64 * 8 \
+    + 64 * 8 + 12 + 4
+QUAD_FE_SQ = 4 * 255 + 4 * 4 + 256 * 4
+QUAD_PRODUCTS_PER_VERIFY = 100 * QUAD_FE_MUL + 55 * QUAD_FE_SQ
+# lane counts off the ladder at which phase 1 also holds the verify kernel
+# against its plain version: one lane, one past a block of 32 signatures,
+# and a 3-member shard of 8,193
+RAGGED_LANES = (1, 129, 2731)
 IN_BYTES_PER_VERIFY = 4 * (20 + 1 + 20 + 1 + 64 + 64) + 1   # inputs + out
 
 # SHA-256: integer instructions per 64-byte block, counted from
@@ -266,14 +285,14 @@ def profile_drain(run, kernel: str) -> dict:
                               key=lambda kv: -kv[1])[:5]}
 
 
-def kernel_vs_plain(E, vectors: list, corpus: list, bucket: int,
-                    props) -> dict:
+def kernel_vs_plain(E, vectors: list, corpus: list, lanes: int,
+                    props, timed: bool = True) -> dict:
     """The verify kernel against verify_plain on the same CUDA tensors at
-    one bucket; their timings and the bound."""
+    one lane count (the adversarial vectors first, then the corpus); when
+    timed, their timings and the bound."""
     import torch
-    triples = ([(p, s, m) for (_l, p, s, m) in vectors] +
-               corpus[:bucket - len(vectors)])
-    check(len(triples) == bucket, "batch fills bucket %d" % bucket)
+    triples = ([(p, s, m) for (_l, p, s, m) in vectors] + corpus)[:lanes]
+    check(len(triples) == lanes, "batch fills %d lanes" % lanes)
     prep = E.prepare_batch([t[0] for t in triples], [t[1] for t in triples],
                            [t[2] for t in triples])
     args = tuple(torch.from_numpy(prep[k]).cuda() for k in E.ARG_KEYS)
@@ -284,14 +303,39 @@ def kernel_vs_plain(E, vectors: list, corpus: list, bucket: int,
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     mismatches = int((got != want).sum())
-    check(mismatches == 0, "kernel == plain at bucket %d (%d lanes differ)"
-          % (bucket, mismatches))
-    ms = time_cuda(lambda: E.verify_kernel(*args),
-                   reps=200 if bucket <= 512 else 20)
-    bound_ms, bound_by = verify_bound(bucket, props)
-    return {"decisions": (got.cpu().numpy() & prep["pre_ok"]).tolist(),
-            "ms": ms, "plain_ms": plain_ms, "mismatches": mismatches,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    check(mismatches == 0, "kernel == plain at %d lanes (%d lanes differ)"
+          % (lanes, mismatches))
+    out = {"decisions": (got.cpu().numpy() & prep["pre_ok"]).tolist(),
+           "plain_ms": plain_ms, "mismatches": mismatches}
+    if timed:
+        out["ms"] = time_cuda(lambda: E.verify_kernel(*args),
+                              reps=200 if lanes <= 512 else 20)
+        out["bound_ms"], out["bound_by"] = verify_bound(lanes, props)
+    return out
+
+
+def ptxas_report(log_path: str, kernel: str) -> dict:
+    """The `-Xptxas -v` figures of the entry function whose name contains
+    `kernel`, from the build log beside its library: registers, stack
+    frame, spill stores and loads, static shared memory (bytes)."""
+    with open(log_path) as fh:
+        text = fh.read()
+    i = text.find("Compiling entry function")
+    while i >= 0 and kernel not in text[i:text.find("\n", i)]:
+        i = text.find("Compiling entry function", i + 1)
+    check(i >= 0, "ptxas report of %s in %s" % (kernel, log_path))
+    sect = text[i:]
+    nxt = sect.find("Compiling entry function", 1)
+    sect = sect[:nxt if nxt > 0 else len(sect)]
+
+    def num(pattern: str) -> int:
+        m = re.search(pattern, sect)
+        return int(m.group(1)) if m else 0
+    return {"registers": num(r"Used (\d+) registers"),
+            "stack_bytes": num(r"(\d+) bytes stack frame"),
+            "spill_store_bytes": num(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": num(r"(\d+) bytes spill loads"),
+            "smem_bytes": num(r"(\d+) bytes smem")}
 
 
 def verify_bound(lanes: int, props) -> tuple:
@@ -914,6 +958,9 @@ def fleet_path(torch, vectors: list, corpus: list, drain: list,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify-kernel-only", action="store_true",
+                    help="stop after phase 1 (the verify kernel against "
+                         "its plain version and timed); prints no result")
     args = ap.parse_args()
 
     import torch
@@ -952,6 +999,17 @@ def main() -> int:
             for line in fh:
                 if "registers" in line or "spill" in line:
                     log("ptxas %s: %s" % (stem, line.strip()))
+    verify_ptxas = ptxas_report(libs["ed25519_verify"][:-3] + ".log",
+                                "ed25519_verify_kernel")
+    log("ed25519 bound: %d products per verify (%d field multiplies, %d "
+        "squarings); the quad design issues %d (%d, %d)"
+        % (PRODUCTS_PER_VERIFY, FE_MUL_PER_VERIFY, FE_SQ_PER_VERIFY,
+           QUAD_PRODUCTS_PER_VERIFY, QUAD_FE_MUL, QUAD_FE_SQ))
+    ops = sass_opcodes(libs["ed25519_verify"], "ed25519_verify_kernel")
+    if ops is not None:
+        log("sass ed25519_verify_kernel: %d instructions; %s"
+            % (sum(ops.values()),
+               ", ".join("%s %d" % kv for kv in ops.most_common(16))))
     ops = sass_opcodes(libs["sha256"], "sha256_blocks_kernel")
     if ops is None:
         log("sass sha256_blocks_kernel: no cuobjdump in the toolkit")
@@ -1002,8 +1060,18 @@ def main() -> int:
             "plain %.1f ms, bound %.4f ms (%s), mismatches %d"
             % (b, r["ms"], b / r["ms"], r["plain_ms"], r["bound_ms"],
                r["bound_by"], r["mismatches"]))
+    for n in RAGGED_LANES:
+        r = kernel_vs_plain(E, vectors, corpus, n, props, timed=False)
+        ref = (vec_ref + expect)[:n]
+        check(r["decisions"] == ref,
+              "kernel == C verifier at %d lanes" % n)
+        log("kernel ed25519_verify at %d lanes (off the ladder): == plain "
+            "and the C verifier, mismatches %d" % (n, r["mismatches"]))
 
     kernel_ms = {b: r["ms"] for b, r in buckets.items()}
+    if args.verify_kernel_only:
+        log("--verify-kernel-only: stopping after phase 1, no result")
+        return 0
 
     # --- the model entry, on the card -------------------------------------
     fwd, entry_args = entry()
@@ -1101,7 +1169,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
-        "library_ms": None, "check": "ok",
+        "library_ms": None, "check": "ok", "ptxas": verify_ptxas,
+        "products_per_verify": {"bound": PRODUCTS_PER_VERIFY,
+                                "design": QUAD_PRODUCTS_PER_VERIFY},
+        "ragged_lanes": list(RAGGED_LANES),
         "buckets": {str(b): {k: r[k] for k in ("ms", "plain_ms",
                                                 "bound_ms", "mismatches")}
                     for b, r in buckets.items()}}, {

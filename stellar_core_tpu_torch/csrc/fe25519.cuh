@@ -17,15 +17,18 @@
 //          (ref10 carry chain: even limbs <= 2^25, odd <= 2^24 + 2^16).
 //          A canonical value (limbs in [0, 2^26)) is within 2T.
 //   fe_add/fe_sub/fe_neg do not carry: the result bound is the sum of the
-//          operands' bounds. Callers keep every fe_mul/fe_sq input within
-//          M = 4T = 2^27 (the point formulas need at most 4T, see
-//          ed25519_verify.cu).
+//          operands' bounds. Callers keep fe_mul's first input within
+//          M = 4T = 2^27 and its second, and fe_sq's input, within 3T (the
+//          point formulas need at most 4T and 3T, see ed25519_verify.cu).
 //   fe_mul column k = lo_k + 19 hi_k, with lo_k the i+j = k terms and
-//          hi_k the i+j = k+10 terms, each term <= 2 M^2 = 2^55 (doubled
-//          when both indices are odd). Worst column is k = 0:
-//          M^2 + 19 (5*2 M^2 + 4 M^2) = 267 M^2 = 2^62.06 < 2^63.
-//   fe_sq  the same columns as fe_mul(f, f), summed in another order: the
-//          same bound. Its doubled operands 2 f_i <= 2^28 stay in int32.
+//          hi_k the i+j = k+10 terms, each term <= 2 M 3T (doubled when
+//          both indices are odd). Worst column is k = 0:
+//          267 M 3T = 2^61.65 < 2^63. The wrapped terms multiply by
+//          19 g_j <= 19 3T = 2^30.84, which stays in int32, and 2 f_i <=
+//          2^28.
+//   fe_sq  the same columns as fe_mul(f, f), summed in another order:
+//          <= 267 (3T)^2 = 2^61.24. Its int32 operands: 4 f_i <= 2^28.6,
+//          19 f_j <= 2^30.84.
 //   fe_carry64 inputs <= 2^62.06: carry c9 <= 2^37.1, 19 c9 < 2^41.4, so
 //          every intermediate stays far inside int64; output is tight.
 //   fe_freeze needs a tight input (ref10 fe_tobytes precondition: even
@@ -40,11 +43,9 @@
 
 #ifdef __CUDACC__
 #define SCT_FN __device__ __forceinline__
-#define SCT_FN_OUTLINE __device__ __noinline__
 #define SCT_LDG(p) __ldg(p)
 #else
 #define SCT_FN static inline
-#define SCT_FN_OUTLINE static
 #define SCT_LDG(p) (*(p))
 #endif
 
@@ -126,59 +127,60 @@ SCT_FN void fe_carry(fe &h, const fe &f)
     fe_carry64(h, t);
 }
 
+// h = f g. The wrapped products take 19 g_j, precomputed in int32 (|g| <=
+// 3T keeps 19 g_j < 2^31).
 SCT_FN void fe_mul(fe &h, const fe &f, const fe &g)
 {
-    int64_t lo[10], hi[10];
+    int32_t g19[10];
+    int64_t t[10];
 #pragma unroll
-    for (int k = 0; k < 10; k++)
-        lo[k] = hi[k] = 0;
+    for (int k = 0; k < 10; k++) {
+        g19[k] = 19 * g.v[k];
+        t[k] = 0;
+    }
 #pragma unroll
     for (int i = 0; i < 10; i++) {
         const int32_t fi = f.v[i];
         const int32_t fi2 = 2 * f.v[i];
 #pragma unroll
         for (int j = 0; j < 10; j++) {
-            const int64_t p = (int64_t)((i & j & 1) ? fi2 : fi) * g.v[j];
+            const int32_t a = (i & j & 1) ? fi2 : fi;
             if (i + j < 10)
-                lo[i + j] += p;
+                t[i + j] += (int64_t)a * g.v[j];
             else
-                hi[i + j - 10] += p;
+                t[i + j - 10] += (int64_t)a * g19[j];
         }
     }
-#pragma unroll
-    for (int k = 0; k < 10; k++)
-        lo[k] += 19 * hi[k];
-    fe_carry64(h, lo);
+    fe_carry64(h, t);
 }
 
+// h = f^2, the symmetric half-product: diagonal f_i^2 (doubled weight when
+// i is odd), off-diagonal 2 f_i f_j (doubled again when both are odd); the
+// wrapped ones take 19 f_j in int32 (|f| <= 3T).
 SCT_FN void fe_sq(fe &h, const fe &f)
 {
-    int64_t lo[10], hi[10];
+    int32_t f19[10];
+    int64_t t[10];
 #pragma unroll
-    for (int k = 0; k < 10; k++)
-        lo[k] = hi[k] = 0;
+    for (int k = 0; k < 10; k++) {
+        f19[k] = 19 * f.v[k];
+        t[k] = 0;
+    }
 #pragma unroll
     for (int i = 0; i < 10; i++) {
         const int32_t fi = f.v[i];
         const int32_t fi2 = 2 * f.v[i];
 #pragma unroll
         for (int j = i; j < 10; j++) {
-            // diagonal: f_i^2 (doubled weight when i is odd);
-            // off-diagonal: 2 f_i f_j (doubled again when both are odd)
-            const int32_t fj = f.v[j];
-            const int64_t p = (i == j)
-                ? (int64_t)fi * ((i & 1) ? fi2 : fi)
-                : (int64_t)fi2 * ((i & j & 1) ? 2 * fj : fj);
+            const int32_t a = (i == j) ? ((i & 1) ? fi2 : fi)
+                                       : ((i & j & 1) ? 2 * fi2 : fi2);
             if (i + j < 10)
-                lo[i + j] += p;
+                t[i + j] += (int64_t)a * f.v[j];
             else
-                hi[i + j - 10] += p;
+                t[i + j - 10] += (int64_t)a * f19[j];
         }
     }
-#pragma unroll
-    for (int k = 0; k < 10; k++)
-        lo[k] += 19 * hi[k];
-    fe_carry64(h, lo);
+    fe_carry64(h, t);
 }
 
 // x^(2^n), n >= 1

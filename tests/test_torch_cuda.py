@@ -5,7 +5,9 @@ Run on a machine with a CUDA card (no JAX needed):
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 The verify kernel's decisions must equal its plain version's on the same
-CUDA tensors, lane for lane (adversarial vectors plus a seeded corpus);
+CUDA tensors, lane for lane (adversarial vectors plus a seeded corpus),
+at lane counts that end inside a warp, one past a block, a 3-member shard
+of 8,193 and the largest bucket;
 the SHA-256 kernel's digest words must equal its plain version's, every
 lane including padding lanes and out-of-range counts, and hashlib's. Each
 wrapper must count each launch and reject what its kernel does not take,
@@ -62,7 +64,7 @@ def _device_args(triples, device):
                        for k in E.ARG_KEYS)
 
 
-@pytest.mark.parametrize("n", [1, 33, 128, 1000])
+@pytest.mark.parametrize("n", [1, 33, 128, 129, 1000, 2731, 8192])
 def test_kernel_matches_plain_on_card(card, n):
     vecs = [(p, s, m) for (_l, p, s, m) in _vectors()]
     triples = (vecs + _triples(max(n - len(vecs), 0)))[:n]

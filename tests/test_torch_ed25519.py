@@ -9,8 +9,10 @@
   adversarial vector plus a seeded corpus (every 7th signature corrupted)
   at B = 128, the live-SCP bucket (the shape the JAX adversarial test
   already compiles). One module-scoped JAX call.
-- The CUDA kernel's source, compiled as host C++ (its per-signature
-  routine needs no card), equals `verify_plain` on the same batch.
+- The CUDA kernel's source, compiled as host C++, equals `verify_plain` on
+  the same batch: there a lockstep loop runs each signature's four lanes
+  in turn through the kernel's own rounds, exchanging through an array
+  where the card shuffles.
 - The wrapper runs the plain version on CPU tensors, counts no launch
   there, and rejects arguments outside its contract.
 Tolerance: none.
@@ -148,8 +150,9 @@ def test_verify_plain_matches_jax_bit_for_bit(batch):
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """csrc/ed25519_verify.cu compiled as host C++: its per-signature
-    routine (everything but the launch) run over a batch on the CPU."""
+    """csrc/ed25519_verify.cu compiled as host C++: its host lockstep
+    driver (`verify_one`: the quad's four lanes in turn within each round,
+    the table in a local array) run over a batch on the CPU."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the kernel source for the "
