@@ -15,10 +15,10 @@ The verify path (`ed25519_verify`):
    same inputs, at every bucket of the verifier's ladder (128, 512, 2048
    and 8192; the main path launches at 128, 2048 and 8192) and at 1, 129
    and 2731 lanes (a lone signature, one past a block of 32 signatures, a
-   3-member shard of 8193): the adversarial ed25519 vectors plus a seeded corpus in
-   which every 7th signature is corrupted. Tolerance: none, the decisions
+   3-member shard of 8193): the adversarial ed25519 vectors plus a seeded
+   corpus in which every 7th signature is corrupted. Tolerance: none, the decisions
    must be identical (a verifier that differs on one signature forks
-   consensus). With --verify-kernel-only the run stops here;
+   consensus);
 2. calls the model entry (`graft_entry.entry()`) and checks that its
    forward ran on the card and accepted its batch;
 3. drives the main path through the entry points a node calls, with every
@@ -86,10 +86,12 @@ The hash path (`sha256`):
    mixed test batch (two oversize lengths) through `CudaBatchHasher` on the
    card, which must hash the 6 oversize ones on the host.
 
-It prints the card's name and power limit, the build time, the verify
-kernel's ptxas report (registers, stack frame, spills, shared memory), its
-product count per verify beside the bound's, both kernels' SASS opcode
-counts (cuobjdump, where the toolkit has it), the
+It prints the card's name and power limit, the build time, both kernels'
+ptxas reports (registers, stack frame, spills, shared memory; each from
+the log of the build that made its library, marked when that build was
+an earlier process's), the verify kernel's product count per verify
+beside the bound's, both kernels' SASS opcode counts (cuobjdump, where
+the toolkit has it), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries) and, last,
@@ -958,9 +960,6 @@ def fleet_path(torch, vectors: list, corpus: list, drain: list,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--verify-kernel-only", action="store_true",
-                    help="stop after phase 1 (the verify kernel against "
-                         "its plain version and timed); prints no result")
     args = ap.parse_args()
 
     import torch
@@ -988,19 +987,20 @@ def main() -> int:
 
     # --- build ------------------------------------------------------------
     t0 = time.perf_counter()
+    prebuilt = {stem for stem in ("ed25519_verify", "sha256")
+                if _build.cuda_built(stem)}
     libs = _build.build_cuda()
     check(ed25519_native() is not None, "the C CPU verifier builds")
     log("build: %.1f s (%s)" % (time.perf_counter() - t0,
                                 ", ".join(sorted(libs))))
     check(sorted(libs) == ["ed25519_verify", "sha256"],
           "both kernels built")
-    for stem in sorted(libs):
-        with open(libs[stem][:-3] + ".log") as fh:
-            for line in fh:
-                if "registers" in line or "spill" in line:
-                    log("ptxas %s: %s" % (stem, line.strip()))
-    verify_ptxas = ptxas_report(libs["ed25519_verify"][:-3] + ".log",
-                                "ed25519_verify_kernel")
+    for stem, kernel in (("ed25519_verify", "ed25519_verify_kernel"),
+                         ("sha256", "sha256_blocks_kernel")):
+        log("ptxas %s (%s): %s" % (
+            kernel, "an earlier build's log" if stem in prebuilt
+            else "built in this run",
+            json.dumps(ptxas_report(libs[stem][:-3] + ".log", kernel))))
     log("ed25519 bound: %d products per verify (%d field multiplies, %d "
         "squarings); the quad design issues %d (%d, %d)"
         % (PRODUCTS_PER_VERIFY, FE_MUL_PER_VERIFY, FE_SQ_PER_VERIFY,
@@ -1069,9 +1069,6 @@ def main() -> int:
             "and the C verifier, mismatches %d" % (n, r["mismatches"]))
 
     kernel_ms = {b: r["ms"] for b, r in buckets.items()}
-    if args.verify_kernel_only:
-        log("--verify-kernel-only: stopping after phase 1, no result")
-        return 0
 
     # --- the model entry, on the card -------------------------------------
     fwd, entry_args = entry()
@@ -1169,10 +1166,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
-        "library_ms": None, "check": "ok", "ptxas": verify_ptxas,
-        "products_per_verify": {"bound": PRODUCTS_PER_VERIFY,
-                                "design": QUAD_PRODUCTS_PER_VERIFY},
-        "ragged_lanes": list(RAGGED_LANES),
+        "library_ms": None, "check": "ok",
         "buckets": {str(b): {k: r[k] for k in ("ms", "plain_ms",
                                                 "bound_ms", "mismatches")}
                     for b, r in buckets.items()}}, {

@@ -62,10 +62,13 @@
 // Memory: the per-signature table of v(-A), v = 0..8, in cached form (9 x 4
 // x 10 limbs = 1,440 B), is written by the quad and read at a data-dependent
 // index, so it lives in shared memory (46,080 B for the 32 signatures of a
-// 128-thread block, under the 48 KB static limit), laid out [v][limb][lane]
-// so a quad's four reads of one limb are one 16-byte row. The fixed table
-// (69,120 B) is read through the read-only path (__ldg): each lane reads
-// its own coordinate of the entry, and lanes 2 and 3 the same one.
+// 128-thread block, under the 48 KB static limit). The block's tables are
+// laid out by row (entry v, limb l), one word per thread, so a warp's 32
+// reads of one limb fall on 32 banks whatever each quad's digit (a layout
+// per signature, 360 words, would put quads s and s + 4 on one bank). The
+// fixed table (69,120 B) is read through the read-only path (__ldg): each
+// lane reads its own coordinate of the entry, and lanes 2 and 3 the same
+// one.
 //
 // `-Xptxas -v` (CUDA 12.9, sm_90a): 254 registers, 0 bytes stack frame, no
 // spills, 46,080 bytes shared memory. 254 registers allow two 128-thread
@@ -88,7 +91,11 @@
 #define SCT_PARAM_WORDS (SCT_FIXED_WORDS + 30)
 #define SCT_THREADS 128
 #define SCT_SIGS_PER_BLOCK (SCT_THREADS / 4)
-#define SCT_TAB_WORDS (9 * 10 * 4)
+// The tables of v(-A) of a block's 32 signatures share one array of 90
+// rows (entry v, limb l: row 10 v + l), each row one word per thread of
+// the block: thread 4s + q's word of row r is at r * SCT_TAB_STRIDE + 4s + q.
+#define SCT_TAB_ROWS (9 * 10)
+#define SCT_TAB_STRIDE SCT_THREADS
 
 // --- the quad -------------------------------------------------------------
 //
@@ -243,7 +250,7 @@ SCT_FN void q_cached(qfe &c, const qfe &p, const fe &d2)
     }
 }
 
-// tab[v] = cached(p); lane q writes coordinate q, layout [v][limb][lane].
+// tab[v] = cached(p); lane q writes coordinate q (rows 10 v .. 10 v + 9).
 SCT_FN void q_put(int32_t *tab, int v, const qfe &p, const fe &d2)
 {
     qfe c;
@@ -251,7 +258,7 @@ SCT_FN void q_put(int32_t *tab, int v, const qfe &p, const fe &d2)
     SCT_QFOR(q) {
 #pragma unroll
         for (int i = 0; i < 10; i++)
-            tab[(v * 10 + i) * 4 + q] = QL(c, q).v[i];
+            tab[(v * 10 + i) * SCT_TAB_STRIDE + q] = QL(c, q).v[i];
     }
 }
 
@@ -331,7 +338,8 @@ SCT_FN bool verify_quad(const int32_t *ay13, int a_sign,
     SCT_QFOR(q) {
 #pragma unroll
         for (int i = 0; i < 10; i++)
-            tab[i * 4 + q] = i ? 0 : (q == 2 ? 0 : (q == 3 ? 2 : 1));
+            tab[i * SCT_TAB_STRIDE + q] =
+                i ? 0 : (q == 2 ? 0 : (q == 3 ? 2 : 1));
     }
     // built in an order that keeps two points live; the adds read the
     // cached -A back from the table (lane q its own coordinate)
@@ -340,7 +348,7 @@ SCT_FN bool verify_quad(const int32_t *ay13, int a_sign,
     SCT_QFOR(q) {
 #pragma unroll
         for (int i = 0; i < 10; i++)
-            QL(c1, q).v[i] = tab[(10 + i) * 4 + q];
+            QL(c1, q).v[i] = tab[(10 + i) * SCT_TAB_STRIDE + q];
     }
     p2 = p;
     q_dbl(p2);
@@ -391,7 +399,7 @@ SCT_FN bool verify_quad(const int32_t *ay13, int a_sign,
             fe v, nv, two;
 #pragma unroll
             for (int l = 0; l < 10; l++)
-                v.v[l] = tab[(idx * 10 + l) * 4 + from];
+                v.v[l] = tab[(idx * 10 + l) * SCT_TAB_STRIDE + from];
             fe_neg(nv, v);
             fe_sel(QL(c, q), v, nv, neg && q == 2);
             const int comp = q >= 2 ? 2 : (q ^ 1 ^ sneg);
@@ -447,14 +455,14 @@ ed25519_verify_kernel(const int32_t *__restrict__ ay,
                       const int32_t *__restrict__ params,
                       bool *__restrict__ out, int n)
 {
-    __shared__ int32_t tabs[SCT_SIGS_PER_BLOCK][SCT_TAB_WORDS];
+    __shared__ int32_t tabs[SCT_TAB_ROWS * SCT_TAB_STRIDE];
     const int s = threadIdx.x >> 2;
     const int b = blockIdx.x * SCT_SIGS_PER_BLOCK + s;
     const int bi = b < n ? b : n - 1;
     const bool ok = verify_quad(ay + 20 * bi, __ldg(a_sign + bi),
                                 ry + 20 * bi, __ldg(r_sign + bi),
                                 s_nibs + 64 * bi, k_nibs + 64 * bi, params,
-                                tabs[s]);
+                                tabs + 4 * s);
     if ((threadIdx.x & 3) == 0 && b < n)
         out[b] = ok;
 }
@@ -485,12 +493,13 @@ extern "C" const char *sct_cuda_error_string(int err)
 }
 #else
 // The host's lockstep loop: one signature, its quad's four lanes run in
-// turn within each round, the table in a local array.
+// turn within each round, the table in a local array with the card's
+// row stride (signature 0's column).
 static bool verify_one(const int32_t *ay13, int a_sign, const int32_t *ry13,
                        int r_sign, const int32_t *s_dig,
                        const int32_t *k_dig, const int32_t *params)
 {
-    int32_t tab[SCT_TAB_WORDS];
+    int32_t tab[SCT_TAB_ROWS * SCT_TAB_STRIDE];
     return verify_quad(ay13, a_sign, ry13, r_sign, s_dig, k_dig, params,
                        tab);
 }
