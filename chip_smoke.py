@@ -66,11 +66,17 @@ The hash path (`sha256`):
 5. holds the kernel against its plain version on the card at all 15
    (lanes x blocks) shapes of the hasher's ladder (256/1024/4096 x
    1/2/4/8/16): every FIPS boundary length that fits, random lengths up to
-   the block bucket, and padding lanes of garbage words with count 0. All
-   8 words of every lane must be equal, and every real lane must equal
-   hashlib. Tolerance: none (a digest one bit off forks consensus). Each
-   shape's kernel time (CUDA events), bound, plain time and single-thread
-   hashlib time on the same batch are printed;
+   the block bucket, and padding lanes of garbage words with count 0; at
+   one lane of 1 and of 16 blocks (the chain alone); and on a real
+   per-close chunk (1,000 entry leaves planned and staged by the hasher,
+   sorted by block count). All 8 words of every lane must be equal, and
+   every real lane must equal hashlib. Tolerance: none (a digest one bit
+   off forks consensus). Each shape's kernel time (CUDA events), plain
+   time and single-thread hashlib time on the same batch are printed
+   beside two floors: the throughput bound, and the chain floor (its
+   longest lane's block count times the per-block latency of a chain, the
+   slope between the 1-lane launches of 1 and 16 blocks), and which of the
+   two binds;
 6. drives the main path with the counts set to 0 just before and read
    just after: a deep-level entry-root drain of 2^20 bucket-entry leaves
    (protocol-13 XDR, 60 % accounts, 25 % trustlines, 10 % offers, 4 % data
@@ -91,7 +97,8 @@ ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
 an earlier process's), the verify kernel's product count per verify
 beside the bound's, both kernels' SASS opcode counts (cuobjdump, where
-the toolkit has it), the
+the toolkit has it) and, for the SHA-256 kernel, each warp role's loop
+per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries) and, last,
@@ -178,6 +185,7 @@ HASH_BLOCKS = (1, 2, 4, 8, 16)
 FIPS_LENS = (0, 55, 56, 63, 64, 119, 120, 1015)
 DRAIN_LEAVES = 1 << 20
 HASH_MAIN_SHAPE = "4096x2"     # most of the drain's chunks: 2-block leaves
+CHAIN_BLOCKS = 16              # the 1-lane chain timed at 1 and 16 blocks
 CLOSES, CLOSE_LEAVES = 20, 1000
 # the fleet phase: drains over 2, 3 and 4 members sharing cuda:0, each
 # three times from an empty cache; the sharded launch timed at these
@@ -423,11 +431,13 @@ def hash_batch(S, rng: np.random.Generator, lanes: int, blocks: int):
     return msgs, words, counts
 
 
-def hash_kernel_vs_plain(S, rng, lanes: int, blocks: int, props) -> dict:
+def hash_case(S, msgs: list, words, counts, what: str, props) -> dict:
     """The SHA-256 kernel against hash_blocks_plain on the same CUDA
-    tensors at one ladder shape; their times, hashlib's and the bound."""
+    tensors, the real lanes (the first len(msgs)) against hashlib and the
+    rest against H0; their times, hashlib's, the throughput bound and the
+    longest lane's clamped block count."""
     import torch
-    msgs, words, counts = hash_batch(S, rng, lanes, blocks)
+    lanes, blocks = words.shape[0], words.shape[1]
     w = torch.from_numpy(words.view(np.int32)).cuda()
     c = torch.from_numpy(counts).cuda()
     got = S.hash_blocks_kernel(w, c)
@@ -437,21 +447,68 @@ def hash_kernel_vs_plain(S, rng, lanes: int, blocks: int, props) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     mismatches = int((got != want).sum())
-    check(mismatches == 0, "sha256 kernel == plain at %dx%d (%d words "
-          "differ)" % (lanes, blocks, mismatches))
+    check(mismatches == 0, "sha256 kernel == plain at %s (%d words "
+          "differ)" % (what, mismatches))
     host = got.cpu().numpy().view(np.uint32)
     t0 = time.perf_counter()
     oracle = [hashlib.sha256(m).digest() for m in msgs]
     hashlib_ms = (time.perf_counter() - t0) * 1e3
     check(S.digests_to_bytes(host[:len(msgs)]) == oracle,
-          "sha256 kernel == hashlib at %dx%d" % (lanes, blocks))
+          "sha256 kernel == hashlib at %s" % what)
     check((host[len(msgs):] == S._H0).all(),
-          "padding lanes keep H0 at %dx%d" % (lanes, blocks))
+          "padding lanes keep H0 at %s" % what)
     ms = time_cuda(lambda: S.hash_blocks_kernel(w, c), reps=200)
-    bound_ms, bound_by = hash_bound(int(counts.sum()), lanes, props)
+    real = np.clip(counts, 0, blocks)
+    bound_ms, bound_by = hash_bound(int(real.sum()), lanes, props)
     return {"ms": ms, "plain_ms": plain_ms, "hashlib_ms": hashlib_ms,
-            "mismatches": mismatches, "real_blocks": int(counts.sum()),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "mismatches": mismatches, "real_blocks": int(real.sum()),
+            "longest": int(real.max()), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def sass_loops(lib: str, kernel: str):
+    """The innermost loops of at least 200 instructions in the SASS of the
+    function whose name contains `kernel`: for each, its instruction count,
+    the sum of the stall counts ptxas put in the instructions' control bits
+    (clocks the warp waits before its next issue; waits on loads and
+    barriers come on top) and its opcode counts. None where the toolkit has
+    no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    lines = subprocess.run([exe, "-sass", lib], capture_output=True,
+                           text=True, timeout=120, check=True).stdout \
+        .splitlines()
+    ins, inside = [], False
+    for i, line in enumerate(lines):
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);\s*/\* 0x[0-9a-f]+ \*/",
+                     line)
+        if inside and m and i + 1 < len(lines):
+            hi = re.search(r"/\* (0x[0-9a-f]+) \*/", lines[i + 1])
+            if hi:
+                ins.append((int(m.group(1), 16), m.group(2),
+                            (int(hi.group(1), 16) >> 41) & 0xF))
+    at = {a: k for k, (a, _t, _s) in enumerate(ins)}
+    spans = []
+    for k, (a, text, _s) in enumerate(ins):
+        m = re.search(r"\bBRA (?:\S+ )?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at \
+                and k - at[int(m.group(1), 16)] >= 200:
+            spans.append((at[int(m.group(1), 16)], k))
+    loops = []
+    for lo, hi in spans:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue
+        body = ins[lo:hi + 1]
+        ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                      for _a, t, _s in body)
+        loops.append({"instructions": len(body),
+                      "stall_clocks": sum(s for _a, _t, s in body),
+                      "ops": ops})
+    return loops
 
 
 def hash_drain_layers(S, hasher, records: list) -> dict:
@@ -503,20 +560,50 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     from stellar_core_tpu_torch.ops import sha256 as S
     from stellar_core_tpu_torch.testing.entries import entry_records
 
-    # --- the SHA-256 kernel against its plain version, every ladder shape --
+    # --- the SHA-256 kernel against its plain version --------------------
     S.hash_blocks_plain(torch.zeros((8, 1, 16), dtype=torch.int32).cuda(),
                         torch.ones(8, dtype=torch.int32).cuda())
+    # the chain alone: one lane of 1 and of CHAIN_BLOCKS blocks; the slope
+    # is the latency of one compression in a chain
     shapes = {}
+    for blk in (1, CHAIN_BLOCKS):
+        msg = rng.bytes(64 * blk - 9)
+        words, counts = S.pad_messages_np([msg], blk)
+        shapes["1x%d" % blk] = hash_case(S, [msg], words, counts,
+                                         "1x%d" % blk, props)
+    block_ms = (shapes["1x%d" % CHAIN_BLOCKS]["ms"] - shapes["1x1"]["ms"]) \
+        / (CHAIN_BLOCKS - 1)
+    log("sha256 chain: one lane of 1 / %d blocks %.5f / %.5f ms: %.5f ms "
+        "per block in a chain"
+        % (CHAIN_BLOCKS, shapes["1x1"]["ms"],
+           shapes["1x%d" % CHAIN_BLOCKS]["ms"], block_ms))
     for lanes in HASH_LANES:
         for blk in HASH_BLOCKS:
-            r = hash_kernel_vs_plain(S, rng, lanes, blk, props)
-            shapes["%dx%d" % (lanes, blk)] = r
-            log("kernel sha256 %dx%d: %.4f ms (%.1f blocks/us), plain "
-                "%.1f ms, hashlib (one thread) %.3f ms, bound %.5f ms (%s), "
-                "mismatches %d"
-                % (lanes, blk, r["ms"], r["real_blocks"] / r["ms"] / 1e3,
-                   r["plain_ms"], r["hashlib_ms"], r["bound_ms"],
-                   r["bound_by"], r["mismatches"]))
+            key = "%dx%d" % (lanes, blk)
+            shapes[key] = hash_case(S, *hash_batch(S, rng, lanes, blk), key,
+                                    props)
+    # a real per-close chunk: 1,000 entry leaves, planned and staged as
+    # the hasher's per-close drain stages them (sorted by block count)
+    stager = make_hasher("cuda")
+    close = [b"\x00" + r for r in entry_records(rng, CLOSE_LEAVES)]
+    _over, chunks = stager.plan([S.blocks_for_len(len(m)) for m in close])
+    check(len(chunks) == 1, "a per-close drain is one chunk")
+    idx, lanes, blk = chunks[0]
+    words, counts = stager.stage([close[i] for i in idx], lanes, blk)
+    key = "per-close %dx%d" % (lanes, blk)
+    shapes[key] = hash_case(S, [close[i] for i in idx],
+                            words.view(np.uint32), counts, key, props)
+    for key, r in shapes.items():
+        r["chain_floor_ms"] = r["longest"] * block_ms
+        log("kernel sha256 %s: %.5f ms (%.1f blocks/us), plain %.1f ms, "
+            "hashlib (one thread) %.3f ms; throughput bound %.5f ms (%s), "
+            "chain floor %.5f ms (%d blocks x %.5f ms): the %s binds; "
+            "mismatches %d"
+            % (key, r["ms"], r["real_blocks"] / r["ms"] / 1e3,
+               r["plain_ms"], r["hashlib_ms"], r["bound_ms"], r["bound_by"],
+               r["chain_floor_ms"], r["longest"], block_ms,
+               "chain" if r["chain_floor_ms"] >= r["bound_ms"]
+               else "throughput", r["mismatches"]))
 
     # --- the hash path: a deep-level entry-root drain, then per-close ------
     t0 = time.perf_counter()
@@ -550,6 +637,11 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
         % (len(records), t2 - t0, len(records) / (t2 - t0), t1 - t0,
            t2 - t1, drain_launches, hasher.real_blocks, hasher.pad_blocks,
            hasher.oversize_msgs))
+    _over, chunks = hasher.plan([S.blocks_for_len(1 + len(r))
+                                 for r in records])
+    log("drain launch shapes (lanes x blocks): %s"
+        % ", ".join("%s x%d" % kv for kv in sorted(Counter(
+            "%dx%d" % (lanes, blk) for _i, lanes, blk in chunks).items())))
     lat, close_shapes = [], Counter()
     real0, pad0 = hasher.real_blocks, hasher.pad_blocks
     for _ in range(CLOSES):
@@ -1017,6 +1109,16 @@ def main() -> int:
         log("sass sha256_blocks_kernel: %d instructions; %s"
             % (sum(ops.values()),
                ", ".join("%s %d" % kv for kv in ops.most_common(12))))
+        # one loop per warp role, each run once per block: the round warp's
+        # has the ring loads and no stores, the schedule warp's the stores
+        for loop in sass_loops(libs["sha256"], "sha256_blocks_kernel"):
+            role = ("schedule warp" if loop["ops"]["STS.128"]
+                    else "round warp" if loop["ops"]["LDS.128"] else "loop")
+            log("sass sha256_blocks_kernel %s, per block: %d instructions, "
+                "%d stall clocks; %s"
+                % (role, loop["instructions"], loop["stall_clocks"],
+                   ", ".join("%s %d" % kv
+                             for kv in loop["ops"].most_common(8))))
     log("sha256 bound: %d INT32-pipe + %d other instructions per block, "
         "%.2f clocks per block per SM"
         % (PIPE_INSTR_PER_BLOCK, INSTR_PER_BLOCK - PIPE_INSTR_PER_BLOCK,
@@ -1177,9 +1279,11 @@ def main() -> int:
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],
+        "chain_floor_ms": main_s["chain_floor_ms"],
         "library_ms": None, "check": "ok", "main_shape": HASH_MAIN_SHAPE,
         "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "hashlib_ms",
-                                         "bound_ms", "mismatches")}
+                                         "bound_ms", "chain_floor_ms",
+                                         "mismatches")}
                    for k, r in shapes.items()}}, {
         "name": "ed25519_verify_sharded", "route": "cuda",
         "source": "stellar_core_tpu_torch/parallel/mesh.py + "

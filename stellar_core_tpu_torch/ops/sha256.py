@@ -172,8 +172,8 @@ def hash_blocks_kernel(words: torch.Tensor,
         raise ValueError("hash_blocks_kernel runs on cuda or cpu, not %s"
                          % dev)
     if words.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned (the kernel reads "
-                         "each block as four 16-byte loads)")
+        raise ValueError("words must be 16-byte aligned (the kernel copies "
+                         "each block as four 16-byte cp.async)")
     lib = _cuda_lib()
     batch, max_blocks = words.shape[0], words.shape[1]
     out = torch.empty((batch, 8), dtype=torch.int32, device=dev)

@@ -9,7 +9,10 @@ CUDA tensors, lane for lane (adversarial vectors plus a seeded corpus),
 at lane counts that end inside a warp, one past a block, a 3-member shard
 of 8,193 and the largest bucket;
 the SHA-256 kernel's digest words must equal its plain version's, every
-lane including padding lanes and out-of-range counts, and hashlib's. Each
+lane including padding lanes and out-of-range counts, and hashlib's, also
+on a full warp pair of 16-block lanes, one 16-block lane, a sorted
+per-close chunk of 1,000 entry leaves at 1024 x 16 and a batch with no
+positive count. Each
 wrapper must count each launch and reject what its kernel does not take,
 and `CudaSigVerifier` / `CudaBatchHasher` on their default device must
 match the CPU backends, as must fleets of 2 and 3 members sharing the
@@ -33,6 +36,7 @@ from stellar_core_tpu_torch.crypto.batch_verifier import (
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.ops import ed25519 as E
 from stellar_core_tpu_torch.ops import sha256 as S
+from stellar_core_tpu_torch.testing.entries import entry_records
 from stellar_core_tpu_torch.testing.vectors import _vectors
 
 pytestmark = pytest.mark.cuda
@@ -182,6 +186,49 @@ def test_sha256_kernel_matches_plain_on_card(card, lanes, blocks):
     host = got.cpu().numpy().view(np.uint32)
     assert S.digests_to_bytes(host[:len(msgs)]) == \
         [hashlib.sha256(m).digest() for m in msgs]
+
+
+def _staging_case(kind: str):
+    """(messages, words uint32, counts int32) of one staging case: real
+    messages first, the other lanes garbage words."""
+    rng = np.random.default_rng(15)
+    if kind == "idle":
+        # every count 0 or negative: no block is staged, every lane H0
+        words = rng.integers(0, 1 << 32, (300, 4, 16),
+                             dtype=np.uint64).astype(np.uint32)
+        return [], words, rng.integers(-5, 1, 300).astype(np.int32)
+    if kind == "per-close":
+        # 1,000 entry leaves in the hasher's order, staged at 1024 x 16
+        msgs = [b"\x00" + r for r in entry_records(rng, 1000)]
+        h = CudaBatchHasher(device="cpu")
+        _over, chunks = h.plan([S.blocks_for_len(len(m)) for m in msgs])
+        msgs = [msgs[i] for i in chunks[0][0]]
+        words, counts = h.stage(msgs, 1024, 16)
+        return msgs, words.view(np.uint32), counts
+    # "pair": a full warp pair of 16-block lanes (the most staged);
+    # "chain": one lane of 16 blocks
+    lanes = 32 if kind == "pair" else 1
+    msgs = [rng.bytes(int(n)) for n in rng.integers(64 * 15 - 8, 64 * 16 - 8,
+                                                    lanes)]
+    words, counts = S.pad_messages_np(msgs, 16)
+    assert (counts == 16).all()
+    return msgs, words, counts
+
+
+@pytest.mark.parametrize("kind", ["pair", "chain", "per-close", "idle"])
+def test_sha256_kernel_staging_cases_match_plain(card, kind):
+    msgs, words, counts = _staging_case(kind)
+    w = torch.from_numpy(words.view(np.int32)).to(card)
+    c = torch.from_numpy(counts).to(card)
+    before = S.LAUNCHES
+    got = S.hash_blocks_kernel(w, c)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == before + 1
+    assert torch.equal(got, S.hash_blocks_plain(w, c))
+    host = got.cpu().numpy().view(np.uint32)
+    assert S.digests_to_bytes(host[:len(msgs)]) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    assert (host[len(msgs):] == S._H0).all()
 
 
 def test_sha256_empty_batch_launches_nothing(card):

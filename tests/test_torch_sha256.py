@@ -7,8 +7,14 @@
   lanes of random words with ragged counts, zero-count padding lanes, a
   count past max_blocks and a negative count. The JAX side stays at
   <= 256 lanes and compiles each of those three shapes once.
-- The CUDA kernel's source, compiled as host C++ (its per-message routine
-  needs no card), equals `hash_blocks_plain` on the same arrays.
+- The CUDA kernel's source, compiled as host C++, runs the schedule and
+  round functions that the card's two warps call. Run in turn per lane
+  (`sha256_lane`), and run a warp pair at a time through the card's
+  staging offsets and two-slot ring (`sha256_pair`: block i + 1's
+  schedule written before block i's rounds read theirs, rows past a
+  lane's count poisoned), both equal `hash_blocks_plain` and
+  `hash_blocks_jit` at the three shapes; the pair loop also at 33 x 20
+  (a partial pair, lanes longer than the hasher's 16-block bucket).
 - The wrapper runs the plain version on CPU tensors, counts no launch
   there, and rejects arguments outside its contract.
 Tolerance: none (a digest one bit off forks consensus).
@@ -139,8 +145,9 @@ def test_plain_digests_equal_hashlib():
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """csrc/sha256.cu compiled as host C++: its per-message routine
-    (everything but the launch) run over a batch on the CPU."""
+    """csrc/sha256.cu compiled as host C++, with its two host loops over
+    a batch: `host_sha256` (`sha256_lane` per lane) and `host_sha256_pairs`
+    (`sha256_pair` per 32 lanes)."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the kernel source for the "
@@ -154,22 +161,51 @@ def host_kernel(tmp_path_factory):
         ' int max_blocks) {\n'
         '  for (int b = 0; b < batch; b++)\n'
         '    sha256_lane(words + (size_t)b * max_blocks * 16, n_blocks[b],'
-        ' max_blocks, out + 8 * (size_t)b);\n}\n')
+        ' max_blocks, out + 8 * (size_t)b);\n}\n'
+        'extern "C" void host_sha256_pairs(const uint32_t *words,'
+        ' const int32_t *n_blocks, uint32_t *out, int batch,'
+        ' int max_blocks) {\n'
+        '  for (int b = 0; b < batch; b += SHA_WARP)\n'
+        '    sha256_pair(words, n_blocks, out, batch, max_blocks, b);\n}\n')
     so = d / "libhost_sha256.so"
     subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-I", _build.CSRC_DIR,
                     "-o", str(so), str(src)], check=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    lib.host_sha256.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    for fn in (lib.host_sha256, lib.host_sha256_pairs):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     return lib
+
+
+def _host_run(fn, words, counts):
+    out = np.zeros((words.shape[0], 8), np.uint32)
+    fn(words.ctypes.data, counts.ctypes.data, out.ctypes.data,
+       words.shape[0], words.shape[1])
+    return out
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "%dx%d" % s)
 def test_kernel_source_on_host_matches_plain(batches, host_kernel, shape):
-    words, counts, _jax_out, plain = batches[shape]
-    out = np.zeros((shape[0], 8), np.uint32)
-    host_kernel.host_sha256(words.ctypes.data, counts.ctypes.data,
-                            out.ctypes.data, shape[0], shape[1])
+    words, counts, jax_out, plain = batches[shape]
+    out = _host_run(host_kernel.host_sha256, words, counts)
     np.testing.assert_array_equal(out, plain)
+    np.testing.assert_array_equal(out, jax_out)
+
+
+@pytest.mark.parametrize("shape", SHAPES + ((33, 20),),
+                         ids=lambda s: "%dx%d" % s)
+def test_kernel_pair_ring_on_host_matches_plain(batches, host_kernel,
+                                                 shape):
+    if shape in batches:
+        words, counts, jax_out, plain = batches[shape]
+    else:
+        words, counts = _batch(*shape, seed=20)
+        jax_out, plain = None, _plain(words, counts)
+        # some lane is longer than the hasher's 16-block bucket
+        assert counts.max() > 16
+    out = _host_run(host_kernel.host_sha256_pairs, words, counts)
+    np.testing.assert_array_equal(out, plain)
+    if jax_out is not None:
+        np.testing.assert_array_equal(out, jax_out)
 
 
 def test_wrapper_runs_plain_on_cpu_without_counting(batches):
