@@ -34,6 +34,43 @@ The verify path (`ed25519_verify`):
    and reads the card's busy share and the kernel's device time from the
    trace.
 
+The verify boundary's host layers (the C host prep `native/prep.c` behind
+`prepare_batch` and `prewarm_many`, the resilient and async layers), each
+driven with the counts set to 0 just before it and read just after:
+
+H1. holds the native `prepare_batch` against the numpy one
+   (`prepare_batch_plain`) on the drain's chunks, the adversarial vectors
+   and a batch with short, long and missing rows: `pre_ok` equal, and all
+   six arrays equal on every row `pre_ok` passes (the rows it rejects
+   reach no decision, and the two paths fill them differently); and
+   `cache_keys_native` against `keys._cache_key` on the drain, triple for
+   triple. Prints each 8,192 chunk's host ms for both preps, the native
+   one split into pack, C call and recode, and the drain's cache-key ms
+   in both forms, in turns;
+H2. drives the checkpoint drain through `make_verifier("cuda")` with the
+   native prep and, with `prepare_batch` swapped for `prepare_batch_plain`
+   for the length of the drain, the numpy prep, in turns (native, numpy,
+   numpy, native), each from an empty cache, then one 4-member fleet drain on cuda:0 and one profiled drain
+   in each mode: every decision equal to the C verifier, the launches as
+   in step 3, and in native mode one C prep per chunk staged. Prints
+   sigs/s, the host-prep ms per chunk, the staging worker's time and its
+   overlap with the kernel (`staging_overlap_pct`) and the card's busy
+   share;
+H3. runs 20 live-SCP bursts of 100-128 `enqueue`s through
+   `make_verifier("cuda-async")` on a real-time `VirtualClock`, each
+   flushed and cranked until every future completes: every decision
+   right, one launch a burst, no failed or requeued dispatch, no drain
+   verified on the CPU, the breaker closed.
+   Prints the p50/p99 of `crypto.verify.latency`, of the queue wait and of
+   flush to the last future;
+H4. runs `make_verifier("cuda-resilient")` (no fallback) with
+   `device.dispatch` firing three times: the three drains raise with no
+   launch, the breaker trips (meter, flight dump), a drain while it is
+   open is refused (BreakerOpenError, no launch), no drain is verified on
+   the CPU, and past the cooldown on a virtual clock the half-open probe
+   launches the kernel once, returns the kernel's decisions and re-closes
+   it.
+
 The verify fleet (`ed25519_verify_sharded`: the verify kernel launched once
 per fleet member on the member's own stream, then a gather;
 parallel/mesh.py). The machine has one card, so fleets of 2, 3 and 4
@@ -193,6 +230,13 @@ CLOSES, CLOSE_LEAVES = 20, 1000
 FLEET_SIZES = (2, 3, 4)
 FLEET_RUNS = 3
 FLEET_TIMES = {128: (1, 4), 8192: (1, 2, 3, 4)}
+# the host-prep phase: the drain's prep modes in turns, and the cache-key
+# forms timed this many times each, in turns
+PREP_MODES = ("native", "numpy", "numpy", "native")
+CACHE_KEY_REPS = 3
+# the breaker phase: drains of the first DRAIN_TAIL triples, the resilient
+# layer's breaker threshold and cooldown (app-clock seconds)
+BREAKER_THRESHOLD, BREAKER_COOLDOWN = 3, 30.0
 
 
 def log(msg: str) -> None:
@@ -1049,6 +1093,350 @@ def fleet_path(torch, vectors: list, corpus: list, drain: list,
     return {"shard": shard, "launches": launches}
 
 
+# --- the verify boundary's host layers (C host prep, async, breaker) -------
+
+
+class PrepTimer:
+    """Swaps ops/ed25519.prepare_batch for a timed wrapper for the length
+    of a `with`: the host-prep seconds of every chunk prepared, on
+    whichever thread (the dispatch thread stages a drain's first chunk,
+    the staging worker the rest). In mode "numpy" the wrapper calls
+    `prepare_batch_plain`, so the drain runs on the numpy prep."""
+
+    def __init__(self, E, mode: str = "native") -> None:
+        import threading
+        self.E = E
+        self.mode = mode
+        self.secs: list = []
+        self._lock = threading.Lock()
+
+    def __enter__(self) -> "PrepTimer":
+        self._orig = self.E.prepare_batch
+        prep = (self.E.prepare_batch_plain if self.mode == "numpy"
+                else self._orig)
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return prep(*args)
+            finally:
+                with self._lock:
+                    self.secs.append(time.perf_counter() - t0)
+
+        self.E.prepare_batch = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.E.prepare_batch = self._orig
+
+
+def prep_both(E, cols: list) -> tuple:
+    """(numpy prep, native prep) of one batch: prepare_batch_plain and
+    prepare_batch."""
+    return E.prepare_batch_plain(*cols), E.prepare_batch(*cols)
+
+
+def check_prep_equal(E, ref: dict, nat: dict, what: str) -> int:
+    """pre_ok equal, and all six arrays equal on every row pre_ok passes
+    (the rows it rejects reach no decision; the two paths fill them
+    differently). Returns the deciding rows."""
+    check(bool((ref["pre_ok"] == nat["pre_ok"]).all()),
+          "native pre_ok == numpy pre_ok (%s)" % what)
+    mask = ref["pre_ok"]
+    for k in E.ARG_KEYS:
+        check(nat[k].dtype == ref[k].dtype and nat[k].shape == ref[k].shape
+              and bool((nat[k][mask] == ref[k][mask]).all()),
+              "native %s == numpy %s on every deciding row (%s)"
+              % (k, k, what))
+    return int(mask.sum())
+
+
+def host_prep_phase(E, K, native, drain: list, vectors: list) -> dict:
+    """The native prep against the numpy prep on the drain (chunk by
+    chunk, as the drain stages it), the adversarial vectors and a batch
+    with short, long and missing rows; the drain's cache keys in both
+    forms; per 8,192-chunk host ms of both preps, the native one split
+    into pack, C call and recode."""
+    check(native.prep_lib() is not None, "the C host prep builds")
+    calls0 = native.PREP_CALLS
+    rows = {"drain": 0}
+    chunks = [drain[i:i + DRAIN_CHUNK]
+              for i in range(0, len(drain), DRAIN_CHUNK)]
+    for chunk in chunks:
+        rows["drain"] += check_prep_equal(
+            E, *prep_both(E, list(map(list, zip(*chunk)))), "drain")
+    vec_cols = [list(c) for c in zip(*[(p, s, m)
+                                        for (_l, p, s, m) in vectors])]
+    rows["vectors"] = check_prep_equal(E, *prep_both(E, vec_cols),
+                                       "adversarial vectors")
+    pubs, sigs, msgs = map(list, zip(*drain[:DRAIN_TAIL]))
+    pubs[3] = pubs[3][:31]                  # a short key
+    pubs[4] = pubs[4] + b"\x00"             # a long key
+    sigs[5] = sigs[5][:63]
+    sigs[6] = sigs[6] + b"\x00"
+    sigs[7] = sigs[7][:20]
+    sigs = sigs[:DRAIN_TAIL - 10]            # the last 10 rows lack one
+    msgs = msgs[:DRAIN_TAIL - 5]
+    ref, nat = prep_both(E, [pubs, sigs, msgs])
+    rows["ragged"] = check_prep_equal(E, ref, nat, "ragged rows")
+    check(not nat["pre_ok"][3:8].any() and not nat["pre_ok"][-10:].any(),
+          "the ragged rows are rejected")
+    check(native.PREP_CALLS - calls0 == len(chunks) + 2,
+          "every native prep above ran the C library")
+    log("host prep: native == numpy on pre_ok and on all six arrays of "
+        "every deciding row: %d of the drain's %d, %d of %d adversarial "
+        "vectors, %d of %d ragged rows"
+        % (rows["drain"], len(drain), rows["vectors"], len(vectors),
+           rows["ragged"], DRAIN_TAIL))
+
+    # per 8,192 chunk: numpy, and native split into its three parts
+    split = {"numpy": [], "native": [], "pack": [], "c_call": [],
+             "recode": []}
+    for chunk in chunks[:DRAIN_CHUNKS]:
+        cols = list(map(list, zip(*chunk)))
+        t0 = time.perf_counter()
+        E.prepare_batch_plain(*cols)
+        split["numpy"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        E.prepare_batch(*cols)
+        split["native"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        good, pub_arr, sig_arr, ms = E.pack_batch(*cols)
+        t1 = time.perf_counter()
+        prep = native.prepare_batch_native(pub_arr, sig_arr, ms)
+        t2 = time.perf_counter()
+        E.finish_native(prep, good)
+        t3 = time.perf_counter()
+        split["pack"].append(t1 - t0)
+        split["c_call"].append(t2 - t1)
+        split["recode"].append(t3 - t2)
+    ms_of = {k: [round(x * 1e3, 3) for x in v] for k, v in split.items()}
+    log("host prep per 8,192-signature chunk (ms, %d chunks of the drain): "
+        "numpy %s; native %s = pack %s + C call %s + recode %s"
+        % (DRAIN_CHUNKS, ms_of["numpy"], ms_of["native"], ms_of["pack"],
+           ms_of["c_call"], ms_of["recode"]))
+
+    # the drain's verify-cache keys, both forms, in turns
+    want = [K._cache_key(*t) for t in drain]
+    check(native.cache_keys_native(drain) == want,
+          "cache_keys_native == keys._cache_key, triple for triple")
+    keys_ms = {"hashlib": [], "native": []}
+    for form in ("hashlib", "native", "native", "hashlib") * \
+            ((CACHE_KEY_REPS + 1) // 2):
+        t0 = time.perf_counter()
+        if form == "native":
+            native.cache_keys_native(drain)
+        else:
+            [K._cache_key(*t) for t in drain]
+        keys_ms[form].append(round((time.perf_counter() - t0) * 1e3, 3))
+    log("cache keys of the %d-triple drain (ms, in turns): hashlib loop "
+        "%s, cache_keys_native %s" % (len(drain), keys_ms["hashlib"],
+                                      keys_ms["native"]))
+    return {"rows": rows, "chunk_ms": ms_of, "keys_ms": keys_ms}
+
+
+def prep_mode_drains(BV, K, E, S, native, drain: list, cpu_ref: list) -> dict:
+    """The checkpoint drain through make_verifier("cuda").prewarm_many
+    on the native and the numpy prep in turns (PREP_MODES), each from an
+    empty cache; then one 4-member fleet drain on cuda:0 and one profiled
+    drain in each mode. Every decision == the C verifier, DRAIN_CHUNKS + 1
+    launches a drain (3 * 4 + 1 on the fleet), and in native mode one C
+    prep per chunk staged."""
+    n = len(drain)
+    E.LAUNCHES = S.LAUNCHES = native.PREP_CALLS = 0
+    out: dict = {"native": [], "numpy": []}
+
+    def one(v, mode: str, launches: int, what: str) -> dict:
+        K.flush_verify_cache()
+        l0, p0 = E.LAUNCHES, native.PREP_CALLS
+        with PrepTimer(E, mode) as pt:
+            t0 = time.perf_counter()
+            got = v.prewarm_many(drain)
+            dt = time.perf_counter() - t0
+        check(got == cpu_ref, "%s drain (prep %s) == C verifier"
+              % (what, mode))
+        check(E.LAUNCHES - l0 == launches,
+              "%s drain (prep %s): %d launches" % (what, mode, launches))
+        check(len(pt.secs) == DRAIN_CHUNKS + 1,
+              "%s drain staged %d chunks" % (what, DRAIN_CHUNKS + 1))
+        check(native.PREP_CALLS - p0 == (len(pt.secs) if mode == "native"
+                                         else 0),
+              "%s drain (prep %s): one C prep per chunk staged"
+              % (what, mode))
+        st = v.stats.to_json()["staging"]
+        return {"s": dt, "sigs_per_s": n / dt,
+                "prep_ms": sum(pt.secs) * 1e3,
+                "prep_chunk_ms": [round(x * 1e3, 3) for x in pt.secs],
+                "staged_ms": st["staged_s"] * 1e3,
+                "overlap_ms": st["overlap_s"] * 1e3,
+                "overlap_pct": st["last_overlap_pct"]}
+
+    for mode in PREP_MODES:
+        r = one(BV.make_verifier("cuda"), mode, DRAIN_CHUNKS + 1,
+                "make_verifier('cuda')")
+        out[mode].append(r)
+        log("drain, prep %s: %.0f sigs/s (%.3f s); host prep %.1f ms "
+            "(per chunk %s); staging worker %.1f ms, %.1f ms of it while the "
+            "kernel ran: staging_overlap_pct %s"
+            % (mode, r["sigs_per_s"], r["s"], r["prep_ms"], r["prep_chunk_ms"], r["staged_ms"],
+               r["overlap_ms"], r["overlap_pct"]))
+    for mode in ("native", "numpy"):
+        v4 = BV.CudaSigVerifier(devices=["cuda:0"] * 4)
+        v4.stats = BV.VerifierStats()
+        r = one(v4, mode, DRAIN_CHUNKS * 4 + 1, "4-member")
+        out["fleet4_" + mode] = r
+        log("4-member fleet drain on cuda:0, prep %s: %.0f sigs/s; host "
+            "prep %.1f ms; staging_overlap_pct %s"
+            % (mode, r["sigs_per_s"], r["prep_ms"], r["overlap_pct"]))
+    for mode in ("native", "numpy"):
+        K.flush_verify_cache()
+        v = BV.make_verifier("cuda")
+        with PrepTimer(E, mode):
+            prof = profile_drain(lambda: v.prewarm_many(drain),
+                                 "ed25519_verify_kernel")
+        check(prof["result"] == cpu_ref,
+              "profiled drain (prep %s) decisions" % mode)
+        log_profile("drain, prep %s" % mode, prof, "ed25519_verify_kernel")
+        out["prof_" + mode] = prof
+    check(S.LAUNCHES == 0, "the prep-mode drains launched no hash kernel")
+    log("prep-mode drains: ed25519_verify %d launches, native prep %d "
+        "calls" % (E.LAUNCHES, native.PREP_CALLS))
+    return out
+
+
+class _Recorder:
+    """A flight recorder stand-in: keeps every dump."""
+
+    def __init__(self) -> None:
+        self.dumps: list = []
+
+    def dump(self, reason: str, extra=None) -> None:
+        self.dumps.append((reason, extra))
+
+
+def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
+    """20 bursts of 100-128 enqueues through make_verifier("cuda-async")
+    on a real-time VirtualClock, each flushed and cranked (`crank(True)`,
+    the node's loop) until every future completes: one launch a burst,
+    every decision right, none verified on the CPU, no failed or requeued
+    dispatch, the breaker closed."""
+    from stellar_core_tpu_torch.util.metrics import Histogram, MetricsRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    K.flush_verify_cache()
+    clock = VirtualClock(ClockMode.REAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    v = BV.make_verifier("cuda-async", clock=clock, metrics=reg)
+    E.LAUNCHES = S.LAUNCHES = 0
+    walls = []
+    pos = 0
+    for _ in range(BURSTS):
+        n = int(rng.integers(BURST_MIN, BURST_MAX + 1))
+        burst, exp = pool[pos:pos + n], want[pos:pos + n]
+        pos += n
+        before = E.LAUNCHES
+        futs = [v.enqueue(*t) for t in burst]
+        check(v.pending() == n, "async burst queued")
+        t0 = time.perf_counter()
+        v.flush()
+        deadline = t0 + 60.0
+        while not all(f.done() for f in futs) and \
+                time.perf_counter() < deadline:
+            clock.crank(True)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(all(f.done() for f in futs), "every async future completed")
+        check([f.result() for f in futs] == exp,
+              "async burst decisions == C verifier")
+        check(E.LAUNCHES - before == 1, "one launch per async burst")
+    m = reg.to_json()
+    check("crypto.verify.dispatch-failure" not in m
+          and "crypto.verify.requeued" not in m,
+          "no async dispatch failed or was queued again")
+    check(set(v.stats.to_json()["drains"]["by_backend"]) == {"cuda"},
+          "every async burst was verified on the card")
+    check(v.breaker.state == "closed", "the breaker is closed")
+    check(S.LAUNCHES == 0, "the async path launched no hash kernel")
+    lat, wait = m["crypto.verify.latency"], m["verifier.queue.wait"]
+    log("async live SCP, %d bursts of %d-%d through make_verifier("
+        "'cuda-async'): crypto.verify.latency p50 %.3f ms, p99 %.3f ms "
+        "(%d verifies; the quantiles are over the timer's reservoir of the "
+        "last %d); queue wait p50 %.3f ms, p99 %.3f ms (%d batches); flush "
+        "to last future p50 %.3f ms, p99 %.3f ms (host clock); %d launches"
+        % (BURSTS, BURST_MIN, BURST_MAX, lat["median"] * 1e3,
+           lat["p99"] * 1e3, lat["count"], Histogram.MAX_SAMPLES,
+           wait["median"] * 1e3, wait["p99"] * 1e3, wait["count"],
+           float(np.percentile(walls, 50)), float(np.percentile(walls, 99)),
+           E.LAUNCHES))
+    return {"latency": lat, "wait": wait, "walls": walls}
+
+
+def breaker_phase(BV, K, E, S, drain: list, kernel_ref: list) -> None:
+    """make_verifier("cuda-resilient"), which has no fallback, with
+    `device.dispatch` firing BREAKER_THRESHOLD times: those drains raise
+    with no launch and trip the breaker (meter, flight dump); a drain
+    while it is open is refused with no launch; no drain is verified on
+    the CPU; past the cooldown on the virtual clock, the half-open probe
+    launches the kernel once, returns its decisions and re-closes it."""
+    from stellar_core_tpu_torch.util.faults import FaultInjector, InjectedFault
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    rec = _Recorder()
+    faults = FaultInjector(seed=7, metrics=reg)
+    faults.configure("device.dispatch", count=BREAKER_THRESHOLD)
+    v = BV.make_verifier("cuda-resilient", clock=clock, metrics=reg,
+                         faults=faults, flight_recorder=rec,
+                         breaker_threshold=BREAKER_THRESHOLD,
+                         breaker_cooldown=BREAKER_COOLDOWN)
+    check(v.fallback is None, "the card's stack has no fallback")
+    part, want = drain[:DRAIN_TAIL], kernel_ref[:DRAIN_TAIL]
+    E.LAUNCHES = S.LAUNCHES = 0
+    K.flush_verify_cache()
+
+    def raises(exc_type) -> bool:
+        try:
+            v.prewarm_many(part)
+        except exc_type:
+            return True
+        return False
+
+    for _ in range(BREAKER_THRESHOLD):
+        check(raises(InjectedFault), "a failed drain raises")
+    check(v.breaker.state == "open" and v.breaker.trips == 1,
+          "the breaker tripped")
+    check(raises(BV.BreakerOpenError), "the open breaker refuses a drain")
+    m = reg.to_json()
+    check(E.LAUNCHES == 0, "no launch while the dispatch fails or the "
+          "breaker is open")
+    check(m["crypto.verify.dispatch-failure"]["count"] == BREAKER_THRESHOLD,
+          "crypto.verify.dispatch-failure == %d" % BREAKER_THRESHOLD)
+    check(m["crypto.verify.refused-drain"]["count"] == 1,
+          "crypto.verify.refused-drain == 1")
+    check([r for r, _e in rec.dumps] == ["verify-breaker-trip"],
+          "the trip left one flight dump")
+    check(v.stats.to_json()["drains"]["by_backend"] == {},
+          "no drain was verified while the breaker tripped")
+    clock.set_virtual_time(clock.now() + BREAKER_COOLDOWN + 1.0)
+    check(v.prewarm_many(part) == want, "the probe drain's decisions")
+    m = reg.to_json()
+    check(E.LAUNCHES == 1, "the half-open probe launched the kernel once")
+    check(v.breaker.state == "closed" and v.breaker.recoveries == 1,
+          "the probe re-closed the breaker")
+    check("crypto.verify.fallback-drain" not in m
+          and set(v.stats.to_json()["drains"]["by_backend"]) == {"cuda"},
+          "every drain was verified on the card")
+    check(S.LAUNCHES == 0, "the breaker phase launched no hash kernel")
+    log("breaker: make_verifier('cuda-resilient'), device.dispatch fired %d "
+        "times: %d drains of %d raised with no launch, tripped "
+        "(crypto.breaker.trip %d, flight dump %r), one drain refused while "
+        "open, none verified on the CPU; the half-open probe after %.0f s "
+        "launched the kernel once and re-closed the breaker (breaker JSON "
+        "%s)"
+        % (BREAKER_THRESHOLD, BREAKER_THRESHOLD, DRAIN_TAIL,
+           m["crypto.breaker.trip"]["count"], rec.dumps[0][0],
+           BREAKER_COOLDOWN + 1.0, json.dumps(v.breaker.to_json())))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1062,6 +1450,7 @@ def main() -> int:
     from stellar_core_tpu_torch.graft_entry import entry
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
     from stellar_core_tpu_torch.crypto import keys as K
+    from stellar_core_tpu_torch import native
     from stellar_core_tpu_torch.native import ed25519_native
     from stellar_core_tpu_torch.ops import ed25519 as E
     from stellar_core_tpu_torch.ops import sha256 as S
@@ -1083,6 +1472,7 @@ def main() -> int:
                 if _build.cuda_built(stem)}
     libs = _build.build_cuda()
     check(ed25519_native() is not None, "the C CPU verifier builds")
+    check(native.prep_lib() is not None, "the C host prep builds")
     log("build: %.1f s (%s)" % (time.perf_counter() - t0,
                                 ", ".join(sorted(libs))))
     check(sorted(libs) == ["ed25519_verify", "sha256"],
@@ -1200,7 +1590,7 @@ def main() -> int:
           and E.LAUNCHES == drain_launches,
           "second prewarm_many dispatches nothing (all cache hits)")
     log("drain: %d sigs through prewarm_many in %.3f s = %.0f sigs/s "
-        "(%d launches; host prep included)"
+        "(%d launches; host prep included, native)"
         % (n_drain, drain_s, n_drain / drain_s, drain_launches))
     # where the drain's time goes: its layers timed alone on the same data
     t0 = time.perf_counter()
@@ -1252,6 +1642,12 @@ def main() -> int:
                          "ed25519_verify_kernel")
     check(prof["result"] == drain_expect, "profiled drain decisions")
     log_profile("drain", prof, "ed25519_verify_kernel")
+
+    # --- the host layers: C prep, both prep modes, async, breaker ----------
+    host_prep_phase(E, K, native, drain, vectors)
+    prep_mode_drains(BV, K, E, S, native, drain, cpu_ref[:n_drain])
+    async_scp_phase(BV, K, E, S, rng, burst_pool, cpu_ref[n_drain:])
+    breaker_phase(BV, K, E, S, drain, got)
 
     fleet = fleet_path(torch, vectors, corpus, drain, cpu_ref[:n_drain],
                        props)

@@ -5,7 +5,8 @@
   ctypes).
   Target `sm_90a` (Hopper). `-Xptxas -v` output (registers, spills) is
   kept beside each library as `<name>.log`.
-- `native/ed25519c.c`: the CPU ed25519 library, built with `cc`.
+- `native/ed25519c.c` (the CPU ed25519 library) and `native/prep.c` (the
+  batched host prep), each built with `cc` into its own library.
 
 Every artifact name carries a content hash of its sources and flags, so an
 edit never reuses a stale library, and a finished build is reused by every
@@ -125,18 +126,24 @@ def find_cc() -> Optional[str]:
     return None
 
 
-def build_native() -> Optional[str]:
-    """Build `native/ed25519c.c`; None when the host has no C compiler
-    (callers then use the pure-Python fallback), raises when the build
-    itself fails."""
+# the C libraries of `native/`: source stem -> library name prefix. Both
+# include the generated `prep_constants.h` (native/gen_constants.py)
+NATIVE_LIBS = {"ed25519c": "libscted25519", "prep": "libsctprep"}
+
+
+def build_native(stem: str) -> Optional[str]:
+    """Build `native/<stem>.c` (a key of NATIVE_LIBS) into its own library
+    and return its path; None when the host has no C compiler (callers
+    then use the pure-Python and numpy paths). A failed build raises with
+    the compiler's output; it touches no other library."""
     cc = find_cc()
     if cc is None:
         return None
     from .native.gen_constants import header_text
-    src = os.path.join(NATIVE_DIR, "ed25519c.c")
     header = header_text()
+    src = os.path.join(NATIVE_DIR, stem + ".c")
     digest = _digest([src], header + " ".join(CC_FLAGS))
-    so = os.path.join(BUILD_DIR, "libscted25519-%s.so" % digest)
+    so = os.path.join(BUILD_DIR, "%s-%s.so" % (NATIVE_LIBS[stem], digest))
     if os.path.exists(so):
         return so
     # a private include dir per build: a concurrent build never sees a
@@ -150,9 +157,9 @@ def build_native() -> Optional[str]:
         r = subprocess.run([cc] + CC_FLAGS + ["-I", inc, "-o", tmp, src],
                            capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
-            raise RuntimeError("cc failed for ed25519c.c (rc %d):\n%s"
-                               % (r.returncode, r.stderr[-8000:]))
-        os.replace(tmp, so)
+            raise RuntimeError("cc failed for %s.c (rc %d):\n%s"
+                               % (stem, r.returncode, r.stderr[-8000:]))
+        os.replace(tmp, so)   # atomic: concurrent builds agree
     finally:
         shutil.rmtree(inc, ignore_errors=True)
     return so

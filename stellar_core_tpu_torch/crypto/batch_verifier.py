@@ -3,7 +3,9 @@
 Port of `stellar_core_tpu/crypto/batch_verifier.py` at commit 02ed56d
 (`VerifierStats`, `warmup_plan`, `VerifyFuture`, `BatchSigVerifier`,
 `CpuSigVerifier`, `TpuSigVerifier` as `CudaSigVerifier`, `_StagingJob`,
-`DeviceFleetHealth`, `CircuitBreaker`, `make_verifier`):
+`DeviceFleetHealth`, `CircuitBreaker`) and at commit a29fd1b (the stats'
+flight recorder and queue series, `ResilientBatchVerifier`,
+`ThreadedBatchVerifier`, `make_verifier`):
 
     enqueue(key32, sig, msg) -> VerifyFuture   (accumulate)
     flush()                                    (dispatch one device batch)
@@ -25,22 +27,40 @@ Backends:
   on with the others. Correctness contract: identical accept/reject
   decisions to CpuSigVerifier (RFC 8032 cofactorless).
 
-Not ported yet: ResilientBatchVerifier (the whole-backend breaker with its
-CPU fallback) and ThreadedBatchVerifier. So nothing here falls back to the
-CPU: a dispatch that raises propagates to the caller (a flush puts its
-batch back in the queue first, so no future is lost), after every
-participating member's breaker has counted it. When every breaker is open
-the route uses every member; it never moves to the CPU.
+Operator layers, stacked by make_verifier:
+- ResilientBatchVerifier — a whole-backend circuit breaker over a primary
+  backend: N consecutive failed drains trip it open for a cooldown, and a
+  half-open probe re-closes it (meters, flight dump). Over the C verifier
+  ("cpu-resilient") a fallback CpuSigVerifier serves the drains the
+  primary fails or the open breaker bypasses (meter
+  `crypto.verify.fallback-drain`). Over the fleet ("cuda-resilient") there
+  is no fallback: a failed drain raises to the caller, and while the
+  breaker is open every drain is refused with BreakerOpenError.
+- ThreadedBatchVerifier — dispatch on a `crypto.verify-dispatch` worker,
+  futures completed on the app clock's main loop (`clock.post_to_main`);
+  a batch whose dispatch raises goes back to the head of the queue for
+  the next flush.
+
+Work that was sent to the card never moves to the CPU: not in the kernel
+wrapper, not in CudaSigVerifier, not in the layers above it. A
+CudaSigVerifier dispatch that raises propagates to its caller (a flush
+puts its batch back in the queue first, so no future is lost), after
+every participating member's breaker has counted it. When every member's
+breaker is open the route uses every member. A stack with a member on a
+card builds the kernel when it is constructed, so a failed build raises
+there.
 
 Observability, as in the reference: one VerifierStats per make_verifier()
 stack (`verifier.*` metrics: per-bucket, per-member, staging and drain
 series), tracer spans and instants (util/tracing.py) and the fault points
 `verify.device-lost` and `verify.staging-stall` (util/faults.py).
 
-Threads: dispatch runs on the caller's thread and is the only one that
-launches during a drain; the staging worker prepares and copies but never
-launches; warmup (`crypto.verify-warmup`) launches zeros on each planned
-bucket. Event stamps read the injected app clock (`now_fn`); staging and
+Threads: dispatch runs on the caller's thread (the `crypto.verify-dispatch`
+worker under ThreadedBatchVerifier) and is the only one that launches
+during a drain; the staging worker prepares and copies but never launches
+(its C host prep releases the interpreter lock, so it overlaps the
+dispatch thread); warmup (`crypto.verify-warmup`) launches zeros on each
+planned bucket. Event stamps read the injected app clock (`now_fn`); staging and
 warmup durations read util.timer.real_monotonic (real elapsed time).
 
 The global verify-result cache (crypto/keys.py) sits in front of every
@@ -85,13 +105,19 @@ class VerifierStats:
     Clocks: event stamps (`t` fields) read the injected app clock
     (`now_fn`); warmup and staging durations are real elapsed seconds.
     Aggregate mutation is under `_lock`; registry metric objects are
-    individually thread-safe."""
+    individually thread-safe.
 
-    def __init__(self, metrics=None, tracer=None, now_fn=None) -> None:
+    `flight_recorder`, where given, is any object with
+    `dump(reason, extra=...)`: a member's breaker trip, a failed warmup
+    and an unusable build directory each leave one dump."""
+
+    def __init__(self, metrics=None, tracer=None, now_fn=None,
+                 flight_recorder=None) -> None:
         self._now = now_fn or real_monotonic
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(now_fn=self._now)
         self.tracer = tracer
+        self.flight_recorder = flight_recorder
         self._lock = TrackedLock("crypto.verifier-stats")
         self.backends: dict = {}      # name -> {drains, sigs, pad_total}
         self.buckets: dict = {}       # bucket -> counts + histograms
@@ -113,18 +139,16 @@ class VerifierStats:
         self.compile_cache = {"enabled": None, "dir": None, "hits": 0,
                               "misses": 0, "unknown": 0, "error": None}
         # fixed-name registry metrics, created eagerly so the export
-        # carries the full cockpit shape from the first scrape (the queue
-        # wait and in-flight series are the threaded layer's, still to be
-        # ported)
+        # carries the full cockpit shape from the first scrape
         m = self.metrics
         self._h_batch = m.new_histogram("verifier.drain.batch-size")
         self._h_pad = m.new_histogram("verifier.drain.pad-waste")
         self._h_occ = m.new_histogram("verifier.drain.occupancy-pct")
         self._h_splits = m.new_histogram("verifier.drain.splits")
         self._h_wsec = m.new_histogram("verifier.warmup.bucket-seconds")
-        m.new_timer("verifier.queue.wait")
+        self._t_wait = m.new_timer("verifier.queue.wait")
         self._g_depth = m.new_gauge("verifier.queue.depth")
-        m.new_gauge("verifier.queue.inflight")
+        self._g_inflight = m.new_gauge("verifier.queue.inflight")
         self._g_overlap = m.new_gauge("verifier.staging.overlap-pct")
         self._g_wstate = m.new_gauge("verifier.warmup.state")
         self._g_wdone = m.new_gauge("verifier.warmup.buckets-done")
@@ -206,10 +230,14 @@ class VerifierStats:
     def set_device_breaker(self, idx: int, code: int) -> None:
         self.metrics.new_gauge("verifier.device.%d.breaker" % idx).set(code)
 
-    def device_trip(self, idx: int) -> None:
+    def device_trip(self, idx: int, breaker_json: dict) -> None:
         self.metrics.new_meter("verifier.device.trip").mark()
         tracer_instant(self.tracer, "verifier.device.trip", cat="crypto",
                        device=idx)
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump(
+                "verify-device-trip",
+                extra={"device": idx, "breaker": breaker_json})
 
     def device_recover(self, idx: int) -> None:
         self.metrics.new_meter("verifier.device.recover").mark()
@@ -277,6 +305,16 @@ class VerifierStats:
         self.queue["depth"] = depth
         self._g_depth.set(depth)
 
+    def set_inflight(self, inflight: bool) -> None:
+        self.queue["inflight"] = int(inflight)
+        self._g_inflight.set(int(inflight))
+
+    def record_queue_wait(self, mean_s: float, max_s: float) -> None:
+        """One async batch's enqueue-to-dispatch wait (app clock)."""
+        self.queue["wait_last_mean_ms"] = round(mean_s * 1e3, 3)
+        self.queue["wait_last_max_ms"] = round(max_s * 1e3, 3)
+        self._t_wait.update(mean_s)
+
     # -- build cache + warmup ------------------------------------------------
     def compile_cache_enabled(self, path: str) -> None:
         self.compile_cache.update(
@@ -291,6 +329,9 @@ class VerifierStats:
         self.metrics.new_meter("verifier.compile-cache.unavailable").mark()
         tracer_instant(self.tracer, "verifier.compile-cache.unavailable",
                        cat="crypto", error=err)
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump("compile-cache-unavailable",
+                                      extra={"error": err})
 
     WARMUP_STATE_CODE = {"idle": 0, "running": 1, "done": 2, "failed": 3}
     # where the warm-start bucket set came from: the default ladder, or
@@ -351,6 +392,10 @@ class VerifierStats:
         self.metrics.new_meter("verifier.warmup.failure").mark()
         tracer_instant(self.tracer, "verifier.warmup.failed", cat="crypto",
                        error=err)
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump(
+                "verify-warmup-failed",
+                extra={"error": err, "warmup": self.warmup_json()})
 
     # -- export --------------------------------------------------------------
     def warmup_json(self) -> dict:
@@ -484,7 +529,13 @@ class BatchSigVerifier:
     def prewarm_many(self, triples: Sequence[Triple]) -> List[bool]:
         """Whole-ledger/checkpoint drain: verify a large batch in one
         dispatch and seed the result cache so later per-signature checks
-        all hit. Already-cached triples are not re-dispatched."""
+        all hit. Already-cached triples are not re-dispatched.
+
+        The cache keys hash per triple with hashlib. The reference hashes
+        a drain of 256 or more in one native call (prep.c sct_cache_keys,
+        `native.cache_keys_native` here); on the H100's host that call
+        took about twice the hashlib loop's time over the 25,576-triple
+        checkpoint drain (PERF.md), so the port keeps the loop."""
         with self._span("crypto.prewarm", backend=self.name,
                         n=len(triples)) as sp:
             cks = [_keys._cache_key(k, s, m) for (k, s, m) in triples]
@@ -632,8 +683,15 @@ class CudaSigVerifier(BatchSigVerifier):
             len(self._members), threshold=self._dev_threshold,
             cooldown_s=self._dev_cooldown, now_fn=self._now, owner=self)
         self._platform = self._members[0].device.type
+        if self.on_card:
+            _e.load_kernel()
 
     # -- fleet topology ------------------------------------------------------
+    @property
+    def on_card(self) -> bool:
+        """Whether any member is a CUDA device."""
+        return any(m.device.type == "cuda" for m in self._members)
+
     @property
     def device(self):
         """The first member's device."""
@@ -1061,7 +1119,7 @@ class DeviceFleetHealth:
                         if br.state == CircuitBreaker.CLOSED))
         st = self._stats()
         if st is not None:
-            st.device_trip(idx)
+            st.device_trip(idx, self.breakers[idx].to_json())
 
     def _on_recover(self, idx: int) -> None:
         log.info("verify member %d breaker recovered", idx)
@@ -1145,24 +1203,366 @@ class CircuitBreaker:
                 "retry_at": self._retry_at}
 
 
+class BreakerOpenError(RuntimeError):
+    """A drain refused while the breaker of a backend without a fallback
+    is open."""
+
+
+class ResilientBatchVerifier(BatchSigVerifier):
+    """Primary backend behind a circuit breaker, with or without a
+    fallback.
+
+    Every dispatch-shaped call (verify_many; flush routes through it)
+    asks the breaker whether the primary may be tried; a raising primary
+    records a failure. With a fallback, that batch, and every batch while
+    the breaker is open, runs on the fallback, so callers always get
+    results. Without one, the failure raises to the caller and an open
+    breaker refuses each drain (BreakerOpenError) until its half-open
+    probe. A primary on a card takes no fallback: its work never moves to
+    the CPU. A trip emits metrics and a flight-recorder dump; recovery
+    (the first successful half-open probe) emits the matching recover
+    marker."""
+
+    name = "resilient"
+
+    def __init__(self, primary: BatchSigVerifier,
+                 fallback: Optional[BatchSigVerifier] = None,
+                 breaker: Optional[CircuitBreaker] = None,
+                 max_pending: int = 8192) -> None:
+        if fallback is not None and getattr(primary, "on_card", False):
+            raise ValueError("a primary on a card takes no fallback: its "
+                             "drains raise or wait for the card")
+        self.primary = primary
+        self.fallback = fallback
+        self.breaker = breaker or CircuitBreaker()
+        self.breaker.on_trip = self._on_trip
+        self.breaker.on_recover = self._on_recover
+        self.flight_recorder = None   # installed by make_verifier
+        self._pending: List[Tuple[Triple, VerifyFuture]] = []
+        self._max_pending = max_pending
+
+    # -- breaker events ------------------------------------------------------
+    def _breaker_mark(self, event: str) -> None:
+        if self.metrics is not None:
+            self.metrics.new_meter("crypto.breaker.%s" % event).mark()
+            self.metrics.new_counter("crypto.breaker.state").set_count(
+                self.breaker.state_code())
+        tracer_instant(self.tracer, "crypto.breaker.%s" % event,
+                       cat="crypto", primary=self.primary.name,
+                       failures=self.breaker.consecutive_failures)
+
+    def _on_trip(self) -> None:
+        log.warning("verify breaker TRIPPED: %d consecutive %s-dispatch "
+                    "failures; %s for %.0fs",
+                    self.breaker.consecutive_failures, self.primary.name,
+                    ("falling back to %s" % self.fallback.name
+                     if self.fallback is not None else "refusing drains"),
+                    self.breaker.cooldown_s)
+        self._breaker_mark("trip")
+        if self.flight_recorder is not None:
+            self.flight_recorder.dump(
+                "verify-breaker-trip",
+                extra={"primary": self.primary.name,
+                       "breaker": self.breaker.to_json()})
+
+    def _on_recover(self) -> None:
+        log.info("verify breaker recovered: %s backend healthy again",
+                 self.primary.name)
+        self._breaker_mark("recover")
+
+    # -- delegation ----------------------------------------------------------
+    @property
+    def inner(self) -> BatchSigVerifier:
+        return self.primary
+
+    @property
+    def batches_dispatched(self) -> int:
+        return getattr(self.primary, "batches_dispatched", 0)
+
+    @property
+    def sigs_verified(self) -> int:
+        return getattr(self.primary, "sigs_verified", 0)
+
+    def warmup(self, wait: bool = False) -> None:
+        w = getattr(self.primary, "warmup", None)
+        if w is not None:
+            w(wait)
+
+    def save_warmup_plan(self):
+        f = getattr(self.primary, "save_warmup_plan", None)
+        return f() if f is not None else None
+
+    @property
+    def fleet_health(self):
+        return getattr(self.primary, "_fleet_health", None)
+
+    # -- verify paths --------------------------------------------------------
+    def verify_many(self, triples: Sequence[Triple]) -> List[bool]:
+        if self.breaker.allow():
+            try:
+                # the primary attempt has its own span, so a dispatch
+                # failure is tagged on the drain it killed
+                with self._span("crypto.dispatch_primary",
+                                backend=self.primary.name,
+                                n=len(triples)):
+                    if self.faults is not None:
+                        self.faults.fire_point("device.dispatch")
+                    out = self.primary.verify_many(triples)
+                self.breaker.record_success()
+                return out
+            except Exception as e:
+                if self.metrics is not None:
+                    self.metrics.new_meter(
+                        "crypto.verify.dispatch-failure").mark()
+                tripped = self.breaker.record_failure()
+                if not tripped:
+                    log.warning("%s dispatch failed (%s): %d/%d toward "
+                                "breaker trip", self.primary.name, e,
+                                self.breaker.consecutive_failures,
+                                self.breaker.threshold)
+                if self.fallback is None:
+                    raise
+        elif self.fallback is None:
+            if self.metrics is not None:
+                self.metrics.new_meter("crypto.verify.refused-drain").mark()
+            raise BreakerOpenError(
+                "%s breaker open (%d consecutive failures); the half-open "
+                "probe comes at app-clock %.3f s"
+                % (self.primary.name, self.breaker.consecutive_failures,
+                   self.breaker.to_json()["retry_at"]))
+        if self.metrics is not None:
+            # drains served by the fallback while the primary is failing
+            # or the breaker is open
+            self.metrics.new_meter("crypto.verify.fallback-drain").mark()
+        # served_by names the backend that ran the drain; the fallback's
+        # own verify_many records the drain stats under its name
+        with self._span("crypto.verify_fallback", backend=self.name,
+                        served_by=self.fallback.name,
+                        n=len(triples), breaker=self.breaker.state):
+            return self.fallback.verify_many(triples)
+
+    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
+        return self._batch_enqueue(key32, sig, msg)
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def flush(self) -> None:
+        # with a fallback, a primary failure re-runs the batch there: a
+        # trip mid-drain still completes every future correctly. Without
+        # one, the batch goes back to the queue and the failure raises
+        self._batch_flush()
+
+
+class ThreadedBatchVerifier(BatchSigVerifier):
+    """Async wrapper: dispatch runs on a worker thread, futures complete on
+    the caller's main loop via clock.post_to_main, so the thread that
+    cranks the clock is the only one that sees results. Enqueue, dispatch
+    and completion stamps read the app clock; `crypto.verify.latency`
+    times each verify from enqueue to completion. A batch whose dispatch
+    raises goes back to the head of the queue, uncompleted (meter
+    `crypto.verify.requeued`), and the next flush dispatches it again."""
+
+    name = "threaded"
+
+    def __init__(self, inner: BatchSigVerifier, clock,
+                 metrics=None) -> None:
+        self._inner = inner
+        self._clock = clock
+        self._metrics = metrics
+        self._lock = TrackedLock("crypto.threaded-pending")
+        # (triple, future, enqueue app-clock stamp)
+        self._pending: List[Tuple[Triple, VerifyFuture, float]] = []
+        self._inflight = False
+
+    @property
+    def inner(self) -> BatchSigVerifier:
+        """The device verifier (unwrapping a resilient layer)."""
+        return getattr(self._inner, "inner", self._inner)
+
+    @property
+    def breaker(self):
+        return getattr(self._inner, "breaker", None)
+
+    def warmup(self, wait: bool = False) -> None:
+        w = getattr(self._inner, "warmup", None)
+        if w is not None:
+            w(wait)
+
+    def save_warmup_plan(self):
+        f = getattr(self._inner, "save_warmup_plan", None)
+        return f() if f is not None else None
+
+    @property
+    def fleet_health(self):
+        return getattr(self._inner, "fleet_health", None)
+
+    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
+        ck = _keys._cache_key(key32, sig, msg)
+        with _keys._cache_lock:
+            hit = _keys._verify_cache.maybe_get(ck)
+        f = VerifyFuture()
+        if hit is not None:
+            f._complete(hit)
+            return f
+        with self._lock:
+            self._pending.append(((key32, sig, msg), f, self._clock.now()))
+            depth = len(self._pending)
+        if self.stats is not None:
+            self.stats.set_queue_depth(depth)
+        return f
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def flush(self) -> None:
+        with self._lock:
+            if not self._pending or self._inflight:
+                return
+            batch, self._pending = self._pending, []
+            self._inflight = True
+        st = self.stats
+        if st is not None:
+            st.set_queue_depth(0)
+            st.set_inflight(True)
+
+        def work() -> None:
+            triples = [t for (t, _f, _t0) in batch]
+            # queue wait: enqueue -> dispatch start, per batch; dispatch
+            # time is the span's own duration
+            t_disp = self._clock.now()
+            waits = [t_disp - t0 for (_t, _f, t0) in batch]
+            if st is not None:
+                st.record_queue_wait(sum(waits) / len(waits), max(waits))
+            with self._span("crypto.batch_dispatch",
+                            backend="threaded:%s" % self._inner.name,
+                            n=len(batch),
+                            queue_wait_max_ms=round(max(waits) * 1e3, 3),
+                            queue_wait_mean_ms=round(
+                                sum(waits) / len(waits) * 1e3, 3)):
+                try:
+                    results = self._inner.verify_many(triples)
+                except Exception as e:
+                    # the worker must neither die with futures pending nor
+                    # leave _inflight latched (every later flush would be
+                    # a no-op)
+                    log.warning("threaded dispatch failed (%s); %d verifies "
+                                "queued again", e, len(batch))
+                    self._clock.post_to_main(lambda: self._requeue(batch))
+                    return
+
+            def complete() -> None:
+                done = self._clock.now()
+                lat = (self._metrics.new_timer("crypto.verify.latency")
+                       if self._metrics is not None else None)
+                for ((k, s, m), f, t0), ok in zip(batch, results):
+                    with _keys._cache_lock:
+                        _keys._verify_cache.put(_keys._cache_key(k, s, m), ok)
+                    if lat is not None:
+                        lat.update(done - t0)
+                    f._complete(ok)
+                with self._lock:
+                    self._inflight = False
+                    more = bool(self._pending)
+                if st is not None:
+                    st.set_inflight(False)
+                if more:
+                    # verifies enqueued while the batch was in flight form
+                    # the next batch at once
+                    self.flush()
+
+            self._clock.post_to_main(complete)
+
+        spawn_worker("crypto.verify-dispatch", work)
+
+    def _requeue(self, batch: list) -> None:
+        with self._lock:
+            self._pending = batch + self._pending
+            self._inflight = False
+            depth = len(self._pending)
+        if self._metrics is not None:
+            self._metrics.new_meter("crypto.verify.requeued").mark(len(batch))
+        if self.stats is not None:
+            self.stats.set_queue_depth(depth)
+            self.stats.set_inflight(False)
+
+    def verify_many(self, triples: Sequence[Triple]) -> List[bool]:
+        return self._inner.verify_many(triples)
+
+
 def make_verifier(backend: str = "cuda", max_pending: int = 8192,
                   device=None, metrics=None, tracer=None, faults=None,
-                  clock=None, breaker_threshold: int = 3,
+                  clock=None, flight_recorder=None,
+                  breaker_threshold: int = 3,
                   breaker_cooldown: float = 30.0) -> BatchSigVerifier:
-    """Backend selection by name: "cuda" (the default: a fleet over every
-    visible card, or the one member `device` where given; it raises
-    without a card unless `device="cpu"` is named) or "cpu" (the C
-    verifier). The stack shares one VerifierStats (`<verifier>.stats`);
-    `clock.now` drives the per-member breakers and the stats' stamps."""
+    """Backend selection by name:
+
+    - "cuda" (the default): the bare fleet, one member per visible card
+      or the one member `device` where given; it raises without a card
+      unless `device="cpu"` is named;
+    - "cpu": the C verifier;
+    - "cpu-resilient": the C verifier behind the breaker machinery, with a
+      CpuSigVerifier fallback, so the failure domain can be driven
+      without a card;
+    - "cuda-resilient": the fleet behind a breaker, without a fallback
+      (the counterpart of the reference's "tpu", whose fallback is the
+      CPU): a failed drain raises, an open breaker refuses drains;
+    - "cuda-async": "cuda-resilient" under a ThreadedBatchVerifier on
+      `clock` (the reference's "tpu-async"; a clock is required).
+
+    Every layer of the stack shares one VerifierStats (`<verifier>.stats`,
+    with `flight_recorder`), so drains are attributed to the backend that
+    served them. `clock.now` drives the breakers and the stats' stamps."""
     now_fn = clock.now if clock is not None else None
-    stats = VerifierStats(metrics=metrics, tracer=tracer, now_fn=now_fn)
+    stats = VerifierStats(metrics=metrics, tracer=tracer, now_fn=now_fn,
+                          flight_recorder=flight_recorder)
+
+    def resilient(primary: BatchSigVerifier,
+                  fb: Optional[BatchSigVerifier]) -> ResilientBatchVerifier:
+        primary.tracer = tracer
+        primary.metrics = metrics
+        primary.stats = stats
+        # verify.device-lost / verify.staging-stall fire inside the
+        # device backend, device.dispatch in the resilient layer
+        primary.faults = faults
+        if fb is not None:
+            fb.tracer = tracer
+            fb.metrics = metrics
+            fb.stats = stats
+        r = ResilientBatchVerifier(
+            primary, fb,
+            CircuitBreaker(threshold=breaker_threshold,
+                           cooldown_s=breaker_cooldown, now_fn=now_fn),
+            max_pending=max_pending)
+        r.tracer = tracer
+        r.flight_recorder = flight_recorder
+        r.stats = stats
+        return r
+
+    def fleet() -> CudaSigVerifier:
+        # the per-member breakers share the resilient layer's threshold,
+        # cooldown and clock
+        return CudaSigVerifier(max_pending=max_pending, device=device,
+                               now_fn=now_fn,
+                               device_breaker_threshold=breaker_threshold,
+                               device_breaker_cooldown=breaker_cooldown)
+
     if backend == "cpu":
         v: BatchSigVerifier = CpuSigVerifier()
     elif backend == "cuda":
-        v = CudaSigVerifier(max_pending=max_pending, device=device,
-                            now_fn=now_fn,
-                            device_breaker_threshold=breaker_threshold,
-                            device_breaker_cooldown=breaker_cooldown)
+        v = fleet()
+    elif backend == "cpu-resilient":
+        v = resilient(CpuSigVerifier(), CpuSigVerifier())
+    elif backend == "cuda-resilient":
+        v = resilient(fleet(), None)
+    elif backend == "cuda-async":
+        if clock is None:
+            raise ValueError("the cuda-async backend needs a clock")
+        inner = resilient(fleet(), None)
+        inner.metrics = metrics
+        inner.faults = faults
+        v = ThreadedBatchVerifier(inner, clock, metrics=metrics)
     else:
         raise ValueError("unknown sig verify backend %r" % backend)
     v.tracer = tracer

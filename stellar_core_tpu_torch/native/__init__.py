@@ -1,9 +1,22 @@
-"""Native (C) ed25519 for the port: the CPU signer and CPU verifier.
+"""Native (C) code of the port, loaded through ctypes.
 
-`ed25519c.c` and `gen_constants.py` are copies of the reference package's
-files (see their headers). The library is built by `_build.build_native`
-and loaded here through ctypes, as `stellar_core_tpu/native/__init__.py`
-loads its own copy.
+- `ed25519c.c`: the CPU signer and the CPU verifier (`ed25519_native`).
+- `prep.c`: the verify boundary's batched host prep (`prep_lib`,
+  `prepare_batch_native`, `cache_keys_native`): SHA-512 and mod L per
+  signature, the canonicality prechecks and bit-slicing in one C call per
+  batch (ops/ed25519.prepare_batch), and the verify-cache keys of a drain
+  in another. No caller uses `cache_keys_native` yet: on the H100's host
+  its scalar SHA-256 took about twice the time of the per-triple hashlib
+  loop that `prewarm_many` keeps (PERF.md).
+
+`ed25519c.c`, `prep.c` and `gen_constants.py` are copies of the reference
+package's files (see their headers); `_build.build_native` builds each C
+file into its own library. The loaders here copy
+`stellar_core_tpu/native/__init__.py`'s at commit a29fd1b, except that
+`cache_keys_native` checks each triple's lengths, not their sums (the
+reference's sum check passes a 31-byte key beside a 33-byte one and hashes
+the wrong byte ranges). ctypes releases the interpreter lock for the
+length of each C call.
 """
 
 from __future__ import annotations
@@ -17,6 +30,13 @@ import numpy as np
 _LOCK = threading.Lock()
 _ED_LIB = None
 _ED_TRIED = False
+_PREP_LIB = None
+_PREP_TRIED = False
+
+# prepare_batch_native calls that reached the C library (chip_smoke.py
+# reads it to show the drain prepared every chunk there)
+PREP_CALLS = 0
+_PREP_CALLS_LOCK = threading.Lock()
 
 
 class _Ed25519Native:
@@ -70,7 +90,7 @@ def ed25519_native() -> Optional[_Ed25519Native]:
         if _ED_TRIED:
             return _ED_LIB
         from .._build import build_native
-        so = build_native()
+        so = build_native("ed25519c")
         if so is not None:
             lib = ctypes.CDLL(so)
             lib.sct_ed25519_public.argtypes = [
@@ -90,3 +110,100 @@ def ed25519_native() -> Optional[_Ed25519Native]:
             _ED_LIB = _Ed25519Native(lib)
         _ED_TRIED = True
         return _ED_LIB
+
+
+def prep_lib() -> Optional[ctypes.CDLL]:
+    """Build + load the host-prep library (prep.c); None only when the
+    host has no C compiler (callers then use the numpy prep). A failed
+    build raises."""
+    global _PREP_LIB, _PREP_TRIED
+    with _LOCK:
+        if _PREP_TRIED:
+            return _PREP_LIB
+        from .._build import build_native
+        so = build_native("prep")
+        if so is not None:
+            lib = ctypes.CDLL(so)
+            lib.sct_prepare_batch.restype = ctypes.c_int
+            lib.sct_prepare_batch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.sct_cache_keys.restype = ctypes.c_int
+            lib.sct_cache_keys.argtypes = [
+                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            _PREP_LIB = lib
+        _PREP_TRIED = True
+        return _PREP_LIB
+
+
+def _msg_blob(msgs) -> tuple:
+    """(concatenated bodies as a uint8 array, n + 1 uint64 offsets)."""
+    blob = b"".join(msgs)
+    off = np.zeros(len(msgs) + 1, np.uint64)
+    np.cumsum([len(m) for m in msgs], out=off[1:])
+    return (np.frombuffer(blob, np.uint8) if blob
+            else np.zeros(1, np.uint8)), off
+
+
+def prepare_batch_native(pub_arr: np.ndarray, sig_arr: np.ndarray,
+                         msgs: list) -> Optional[dict]:
+    """(n, 32) / (n, 64) uint8 + n messages -> the kernel's arrays with
+    UNSIGNED radix-16 digits and `pre_ok`, or None when the library is
+    unavailable. Rows with wrong-length keys or signatures must be
+    zero-filled by the caller (ops/ed25519._pack32) and masked by it."""
+    global PREP_CALLS
+    lib = prep_lib()
+    if lib is None:
+        return None
+    n = len(msgs)
+    if pub_arr.dtype != np.uint8 or pub_arr.shape != (n, 32) or \
+            sig_arr.dtype != np.uint8 or sig_arr.shape != (n, 64):
+        raise ValueError("prepare_batch_native wants (%d, 32) and (%d, 64) "
+                         "uint8, got %s %r and %s %r"
+                         % (n, n, pub_arr.dtype, pub_arr.shape,
+                            sig_arr.dtype, sig_arr.shape))
+    msg_c, off = _msg_blob(msgs)
+    ay = np.empty((n, 20), np.int32)
+    ry = np.empty((n, 20), np.int32)
+    a_sign = np.empty(n, np.int32)
+    r_sign = np.empty(n, np.int32)
+    s_nibs = np.empty((n, 64), np.int32)
+    k_nibs = np.empty((n, 64), np.int32)
+    pre_ok = np.empty(n, np.uint8)
+    pub_c = np.ascontiguousarray(pub_arr)
+    sig_c = np.ascontiguousarray(sig_arr)
+    lib.sct_prepare_batch(
+        pub_c.ctypes.data, sig_c.ctypes.data, msg_c.ctypes.data,
+        off.ctypes.data, n,
+        ay.ctypes.data, a_sign.ctypes.data,
+        ry.ctypes.data, r_sign.ctypes.data,
+        s_nibs.ctypes.data, k_nibs.ctypes.data, pre_ok.ctypes.data)
+    with _PREP_CALLS_LOCK:
+        PREP_CALLS += 1
+    return {"ay": ay, "a_sign": a_sign, "ry": ry, "r_sign": r_sign,
+            "s_nibs": s_nibs, "k_nibs": k_nibs,
+            "pre_ok": pre_ok.astype(bool)}
+
+
+def cache_keys_native(triples) -> Optional[list]:
+    """[(key32, sig64, msg)] -> [sha256(key ‖ sig ‖ msg)] in one C call,
+    or None when the library is unavailable, the batch is empty, or any
+    triple's key is not 32 bytes or its signature not 64 (the caller then
+    hashes per triple with hashlib)."""
+    lib = prep_lib()
+    n = len(triples)
+    if lib is None or n == 0 or \
+            not all(len(k) == 32 and len(s) == 64 for (k, s, _m) in triples):
+        return None
+    pubs = b"".join(t[0] for t in triples)
+    sigs = b"".join(t[1] for t in triples)
+    msg_c, off = _msg_blob([t[2] for t in triples])
+    out = np.empty(32 * n, np.uint8)
+    lib.sct_cache_keys(pubs, sigs, msg_c.ctypes.data, off.ctypes.data, n,
+                       out.ctypes.data)
+    ob = out.tobytes()
+    return [ob[32 * i:32 * i + 32] for i in range(n)]

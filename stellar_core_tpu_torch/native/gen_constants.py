@@ -1,8 +1,8 @@
 """Generate exact integer constants for the native host-prep module.
 
 Copied from `stellar_core_tpu/native/gen_constants.py` at commit 6685f6a;
-carry a fix in either copy to the other. In this package it feeds only
-native/ed25519c.c.
+carry a fix in either copy to the other. In this package it feeds
+native/ed25519c.c and native/prep.c.
 
 SHA-512 round constants are the first 64 bits of the fractional parts of
 the cube roots of the first 80 primes; the initial state is the same for

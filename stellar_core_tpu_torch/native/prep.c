@@ -1,0 +1,429 @@
+/* Native batched host prep for the CUDA ed25519 verifier.
+ *
+ * Copied from stellar_core_tpu/native/prep.c at commit a29fd1b; carry a
+ * fix in either copy to the other. Only this header comment differs.
+ *
+ * Role: the host side of the batch-verify boundary, everything
+ * byte-level for a whole batch in ONE call with no Python in the loop:
+ *   - SHA-512 of R‖A‖M per item (k derivation, RFC 8032)
+ *   - 512-bit reduction mod the group order L (Barrett, 64-bit limbs)
+ *   - canonicality prechecks (S < L, y < p) per item
+ *   - bit-slicing: 13-bit field limbs and unsigned radix-16 scalar
+ *     digits (ops/ed25519.prepare_batch recodes them to signed digits)
+ * and, for the verify-result cache, SHA-256(key ‖ sig ‖ msg) per triple
+ * (sct_cache_keys).
+ *
+ * Portable C11 + __int128 (gcc/clang on x86-64/aarch64). Constants are
+ * generated exactly by gen_constants.py (prep_constants.h), the header
+ * ed25519c.c shares.
+ */
+
+#include <stdint.h>
+#include <string.h>
+
+#include "prep_constants.h"
+
+/* ------------------------------------------------------------- SHA-512 */
+
+static inline uint64_t rotr64(uint64_t x, int n)
+{
+    return (x >> n) | (x << (64 - n));
+}
+
+static inline uint64_t load_be64(const uint8_t *p)
+{
+    uint64_t v = 0;
+    for (int i = 0; i < 8; i++)
+        v = (v << 8) | p[i];
+    return v;
+}
+
+static void sha512_block(uint64_t st[8], const uint8_t *block)
+{
+    uint64_t w[80];
+    for (int i = 0; i < 16; i++)
+        w[i] = load_be64(block + 8 * i);
+    for (int i = 16; i < 80; i++) {
+        uint64_t s0 = rotr64(w[i - 15], 1) ^ rotr64(w[i - 15], 8) ^
+                      (w[i - 15] >> 7);
+        uint64_t s1 = rotr64(w[i - 2], 19) ^ rotr64(w[i - 2], 61) ^
+                      (w[i - 2] >> 6);
+        w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
+    uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
+    for (int i = 0; i < 80; i++) {
+        uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+        uint64_t ch = (e & f) ^ (~e & g);
+        uint64_t t1 = h + S1 + ch + SHA512_K[i] + w[i];
+        uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+        uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
+        uint64_t t2 = S0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + t2;
+    }
+    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+/* digest of R(32) ‖ A(32) ‖ M(mlen) without building one buffer */
+static void sha512_ram(const uint8_t *r, const uint8_t *a,
+                       const uint8_t *m, uint64_t mlen, uint8_t out[64])
+{
+    uint64_t st[8];
+    uint8_t buf[128];
+    memcpy(st, SHA512_H0, sizeof st);
+
+    uint64_t total = 64 + mlen;
+    /* first block: R ‖ A ‖ first 64 bytes of M (if available) */
+    memcpy(buf, r, 32);
+    memcpy(buf + 32, a, 32);
+    uint64_t fill = mlen < 64 ? mlen : 64;
+    memcpy(buf + 64, m, fill);
+    uint64_t used = 64 + fill;
+    if (used == 128) {
+        sha512_block(st, buf);
+        m += fill;
+        mlen -= fill;
+        while (mlen >= 128) {
+            sha512_block(st, m);
+            m += 128;
+            mlen -= 128;
+        }
+        memcpy(buf, m, mlen);
+        used = mlen;
+    }
+    /* padding */
+    buf[used++] = 0x80;
+    if (used > 112) {
+        memset(buf + used, 0, 128 - used);
+        sha512_block(st, buf);
+        used = 0;
+    }
+    memset(buf + used, 0, 112 - used);
+    /* length in bits, big-endian 128-bit (message < 2^61 bytes) */
+    uint64_t bits = total << 3;
+    memset(buf + 112, 0, 8);
+    for (int i = 0; i < 8; i++)
+        buf[120 + i] = (uint8_t)(bits >> (8 * (7 - i)));
+    sha512_block(st, buf);
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++)
+            out[8 * i + j] = (uint8_t)(st[i] >> (8 * (7 - j)));
+}
+
+/* ----------------------------------------- 512-bit mod L (Barrett) */
+
+typedef unsigned __int128 u128;
+
+/* r = x mod L where x is 8 little-endian 64-bit limbs; r gets 4 limbs.
+ * Barrett with mu = floor(2^512 / L): q = (x * mu) >> 512, r = x - q*L,
+ * then at most two conditional subtracts. q fits in 5 limbs (q <= x/L
+ * < 2^260). */
+static void mod_L(const uint64_t x[8], uint64_t r[4])
+{
+    /* q = high 5 limbs of x * mu (only need columns >= 8) */
+    uint64_t prod[14];
+    memset(prod, 0, sizeof prod);
+    u128 carry = 0;
+    for (int k = 0; k < 13; k++) {
+        u128 acc = carry;
+        uint64_t acc_hi = 0;
+        int lo = k >= 4 ? k - 4 : 0;
+        int hi = k < 8 ? k : 8 - 1;
+        for (int i = lo; i <= hi && i < 8; i++) {
+            int j = k - i;
+            if (j < 0 || j > 4)
+                continue;
+            u128 t = (u128)x[i] * ED_MU[j];
+            acc += t;
+            if (acc < t)
+                acc_hi++; /* 128-bit overflow safeguard */
+        }
+        prod[k] = (uint64_t)acc;
+        carry = (acc >> 64) + ((u128)acc_hi << 64);
+    }
+    prod[13] = (uint64_t)carry;
+    uint64_t q[6];
+    for (int i = 0; i < 6; i++)
+        q[i] = prod[8 + i];
+
+    /* r = x - q*L (low 5 limbs are enough; result < 3L < 2^254) */
+    uint64_t ql[5];
+    memset(ql, 0, sizeof ql);
+    carry = 0;
+    for (int k = 0; k < 5; k++) {
+        u128 acc = carry;
+        for (int i = 0; i <= k && i < 6; i++) {
+            int j = k - i;
+            if (j > 3)
+                continue;
+            acc += (u128)q[i] * ED_L[j];
+        }
+        ql[k] = (uint64_t)acc;
+        carry = acc >> 64;
+    }
+    uint64_t rr[5];
+    u128 borrow = 0;
+    for (int i = 0; i < 5; i++) {
+        u128 xi = i < 8 ? x[i] : 0;
+        u128 rhs = (u128)ql[i] + borrow;
+        if (xi >= rhs) {
+            rr[i] = (uint64_t)(xi - rhs);
+            borrow = 0;
+        } else {
+            rr[i] = (uint64_t)((((u128)1) << 64) + xi - rhs);
+            borrow = 1;
+        }
+    }
+    /* conditional subtract L while r >= L (at most twice) */
+    for (int round = 0; round < 3; round++) {
+        int ge = 0;
+        if (rr[4]) {
+            ge = 1;
+        } else {
+            ge = 1;
+            for (int i = 3; i >= 0; i--) {
+                if (rr[i] > ED_L[i])
+                    break;
+                if (rr[i] < ED_L[i]) {
+                    ge = 0;
+                    break;
+                }
+            }
+        }
+        if (!ge)
+            break;
+        u128 b2 = 0;
+        for (int i = 0; i < 5; i++) {
+            u128 rhs = (u128)(i < 4 ? ED_L[i] : 0) + b2;
+            u128 xi = rr[i];
+            if (xi >= rhs) {
+                rr[i] = (uint64_t)(xi - rhs);
+                b2 = 0;
+            } else {
+                rr[i] = (uint64_t)((((u128)1) << 64) + xi - rhs);
+                b2 = 1;
+            }
+        }
+    }
+    for (int i = 0; i < 4; i++)
+        r[i] = rr[i];
+}
+
+/* --------------------------------------------------------- bit slicing */
+
+static void le_bytes_to_limbs13(const uint8_t b[32], int32_t out[20])
+{
+    for (int i = 0; i < 20; i++) {
+        int bit = 13 * i;
+        int k = bit >> 3, sh = bit & 7;
+        uint32_t v = b[k] >> sh;
+        if (k + 1 < 32)
+            v |= (uint32_t)b[k + 1] << (8 - sh);
+        if (k + 2 < 32)
+            v |= (uint32_t)b[k + 2] << (16 - sh);
+        out[i] = (int32_t)(v & 0x1fff);
+    }
+}
+
+static void le_bytes_to_nibs(const uint8_t b[32], int32_t out[64])
+{
+    for (int i = 0; i < 32; i++) {
+        out[2 * i] = b[i] & 15;
+        out[2 * i + 1] = b[i] >> 4;
+    }
+}
+
+/* little-endian 32-byte < 4×64-bit-limb constant */
+static int lt_le(const uint8_t b[32], const uint64_t lim[4])
+{
+    for (int i = 3; i >= 0; i--) {
+        uint64_t v = 0;
+        for (int j = 7; j >= 0; j--)
+            v = (v << 8) | b[8 * i + j];
+        if (v < lim[i])
+            return 1;
+        if (v > lim[i])
+            return 0;
+    }
+    return 0;
+}
+
+/* ------------------------------------------------------------ batch API */
+
+int sct_prepare_batch(const uint8_t *pubs,      /* n*32 */
+                      const uint8_t *sigs,      /* n*64 */
+                      const uint8_t *msgs,      /* concatenated bodies */
+                      const uint64_t *msg_off,  /* n+1 offsets */
+                      int64_t n,
+                      int32_t *ay, int32_t *a_sign,
+                      int32_t *ry, int32_t *r_sign,
+                      int32_t *s_nibs, int32_t *k_nibs,
+                      uint8_t *pre_ok)
+{
+    for (int64_t i = 0; i < n; i++) {
+        const uint8_t *pub = pubs + 32 * i;
+        const uint8_t *sig = sigs + 64 * i;
+        uint8_t ayb[32], ryb[32];
+        memcpy(ayb, pub, 32);
+        memcpy(ryb, sig, 32);
+        a_sign[i] = ayb[31] >> 7;
+        r_sign[i] = ryb[31] >> 7;
+        ayb[31] &= 0x7f;
+        ryb[31] &= 0x7f;
+
+        int ok = lt_le(sig + 32, ED_L) && lt_le(ayb, ED_P) &&
+                 lt_le(ryb, ED_P);
+        pre_ok[i] = (uint8_t)ok;
+        if (!ok) {
+            memset(ay + 20 * i, 0, 20 * 4);
+            memset(ry + 20 * i, 0, 20 * 4);
+            memset(s_nibs + 64 * i, 0, 64 * 4);
+            memset(k_nibs + 64 * i, 0, 64 * 4);
+            continue;
+        }
+        le_bytes_to_limbs13(ayb, ay + 20 * i);
+        le_bytes_to_limbs13(ryb, ry + 20 * i);
+        le_bytes_to_nibs(sig + 32, s_nibs + 64 * i);
+
+        uint8_t digest[64];
+        sha512_ram(sig, pub, msgs + msg_off[i],
+                   msg_off[i + 1] - msg_off[i], digest);
+        uint64_t x[8], kred[4];
+        for (int w = 0; w < 8; w++) {
+            uint64_t v = 0;
+            for (int j = 7; j >= 0; j--)
+                v = (v << 8) | digest[8 * w + j];
+            x[w] = v;
+        }
+        mod_L(x, kred);
+        uint8_t kb[32];
+        for (int w = 0; w < 4; w++)
+            for (int j = 0; j < 8; j++)
+                kb[8 * w + j] = (uint8_t)(kred[w] >> (8 * j));
+        le_bytes_to_nibs(kb, k_nibs + 64 * i);
+    }
+    return 0;
+}
+
+/* ------------------------------------------------- verify-cache keys */
+
+/* SHA-256 (FIPS 180-4), used only for the verify-cache keys below —
+   the result cache in crypto/keys.py hashes (key ‖ sig ‖ msg) with
+   SHA-256, and the whole-checkpoint drain computes one key per triple
+   (hashlib per-call overhead is ~1/3 of the drain's host cost). */
+
+static const uint32_t SHA256_K[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b,
+    0x59f111f1, 0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01,
+    0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe, 0x9bdc06a7,
+    0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+    0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152,
+    0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+    0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+    0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3, 0xd192e819,
+    0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116, 0x1e376c08,
+    0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f,
+    0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2,
+};
+
+static inline uint32_t rotr32(uint32_t x, int n)
+{
+    return (x >> n) | (x << (32 - n));
+}
+
+static void sha256_block(uint32_t st[8], const uint8_t *p)
+{
+    uint32_t w[64];
+    for (int i = 0; i < 16; i++)
+        w[i] = ((uint32_t)p[4 * i] << 24) | ((uint32_t)p[4 * i + 1] << 16) |
+               ((uint32_t)p[4 * i + 2] << 8) | p[4 * i + 3];
+    for (int i = 16; i < 64; i++) {
+        uint32_t s0 = rotr32(w[i - 15], 7) ^ rotr32(w[i - 15], 18) ^
+                      (w[i - 15] >> 3);
+        uint32_t s1 = rotr32(w[i - 2], 17) ^ rotr32(w[i - 2], 19) ^
+                      (w[i - 2] >> 10);
+        w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+    uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+    for (int i = 0; i < 64; i++) {
+        uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+        uint32_t ch = (e & f) ^ (~e & g);
+        uint32_t t1 = h + S1 + ch + SHA256_K[i] + w[i];
+        uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+        uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+        uint32_t t2 = S0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + t2;
+    }
+    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+/* digest of key32 ‖ sig64 ‖ msg (the _cache_key layout) */
+static void sha256_ksm(const uint8_t *key, const uint8_t *sig,
+                       const uint8_t *msg, uint64_t mlen, uint8_t out[32])
+{
+    static const uint32_t H0[8] = {
+        0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19,
+    };
+    uint32_t st[8];
+    uint8_t buf[64];
+    memcpy(st, H0, sizeof st);
+    uint64_t total = 96 + mlen;
+
+    /* block 1: key ‖ sig[0:32]; block 2: sig[32:64] ‖ msg[0:32] ... */
+    memcpy(buf, key, 32);
+    memcpy(buf + 32, sig, 32);
+    sha256_block(st, buf);
+    memcpy(buf, sig + 32, 32);
+    uint64_t take = mlen < 32 ? mlen : 32;
+    memcpy(buf + 32, msg, take);
+    uint64_t used = 32 + take;
+    const uint8_t *rest = msg + take;
+    uint64_t rlen = mlen - take;
+    if (used == 64) {
+        sha256_block(st, buf);
+        while (rlen >= 64) {
+            sha256_block(st, rest);
+            rest += 64;
+            rlen -= 64;
+        }
+        memcpy(buf, rest, rlen);
+        used = rlen;
+    }
+    buf[used++] = 0x80;
+    if (used > 56) {
+        memset(buf + used, 0, 64 - used);
+        sha256_block(st, buf);
+        used = 0;
+    }
+    memset(buf + used, 0, 56 - used);
+    uint64_t bits = total * 8;
+    for (int i = 0; i < 8; i++)
+        buf[56 + i] = (uint8_t)(bits >> (56 - 8 * i));
+    sha256_block(st, buf);
+    for (int i = 0; i < 8; i++) {
+        out[4 * i] = (uint8_t)(st[i] >> 24);
+        out[4 * i + 1] = (uint8_t)(st[i] >> 16);
+        out[4 * i + 2] = (uint8_t)(st[i] >> 8);
+        out[4 * i + 3] = (uint8_t)st[i];
+    }
+}
+
+/* one call per drain: n (key ‖ sig ‖ msg) triples -> n*32 digests.
+   Layout matches sct_prepare_batch (pubs n*32, sigs n*64, msgs+offsets) */
+int sct_cache_keys(const uint8_t *pubs, const uint8_t *sigs,
+                   const uint8_t *msgs, const uint64_t *msg_off,
+                   int64_t n, uint8_t *out)
+{
+    for (int64_t i = 0; i < n; i++)
+        sha256_ksm(pubs + 32 * i, sigs + 64 * i, msgs + msg_off[i],
+                   msg_off[i + 1] - msg_off[i], out + 32 * i);
+    return 0;
+}

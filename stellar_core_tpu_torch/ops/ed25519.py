@@ -16,9 +16,12 @@ Port of `stellar_core_tpu/ops/ed25519.py`:
   `csrc/ed25519_verify.cu` (built at first use) and counts the launch in
   `LAUNCHES`; on CPU tensors it runs `verify_plain`. It never falls back
   from the card to the plain version: a build or launch failure raises.
-- Host prep (`prepare_batch`) is the reference's numpy/hashlib path: SHA-512
-  and mod L per item, canonicality prechecks, limb and digit slicing. The
-  arrays it returns are the kernel's input contract, unchanged.
+- Host prep (`prepare_batch`): SHA-512 and mod L per item, canonicality
+  prechecks, limb and digit slicing, as in the reference. One C call does
+  it for the whole batch (native/prep.c) wherever the host has a C
+  compiler; `prepare_batch_plain`, the numpy/hashlib path, runs where it
+  has none and is the plain version the C call is held against. The
+  arrays are the kernel's input contract, unchanged.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import native as _native
 from .field import (
     NLIMBS, LIMB_BITS, LIMB_MASK, P, _bcast, fe_add, fe_eq, fe_is_zero,
     fe_mul, fe_mul_small, fe_neg, fe_one, fe_parity, fe_pow_p58, fe_sq,
@@ -433,6 +437,12 @@ def _cuda_lib():
         return _LIB
 
 
+def load_kernel() -> None:
+    """Build and load the kernel's library now, not at the first launch,
+    so that a failed build raises at the caller."""
+    _cuda_lib()
+
+
 def _kernel_params_on(device: torch.device) -> torch.Tensor:
     """The parameter block on `device`, copied there once. The copy is
     waited for before the block is handed out: members of a fleet read it
@@ -564,19 +574,54 @@ def _pack32(items, n: int, width: int) -> np.ndarray:
     return np.frombuffer(blob, np.uint8).reshape(n, width)
 
 
-def prepare_batch(pubs: list[bytes], sigs: list[bytes],
-                  msgs: list[bytes]) -> dict:
-    """Host preprocessing: hashing, canonicality prechecks, bit-slicing.
-    Returns the kernel's int32 input arrays + a host-side precheck mask
-    `pre_ok`. Everything is numpy-vectorized across the batch except the
-    per-item SHA-512 + 512-bit mod L (hashlib and Python ints)."""
+def pack_batch(pubs: list[bytes], sigs: list[bytes],
+               msgs: list[bytes]) -> tuple:
+    """(good, pub_arr, sig_arr, msgs): the length mask (a 32-byte key and
+    a 64-byte signature), the (n, 32) keys and (n, 64) signatures with
+    wrong-length rows zero-filled, and the messages padded to n."""
     n = len(pubs)
     good = np.zeros(n, bool)
     for i in range(min(n, len(sigs), len(msgs))):
         good[i] = len(pubs[i]) == 32 and len(sigs[i]) == 64
     msgs = list(msgs[:n]) + [b""] * (n - len(msgs))
-    pub_arr = _pack32(pubs, n, 32)
-    sig_arr = _pack32(sigs, n, 64)
+    return good, _pack32(pubs, n, 32), _pack32(sigs, n, 64), msgs
+
+
+def finish_native(prep: dict, good: np.ndarray) -> dict:
+    """The C prep's arrays made the kernel's contract: the length mask
+    ANDed into `pre_ok` (the C call sees only zero-filled rows there), and
+    its unsigned digits recoded to signed ones."""
+    prep["pre_ok"] = prep["pre_ok"] & good
+    prep["s_nibs"] = signed_recode_nibs_np(prep["s_nibs"])
+    prep["k_nibs"] = signed_recode_nibs_np(prep["k_nibs"])
+    return prep
+
+
+def prepare_batch(pubs: list[bytes], sigs: list[bytes],
+                  msgs: list[bytes]) -> dict:
+    """Host preprocessing: hashing, canonicality prechecks, bit-slicing.
+    Returns the kernel's int32 input arrays + a host-side precheck mask
+    `pre_ok`, from one C call (native/prep.c) wherever the host has a C
+    compiler, else from `prepare_batch_plain`. Rows that `pre_ok` rejects
+    carry no meaning and may differ between the two paths."""
+    good, pub_arr, sig_arr, msgs = pack_batch(pubs, sigs, msgs)
+    prep = _native.prepare_batch_native(pub_arr, sig_arr, msgs)
+    if prep is not None:
+        return finish_native(prep, good)
+    return _prepare_numpy(good, pub_arr, sig_arr, msgs)
+
+
+def prepare_batch_plain(pubs: list[bytes], sigs: list[bytes],
+                        msgs: list[bytes]) -> dict:
+    """`prepare_batch` in numpy, vectorized across the batch except the
+    per-item SHA-512 + 512-bit mod L (hashlib and Python ints): the plain
+    version the C prep is held against."""
+    return _prepare_numpy(*pack_batch(pubs, sigs, msgs))
+
+
+def _prepare_numpy(good: np.ndarray, pub_arr: np.ndarray,
+                   sig_arr: np.ndarray, msgs: list) -> dict:
+    n = len(msgs)
     r_arr = sig_arr[:, :32]
     s_arr = sig_arr[:, 32:]
 

@@ -27,6 +27,9 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         self.count += n
 
+    def set_count(self, n: int) -> None:
+        self.count = n
+
     def to_json(self) -> dict:
         return {"type": "counter", "count": self.count}
 

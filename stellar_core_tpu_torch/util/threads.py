@@ -1,7 +1,8 @@
 """Named locks and the registry of worker threads.
 
 Copied (`TrackedLock`, `WORKER_THREAD_REGISTRY`, `spawn_worker`) from
-`stellar_core_tpu/util/threads.py` at commit 02ed56d; carry a fix in
+`stellar_core_tpu/util/threads.py` at commit 02ed56d (the
+`crypto.verify-dispatch` entry at a29fd1b); carry a fix in
 either copy to the other. The reference's lock-order checker and
 main-thread affinity asserts are armed only by the node stack (its
 consensus thread), which the port does not have yet; here a `TrackedLock`
@@ -20,6 +21,11 @@ from typing import Callable, Dict
 
 # name -> description of every worker thread the port may start
 WORKER_THREAD_REGISTRY: Dict[str, str] = {
+    "crypto.verify-dispatch":
+        "ThreadedBatchVerifier dispatch: runs one flushed batch's "
+        "verify_many off the main loop and posts the futures' completion "
+        "back through clock.post_to_main (one short-lived thread per "
+        "batch in flight)",
     "crypto.verify-staging":
         "CudaSigVerifier double-buffer staging: packs drain chunk K+1 "
         "into pinned host buffers and copies it to its members on their "

@@ -17,7 +17,13 @@ wrapper must count each launch and reject what its kernel does not take,
 and `CudaSigVerifier` / `CudaBatchHasher` on their default device must
 match the CPU backends, as must fleets of 2 and 3 members sharing the
 card (a staged drain repeated five times), and a 3-member sharded verify
-on a ragged lane count must equal verify_plain. Tolerance: none.
+on a ragged lane count must equal verify_plain. On the card's host the C
+host prep must equal the numpy prep on every deciding row; one burst
+through `make_verifier("cuda-async")` must launch once and complete every
+future from the card; `make_verifier("cuda-resilient")` with
+`device.dispatch` firing must raise, trip, refuse drains while open
+(no launch, no CPU verify) and re-close on the half-open probe, which
+launches the kernel. Tolerance: none.
 """
 
 import numpy as np
@@ -30,14 +36,18 @@ from stellar_core_tpu_torch.crypto import keys as K
 from stellar_core_tpu_torch.crypto.batch_hasher import (
     CudaBatchHasher, make_hasher,
 )
+from stellar_core_tpu_torch import native
 from stellar_core_tpu_torch.crypto.batch_verifier import (
-    CpuSigVerifier, CudaSigVerifier,
+    BreakerOpenError, CpuSigVerifier, CudaSigVerifier, make_verifier,
 )
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.ops import ed25519 as E
 from stellar_core_tpu_torch.ops import sha256 as S
 from stellar_core_tpu_torch.testing.entries import entry_records
 from stellar_core_tpu_torch.testing.vectors import _vectors
+from stellar_core_tpu_torch.util.faults import FaultInjector, InjectedFault
+from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
 
 pytestmark = pytest.mark.cuda
 
@@ -261,3 +271,75 @@ def test_cuda_hasher_matches_hashlib(card):
         [hashlib.sha256(m).digest() for m in msgs]
     assert h.oversize_msgs == 6 and h.batches == 2
     assert S.LAUNCHES == before + 2
+
+
+def test_native_prep_equals_numpy_prep_on_the_card_host(card):
+    vecs = [(p, s, m) for (_l, p, s, m) in _vectors()]
+    triples = vecs + _triples(8192 - len(vecs))
+    cols = list(map(list, zip(*triples)))
+    assert native.prep_lib() is not None, "the C prep must build here"
+    ref = E.prepare_batch_plain(*cols)
+    calls = native.PREP_CALLS
+    nat = E.prepare_batch(*cols)
+    assert native.PREP_CALLS == calls + 1
+    assert (ref["pre_ok"] == nat["pre_ok"]).all()
+    mask = ref["pre_ok"]
+    for k in E.ARG_KEYS:
+        assert (ref[k][mask] == nat[k][mask]).all(), k
+
+
+def test_cuda_async_burst_launches_once(card):
+    K.flush_verify_cache()
+    clock = VirtualClock(ClockMode.REAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    v = make_verifier("cuda-async", clock=clock, metrics=reg)
+    triples = _triples(120, seed=21)
+    want = CpuSigVerifier().verify_many(triples)
+    before = E.LAUNCHES
+    futs = [v.enqueue(*t) for t in triples]
+    v.flush()
+    deadline = clock.now() + 60
+    while not all(f.done() for f in futs) and clock.now() < deadline:
+        clock.crank(True)
+    assert [f.result() for f in futs] == want
+    assert E.LAUNCHES == before + 1
+    m = reg.to_json()
+    assert "crypto.verify.dispatch-failure" not in m
+    assert "crypto.verify.requeued" not in m
+    assert "cpu" not in v.stats.to_json()["drains"]["by_backend"]
+    assert m["crypto.verify.latency"]["count"] == 120
+    assert v.breaker.state == "closed"
+    K.flush_verify_cache()
+
+
+def test_cuda_resilient_trips_and_recovers(card):
+    """Failed drains raise with no launch and no CPU verify, the open
+    breaker refuses drains, and the half-open probe launches once."""
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    v = make_verifier("cuda-resilient", clock=clock, metrics=reg,
+                      breaker_threshold=3, breaker_cooldown=30.0)
+    assert v.fallback is None
+    v.faults = FaultInjector(metrics=reg)
+    v.faults.configure("device.dispatch", count=3)
+    triples = _triples(300, seed=23)
+    want = CpuSigVerifier().verify_many(triples)
+    before = E.LAUNCHES
+    K.flush_verify_cache()
+    for _ in range(3):
+        with pytest.raises(InjectedFault):
+            v.prewarm_many(triples)
+    assert v.breaker.state == "open"
+    with pytest.raises(BreakerOpenError):
+        v.prewarm_many(triples)
+    assert E.LAUNCHES == before
+    m = reg.to_json()
+    assert m["crypto.verify.dispatch-failure"]["count"] == 3
+    assert m["crypto.verify.refused-drain"]["count"] == 1
+    assert "crypto.verify.fallback-drain" not in m
+    assert v.stats.to_json()["drains"]["by_backend"] == {}
+    clock.set_virtual_time(31.0)
+    assert v.prewarm_many(triples) == want
+    assert E.LAUNCHES == before + 1
+    assert v.breaker.state == "closed" and v.breaker.recoveries == 1
+    K.flush_verify_cache()

@@ -1,8 +1,9 @@
 """The port's verify path against the JAX package's, on the same inputs.
 
-- `prepare_batch`: the port's numpy arrays equal the JAX package's numpy
-  path (SCT_NATIVE_PREP=0) in every row, and its native C prep
-  (SCT_NATIVE_PREP=1) in every row that reaches a decision.
+- `prepare_batch`: the port's numpy arrays (`prepare_batch_plain`) equal
+  the JAX package's numpy path (SCT_NATIVE_PREP=0) in every row, and the
+  port's `prepare_batch` (its C prep) equals the JAX package's native C
+  prep (SCT_NATIVE_PREP=1) in every row that reaches a decision.
 - The fixed-base table: `fixed_table_from_jax(jax fixed_table())` equals
   the port's own table, in both the reference radix and the kernel's.
 - `verify_plain` equals JAX `verify_batch_jit` bit for bit on every
@@ -101,15 +102,16 @@ def test_prepare_batch_matches_jax(monkeypatch, native):
     pubs[3] = pubs[3][:31]
     sigs[5] = sigs[5] + b"\x00"
     msgs = msgs[:-2]
-    got = TE.prepare_batch(pubs, sigs, msgs)
+    prep = TE.prepare_batch if native == "1" else TE.prepare_batch_plain
+    got = prep(pubs, sigs, msgs)
     want = JE.prepare_batch(pubs, sigs, msgs)
     assert sorted(got) == sorted(want)
     np.testing.assert_array_equal(got["pre_ok"], want["pre_ok"])
     assert not got["pre_ok"][[3, 5, len(pubs) - 1]].any()
-    # the reference's own native prep leaves rows that only its Python
-    # length checks reject unzeroed (their decisions are masked by
-    # pre_ok), so against it the rows that reach a decision must match;
-    # against its numpy path every row must
+    # the native preps leave rows that only the Python length checks
+    # reject unzeroed (their decisions are masked by pre_ok), so there
+    # the rows that reach a decision must match; between the numpy paths
+    # every row must
     rows = got["pre_ok"] if native == "1" else slice(None)
     for k in want:
         assert got[k].dtype == want[k].dtype, k

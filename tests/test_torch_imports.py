@@ -44,7 +44,8 @@ def test_port_modules_import_no_jax():
     for m in ("ops.ed25519", "ops.sha256", "crypto.hashing",
               "crypto.batch_hasher", "ledger.state_commitment",
               "testing.entries", "parallel.mesh", "util.metrics",
-              "util.tracing", "util.threads", "util.timer", "util.faults"):
+              "util.tracing", "util.threads", "util.timer", "util.faults",
+              "native", "crypto.batch_verifier"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
