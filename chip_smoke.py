@@ -65,7 +65,8 @@ H3. runs 20 live-SCP bursts of 100-128 `enqueue`s through
    flush to the last future;
 H4. runs `make_verifier("cuda-resilient")` (no fallback) with
    `device.dispatch` firing three times: the three drains raise with no
-   launch, the breaker trips (meter, flight dump), a drain while it is
+   launch, the breaker trips (meter, a flight dump by the real
+   `FlightRecorder`), a drain while it is
    open is refused (BreakerOpenError, no launch), no drain is verified on
    the CPU, and past the cooldown on a virtual clock the half-open probe
    launches the kernel once, returns the kernel's decisions and re-closes
@@ -105,9 +106,10 @@ The hash path (`sha256`):
    1/2/4/8/16): every FIPS boundary length that fits, random lengths up to
    the block bucket, and padding lanes of garbage words with count 0; at
    one lane of 1 and of 16 blocks (the chain alone); and on a real
-   per-close chunk (1,000 entry leaves planned and staged by the hasher,
-   sorted by block count). All 8 words of every lane must be equal, and
-   every real lane must equal hashlib. Tolerance: none (a digest one bit
+   per-close chunk (1,000 entry leaves planned by the hasher, sorted by
+   block count, and padded by the C padder over stale words). All 8
+   words of every lane must be equal, and every real lane must equal
+   hashlib. Tolerance: none (a digest one bit
    off forks consensus). Each shape's kernel time (CUDA events), plain
    time and single-thread hashlib time on the same batch are printed
    beside two floors: the throughput bound, and the chain floor (its
@@ -128,6 +130,36 @@ The hash path (`sha256`):
    card's busy share, and sends messages shaped like the reference's
    mixed test batch (two oversize lengths) through `CudaBatchHasher` on the
    card, which must hash the 6 oversize ones on the host.
+
+The hasher's operator layers (the C padder `native/sha256_pad.c` behind
+`pad_chunk`, the pinned double-buffered staging, the warmup, the breaker
+stack, the Tracer and FlightRecorder), each driven with the counts set to
+0 just before it and read just after:
+
+H5. holds the C padder against the numpy padding (`pad_chunk_plain`, which
+   is `pad_messages_np`) on every chunk of the 2^20-leaf drain, on a
+   per-close chunk and on messages of 0, 55, 56, 63, 64, 119, 120 and
+   1,015 bytes, each written over stale words: the counts equal (0 on
+   padding lanes) and the words equal on every real block. Prints ms per
+   chunk of both forms, timed in turns;
+H6. drives `make_hasher("cuda-resilient")` with a real `Tracer` and
+   `FlightRecorder`: `warmup(wait=True)` (done, 3 shapes, 3 launches),
+   then the 2^20-leaf entry-root drain with the C padder and, with
+   `pad_chunk` swapped for `pad_chunk_plain` for the length of the drain,
+   the numpy padding, in turns (C, numpy, numpy, C), then 20 per-close
+   roots, each in both modes in turns, then one profiled drain per mode:
+   every leaf and root equal to hashlib's, one launch per planned chunk,
+   one padding per chunk staged (a C call in C mode), every drain counted
+   under `bucket-entries`, none served on the CPU. Prints leaves/s, host
+   padding ms per drain, `staging_overlap_pct`, the span breakdown
+   (`Tracer.phase_breakdown`) and the card's busy share per mode;
+H7. trips `make_hasher("cuda-resilient")` (no fallback) with
+   `hash.dispatch-fail` firing three times: each drain raises with no
+   launch, the breaker trips with one `hash-breaker-trip` flight dump, a
+   drain while it is open is refused (BreakerOpenError), none is served
+   on the CPU, and past the cooldown the half-open probe launches and
+   re-closes it; then `hash.device-lost` raises from inside
+   `CudaBatchHasher` with no launch.
 
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
@@ -153,6 +185,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -234,9 +267,12 @@ FLEET_TIMES = {128: (1, 4), 8192: (1, 2, 3, 4)}
 # forms timed this many times each, in turns
 PREP_MODES = ("native", "numpy", "numpy", "native")
 CACHE_KEY_REPS = 3
-# the breaker phase: drains of the first DRAIN_TAIL triples, the resilient
-# layer's breaker threshold and cooldown (app-clock seconds)
+# the breaker phases: drains of the first DRAIN_TAIL triples (H4) or of
+# CLOSE_LEAVES records (H7), the resilient layer's breaker threshold and
+# cooldown (app-clock seconds)
 BREAKER_THRESHOLD, BREAKER_COOLDOWN = 3, 30.0
+# the hash layers' drains: the padding's modes in turns
+PAD_MODES = ("c", "numpy", "numpy", "c")
 
 
 def log(msg: str) -> None:
@@ -557,26 +593,35 @@ def sass_loops(lib: str, kernel: str):
 
 def hash_drain_layers(S, hasher, records: list) -> dict:
     """The entry-leaf drain's layers timed alone on the host clock, on the
-    same data, one chunk at a time as hash_many runs them, with a
-    synchronise after each device step: ms per layer. The kernel's device
-    time comes from the profiled drain."""
+    same data, one chunk at a time as hash_many runs them (through the
+    hasher's own staging buffer and stream), with a synchronise after each
+    device step: ms per layer. The kernel's device time comes from the
+    profiled drain."""
     import torch
-    t = dict.fromkeys(("leaf assembly", "plan", "host padding",
-                       "host->device", "launch + kernel",
-                       "device->host", "digests_to_bytes"), 0.0)
+    t = dict.fromkeys(("leaf assembly", "join", "plan", "host padding",
+                       "host->device", "launch + kernel", "device->host",
+                       "digests_to_bytes"), 0.0)
     t0 = time.perf_counter()
     msgs = [b"\x00" + r for r in records]
     t1 = time.perf_counter()
-    _over, chunks = hasher.plan([S.blocks_for_len(len(m)) for m in msgs])
+    blob, off, lens = S.join_messages(msgs)
     t2 = time.perf_counter()
+    _over, chunks = hasher._route((lens + np.uint64(72)) // np.uint64(64))
+    t3 = time.perf_counter()
     t["leaf assembly"] += t1 - t0
-    t["plan"] += t2 - t1
+    t["join"] += t2 - t1
+    t["plan"] += t3 - t2
+    buf = hasher._buffers[0]
     for idx, lanes, blk in chunks:
         t0 = time.perf_counter()
-        words, counts = hasher.stage([msgs[i] for i in idx], lanes, blk)
+        words = buf.words[:lanes * blk * 16].view(lanes, blk, 16)
+        counts = buf.counts[:lanes]
+        S.pad_chunk(blob, off[idx], lens[idx], words.numpy(),
+                    counts.numpy())
         t1 = time.perf_counter()
-        w = torch.from_numpy(words).to(hasher.device)
-        c = torch.from_numpy(counts).to(hasher.device)
+        with torch.cuda.stream(hasher._copy_stream):
+            w = words.to(hasher.device, non_blocking=True)
+            c = counts.to(hasher.device, non_blocking=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         dig = S.hash_blocks_kernel(w, c)
@@ -597,7 +642,8 @@ def hash_drain_layers(S, hasher, records: list) -> dict:
 def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     """Phases 5-7 of the module docstring: the SHA-256 kernel at every
     ladder shape, the hash main path, its layers, the profiled drain and
-    the oversize route. Returns (per-shape results, main-path launches)."""
+    the oversize route. Returns (per-shape results, main-path launches,
+    the drain's records, their hashlib leaves)."""
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
     from stellar_core_tpu_torch.ledger import state_commitment as SC
     from stellar_core_tpu_torch.ops import ed25519 as E
@@ -633,10 +679,16 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     _over, chunks = stager.plan([S.blocks_for_len(len(m)) for m in close])
     check(len(chunks) == 1, "a per-close drain is one chunk")
     idx, lanes, blk = chunks[0]
-    words, counts = stager.stage([close[i] for i in idx], lanes, blk)
+    # padded as the hasher stages it: the C padder writes real blocks over
+    # stale words, which neither version of the kernel may read
+    words = rng.integers(0, 1 << 32, (lanes, blk, 16),
+                         dtype=np.uint64).astype(np.uint32)
+    counts = np.empty((lanes,), np.int32)
+    S.pad_chunk(*S.join_messages([close[i] for i in idx]),
+                words.view(np.int32), counts)
     key = "per-close %dx%d" % (lanes, blk)
-    shapes[key] = hash_case(S, [close[i] for i in idx],
-                            words.view(np.uint32), counts, key, props)
+    shapes[key] = hash_case(S, [close[i] for i in idx], words, counts, key,
+                            props)
     for key, r in shapes.items():
         r["chain_floor_ms"] = r["longest"] * block_ms
         log("kernel sha256 %s: %.5f ms (%.1f blocks/us), plain %.1f ms, "
@@ -738,7 +790,7 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     log("mixed batch: %d messages, %d oversize on the host, %d launch"
         % (len(mixed), h2.oversize_msgs, h2.batches))
 
-    return shapes, hash_launches
+    return shapes, hash_launches, records, want_leaves
 
 
 def time_sharded(M, fleet, arrays, reps: int) -> float:
@@ -1096,38 +1148,40 @@ def fleet_path(torch, vectors: list, corpus: list, drain: list,
 # --- the verify boundary's host layers (C host prep, async, breaker) -------
 
 
-class PrepTimer:
-    """Swaps ops/ed25519.prepare_batch for a timed wrapper for the length
-    of a `with`: the host-prep seconds of every chunk prepared, on
-    whichever thread (the dispatch thread stages a drain's first chunk,
-    the staging worker the rest). In mode "numpy" the wrapper calls
-    `prepare_batch_plain`, so the drain runs on the numpy prep."""
+class TimedSwap:
+    """Swaps `module.<name>` for a timed wrapper for the length of a
+    `with`: the seconds of every call, on whichever thread (the dispatch
+    thread stages a drain's first chunk, the staging worker the rest).
+    With `plain`, the wrapper calls `module.<name>_plain` instead, so the
+    drain runs on the numpy path (`prepare_batch_plain`,
+    `pad_chunk_plain`)."""
 
-    def __init__(self, E, mode: str = "native") -> None:
+    def __init__(self, module, name: str, plain: bool = False) -> None:
         import threading
-        self.E = E
-        self.mode = mode
+        self.module = module
+        self.name = name
+        self.plain = plain
         self.secs: list = []
         self._lock = threading.Lock()
 
-    def __enter__(self) -> "PrepTimer":
-        self._orig = self.E.prepare_batch
-        prep = (self.E.prepare_batch_plain if self.mode == "numpy"
-                else self._orig)
+    def __enter__(self) -> "TimedSwap":
+        self._orig = getattr(self.module, self.name)
+        fn = getattr(self.module, self.name + "_plain") if self.plain \
+            else self._orig
 
         def timed(*args):
             t0 = time.perf_counter()
             try:
-                return prep(*args)
+                return fn(*args)
             finally:
                 with self._lock:
                     self.secs.append(time.perf_counter() - t0)
 
-        self.E.prepare_batch = timed
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc) -> None:
-        self.E.prepare_batch = self._orig
+        setattr(self.module, self.name, self._orig)
 
 
 def prep_both(E, cols: list) -> tuple:
@@ -1249,7 +1303,7 @@ def prep_mode_drains(BV, K, E, S, native, drain: list, cpu_ref: list) -> dict:
     def one(v, mode: str, launches: int, what: str) -> dict:
         K.flush_verify_cache()
         l0, p0 = E.LAUNCHES, native.PREP_CALLS
-        with PrepTimer(E, mode) as pt:
+        with TimedSwap(E, "prepare_batch", mode == "numpy") as pt:
             t0 = time.perf_counter()
             got = v.prewarm_many(drain)
             dt = time.perf_counter() - t0
@@ -1291,7 +1345,7 @@ def prep_mode_drains(BV, K, E, S, native, drain: list, cpu_ref: list) -> dict:
     for mode in ("native", "numpy"):
         K.flush_verify_cache()
         v = BV.make_verifier("cuda")
-        with PrepTimer(E, mode):
+        with TimedSwap(E, "prepare_batch", mode == "numpy"):
             prof = profile_drain(lambda: v.prewarm_many(drain),
                                  "ed25519_verify_kernel")
         check(prof["result"] == cpu_ref,
@@ -1302,16 +1356,6 @@ def prep_mode_drains(BV, K, E, S, native, drain: list, cpu_ref: list) -> dict:
     log("prep-mode drains: ed25519_verify %d launches, native prep %d "
         "calls" % (E.LAUNCHES, native.PREP_CALLS))
     return out
-
-
-class _Recorder:
-    """A flight recorder stand-in: keeps every dump."""
-
-    def __init__(self) -> None:
-        self.dumps: list = []
-
-    def dump(self, reason: str, extra=None) -> None:
-        self.dumps.append((reason, extra))
 
 
 def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
@@ -1369,19 +1413,23 @@ def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
     return {"latency": lat, "wait": wait, "walls": walls}
 
 
-def breaker_phase(BV, K, E, S, drain: list, kernel_ref: list) -> None:
+def breaker_phase(BV, K, E, S, drain: list, kernel_ref: list,
+                  flight_dir: str) -> None:
     """make_verifier("cuda-resilient"), which has no fallback, with
     `device.dispatch` firing BREAKER_THRESHOLD times: those drains raise
     with no launch and trip the breaker (meter, flight dump); a drain
     while it is open is refused with no launch; no drain is verified on
     the CPU; past the cooldown on the virtual clock, the half-open probe
-    launches the kernel once, returns its decisions and re-closes it."""
+    launches the kernel once, returns its decisions and re-closes it. The
+    flight dump goes to `flight_dir`."""
     from stellar_core_tpu_torch.util.faults import FaultInjector, InjectedFault
     from stellar_core_tpu_torch.util.metrics import MetricsRegistry
     from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
     clock = VirtualClock(ClockMode.VIRTUAL_TIME)
     reg = MetricsRegistry(now_fn=clock.now)
-    rec = _Recorder()
+    rec = FlightRecorder(Tracer(), metrics=reg, out_dir=flight_dir,
+                         now_fn=clock.now)
     faults = FaultInjector(seed=7, metrics=reg)
     faults.configure("device.dispatch", count=BREAKER_THRESHOLD)
     v = BV.make_verifier("cuda-resilient", clock=clock, metrics=reg,
@@ -1412,7 +1460,7 @@ def breaker_phase(BV, K, E, S, drain: list, kernel_ref: list) -> None:
           "crypto.verify.dispatch-failure == %d" % BREAKER_THRESHOLD)
     check(m["crypto.verify.refused-drain"]["count"] == 1,
           "crypto.verify.refused-drain == 1")
-    check([r for r, _e in rec.dumps] == ["verify-breaker-trip"],
+    check(rec.dumps == 1 and "verify-breaker-trip" in rec.last_path,
           "the trip left one flight dump")
     check(v.stats.to_json()["drains"]["by_backend"] == {},
           "no drain was verified while the breaker tripped")
@@ -1433,8 +1481,307 @@ def breaker_phase(BV, K, E, S, drain: list, kernel_ref: list) -> None:
         "launched the kernel once and re-closed the breaker (breaker JSON "
         "%s)"
         % (BREAKER_THRESHOLD, BREAKER_THRESHOLD, DRAIN_TAIL,
-           m["crypto.breaker.trip"]["count"], rec.dumps[0][0],
+           m["crypto.breaker.trip"]["count"],
+           os.path.basename(rec.last_path),
            BREAKER_COOLDOWN + 1.0, json.dumps(v.breaker.to_json())))
+
+
+def real_blocks_equal(words, counts, ref_words, ref_counts) -> bool:
+    """Counts equal the reference's on its lanes and 0 past them, and the
+    words equal it on every real block (block i < count of its lane)."""
+    n = len(ref_counts)
+    if not (counts[:n] == ref_counts).all() or (counts[n:] != 0).any():
+        return False
+    mask = np.arange(words.shape[1])[None, :] < ref_counts[:n, None]
+    return bool((words[:n][mask] == ref_words[:n][mask]).all())
+
+
+def pad_phase(S, native, hasher, records: list, rng) -> dict:
+    """H5: the C padder (`native.sha256_pad_native`) against the numpy
+    padding (`pad_chunk_plain`, `pad_messages_np` copied into the buffer)
+    on every chunk of the 2^20-leaf drain, on a per-close chunk and on
+    messages of FIPS_LENS, each into a buffer of stale words: counts equal
+    and words equal on every real block. Both forms are timed per chunk,
+    in turns (C first on even chunks, numpy first on odd ones)."""
+    from stellar_core_tpu_torch.testing.entries import entry_records
+    check(native.sha256_pad_lib() is not None, "the C padder builds")
+    cases = []
+    for what, msgs in (
+            ("drain", [b"\x00" + r for r in records]),
+            ("per-close", [b"\x00" + r
+                           for r in entry_records(rng, CLOSE_LEAVES)])):
+        blob, off, lens = S.join_messages(msgs)
+        _over, chunks = hasher._route((lens + np.uint64(72))
+                                      // np.uint64(64))
+        cases += [(what, blob, off[idx], lens[idx], lanes, blk)
+                  for idx, lanes, blk in chunks]
+    fips = [rng.bytes(x) for x in FIPS_LENS]
+    cases.append(("FIPS lengths", *S.join_messages(fips), 256, 16))
+    stale = np.int32(-0x5A5A5A5B)
+    big = max(lanes * blk for *_x, lanes, blk in cases) * 16
+    c_buf, n_buf = np.empty(big, np.int32), np.empty(big, np.int32)
+    c_cnt, n_cnt = np.empty(4096, np.int32), np.empty(4096, np.int32)
+    calls0 = native.PAD_CALLS
+    ms: dict = {}      # (what, shape) -> {"c": [...], "numpy": [...]}
+    blocks_real = 0
+    for k, (what, blob, off, lens, lanes, blk) in enumerate(cases):
+        cw = c_buf[:lanes * blk * 16].reshape(lanes, blk, 16)
+        nw = n_buf[:lanes * blk * 16].reshape(lanes, blk, 16)
+        cc, nc = c_cnt[:lanes], n_cnt[:lanes]
+        cw.fill(stale)
+        cc.fill(77)
+        nw.fill(stale)
+        nc.fill(77)
+        row = ms.setdefault((what, "%dx%d" % (lanes, blk)),
+                            {"c": [], "numpy": []})
+        for form in (("c", "numpy") if k % 2 == 0 else ("numpy", "c")):
+            t0 = time.perf_counter()
+            if form == "c":
+                check(native.sha256_pad_native(blob, off, lens, cw, cc),
+                      "the C padder ran")
+            else:
+                S.pad_chunk_plain(blob, off, lens, nw, nc)
+            row[form].append((time.perf_counter() - t0) * 1e3)
+        check(real_blocks_equal(cw, cc, nw, nc),
+              "C padder == pad_messages_np on every real block and count "
+              "(%s chunk %d, %dx%d)" % (what, k, lanes, blk))
+        blocks_real += int(nc.sum())
+    check(native.PAD_CALLS - calls0 == len(cases),
+          "every C padding above ran the C library")
+    log("H5 padder: C == pad_messages_np on every real block and count of "
+        "%d chunks (%d real blocks): the drain's, a per-close chunk, "
+        "messages of %s bytes"
+        % (len(cases), blocks_real, "/".join(map(str, FIPS_LENS))))
+    for (what, shape), row in ms.items():
+        log("H5 padder ms per chunk, %s %s (%d chunks, in turns): C median "
+            "%.4f [%.4f-%.4f], numpy median %.3f [%.3f-%.3f]; sum C %.2f, "
+            "numpy %.1f"
+            % (what, shape, len(row["c"]), float(np.median(row["c"])),
+               min(row["c"]), max(row["c"]), float(np.median(row["numpy"])),
+               min(row["numpy"]), max(row["numpy"]), sum(row["c"]),
+               sum(row["numpy"])))
+    drain = [r for (what, _s), r in ms.items() if what == "drain"]
+    out = {form: sum(sum(r[form]) for r in drain) for form in ("c", "numpy")}
+    log("H5 padder, all %d drain chunks: C %.1f ms, numpy %.1f ms (%.1fx)"
+        % (sum(len(r["c"]) for r in drain), out["c"], out["numpy"],
+           out["numpy"] / out["c"]))
+    return out
+
+
+def phases_line(pb: dict) -> str:
+    return ", ".join("%s %.1f ms (%d)" % (k, v["total_s"] * 1e3, v["count"])
+                     for k, v in sorted(pb["phases"].items(),
+                                        key=lambda kv: -kv[1]["total_s"]))
+
+
+def hash_layer_drains(S, E, native, SC, records: list, want_leaves: list,
+                      rng, flight_dir: str, card: str) -> dict:
+    """H6: make_hasher("cuda-resilient") with a real Tracer and
+    FlightRecorder: warmup(wait=True) (3 shapes, 3 launches), then the
+    2^20-leaf entry-root drain with the C padder and with the numpy padding
+    swapped in, in turns (PAD_MODES), then 20 per-close roots, each in
+    both modes in turns, then one profiled drain per mode. Every leaf and
+    root == hashlib, one launch per planned chunk, one pad per chunk staged
+    (in C mode each a C call), every drain counted under bucket-entries,
+    none served on the CPU."""
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.testing.entries import entry_records
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    reg = MetricsRegistry()
+    tr = Tracer()
+    tr.enable()
+    h = make_hasher("cuda-resilient", metrics=reg, tracer=tr,
+                    flight_recorder=FlightRecorder(tr, metrics=reg,
+                                                   out_dir=flight_dir))
+    check(h.fallback is None, "the card's hash stack has no fallback")
+    want_root = SC.merkle_root(want_leaves)
+    E.LAUNCHES = S.LAUNCHES = 0
+    t0 = time.perf_counter()
+    h.warmup(wait=True)
+    warm_s = time.perf_counter() - t0
+    warm = h.stats.to_json()["warmup"]
+    check(warm["state"] == "done" and len(warm["shapes"]) == 3
+          and S.LAUNCHES == 3, "warmup: done, 3 shapes, 3 launches")
+    log("H6 warmup: %.3f s, shapes %s" % (warm_s, json.dumps(
+        {k: [v["seconds"], v["cache"]] for k, v in warm["shapes"].items()})))
+    planned = len(h.inner.plan([S.blocks_for_len(1 + len(r))
+                                for r in records])[1])
+    out: dict = {"c": [], "numpy": []}
+    for k, mode in enumerate(PAD_MODES):
+        tr.clear()
+        l0, p0 = S.LAUNCHES, native.PAD_CALLS
+        with TimedSwap(S, "pad_chunk", mode == "numpy") as pt:
+            t0 = time.perf_counter()
+            leaves = SC.entry_leaves(records, h)
+            t1 = time.perf_counter()
+            root = SC.merkle_root(leaves)
+            t2 = time.perf_counter()
+        check(leaves == want_leaves, "H6 drain (%s): every leaf == hashlib"
+              % mode)
+        check(root == want_root, "H6 drain (%s): root == hashlib" % mode)
+        check(S.LAUNCHES - l0 == planned and len(pt.secs) == planned,
+              "H6 drain (%s): %d launches, one pad per chunk" % (mode,
+                                                                 planned))
+        check(native.PAD_CALLS - p0 == (planned if mode == "c" else 0),
+              "H6 drain (%s): one C padding per chunk in C mode" % mode)
+        check(h.stats.to_json()["sites"]["bucket-entries"]["drains"]
+              == k + 1, "bucket-entries counts each drain")
+        span = [sp for sp in tr.spans() if sp.name == "crypto.hash_many"][-1]
+        pb = tr.phase_breakdown(wall_s=t2 - t0)
+        r = {"leaves_per_s": len(records) / (t2 - t0), "s": t2 - t0,
+             "hash_many_s": t1 - t0, "merkle_s": t2 - t1,
+             "pad_ms": sum(pt.secs) * 1e3,
+             "overlap_pct": span.tags.get("staging_overlap_pct"),
+             "phases": pb}
+        out[mode].append(r)
+        log("H6 drain, padding %s (%s): %.0f leaves/s (%.3f s: hash_many "
+            "%.3f, Merkle %.3f); host padding %.1f ms over %d chunks; "
+            "staging_overlap_pct %s; spans: %s"
+            % (mode, card, r["leaves_per_s"], r["s"], r["hash_many_s"],
+               r["merkle_s"], r["pad_ms"], planned, r["overlap_pct"],
+               phases_line(pb)))
+    backends = h.stats.to_json()["drains"]["by_backend"]
+    check(set(backends) == {"cuda"}, "no H6 drain was served on the CPU")
+    check(S.LAUNCHES == 3 + len(PAD_MODES) * planned,
+          "launches == planned chunks + 3 for the warmup")
+    lat: dict = {"c": [], "numpy": [], "c_pad": [], "numpy_pad": []}
+    for i in range(CLOSES):
+        batch = entry_records(rng, CLOSE_LEAVES)
+        want = SC.merkle_root(hashlib_leaves(batch))
+        n_chunks = len(h.inner.plan([S.blocks_for_len(1 + len(r))
+                                     for r in batch])[1])
+        for mode in (("c", "numpy") if i % 2 == 0 else ("numpy", "c")):
+            l0 = S.LAUNCHES
+            with TimedSwap(S, "pad_chunk", mode == "numpy") as pt:
+                t0 = time.perf_counter()
+                got = SC.entry_root(batch, h)
+                lat[mode].append((time.perf_counter() - t0) * 1e3)
+            lat[mode + "_pad"].append(sum(pt.secs) * 1e3)
+            check(got == want and S.LAUNCHES - l0 == n_chunks,
+                  "H6 per-close root (%s) == hashlib, one launch per "
+                  "planned chunk" % mode)
+    for mode in ("c", "numpy"):
+        log("H6 per-close entry_root, padding %s, %d drains of %d leaves "
+            "(%s): p50 %.3f ms, p99 %.3f ms; host padding p50 %.3f ms"
+            % (mode, CLOSES, CLOSE_LEAVES, card,
+               float(np.percentile(lat[mode], 50)),
+               float(np.percentile(lat[mode], 99)),
+               float(np.percentile(lat[mode + "_pad"], 50))))
+    for mode in ("c", "numpy"):
+        with TimedSwap(S, "pad_chunk", mode == "numpy"):
+            prof = profile_drain(lambda: SC.entry_root(records, h),
+                                 "sha256_blocks_kernel")
+        check(prof["result"] == want_root, "H6 profiled drain root (%s)"
+              % mode)
+        log_profile("H6 drain, padding %s" % mode, prof,
+                    "sha256_blocks_kernel")
+        out["prof_" + mode] = prof
+    j = h.stats.to_json()
+    check(set(j["drains"]["by_backend"]) == {"cuda"}
+          and j["sites"]["bucket-entries"]["drains"]
+          == len(PAD_MODES) + 2 * CLOSES + 2,
+          "every H6 drain on the card, counted under bucket-entries")
+    check(E.LAUNCHES == 0, "the hash layers launched no verify kernel")
+    log("H6 stats: staging %s, by_backend %s"
+        % (json.dumps(j["staging"]), json.dumps(j["drains"]["by_backend"])))
+    out["closes"] = lat
+    return out
+
+
+def hash_breaker_phase(S, E, SC, rng, flight_dir: str) -> None:
+    """H7: make_hasher("cuda-resilient") (no fallback) with
+    `hash.dispatch-fail` firing BREAKER_THRESHOLD times: those drains raise
+    with no launch, the breaker trips (meter, one `hash-breaker-trip`
+    flight dump), a drain while it is open is refused with no launch, no
+    drain is served on the CPU; past the cooldown on a virtual clock the
+    half-open probe launches once and re-closes it; then
+    `hash.device-lost` raises from inside the device backend with no
+    launch."""
+    from stellar_core_tpu_torch.crypto.batch_hasher import (
+        CudaBatchHasher, make_hasher,
+    )
+    from stellar_core_tpu_torch.crypto.batch_verifier import BreakerOpenError
+    from stellar_core_tpu_torch.testing.entries import entry_records
+    from stellar_core_tpu_torch.util.faults import FaultInjector, InjectedFault
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    import traceback
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    tr = Tracer(now_fn=clock.now)
+    tr.enable()
+    rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir,
+                         now_fn=clock.now)
+    faults = FaultInjector(seed=7, metrics=reg, tracer=tr)
+    faults.configure("hash.dispatch-fail", count=BREAKER_THRESHOLD)
+    h = make_hasher("cuda-resilient", clock=clock, metrics=reg, tracer=tr,
+                    faults=faults, flight_recorder=rec,
+                    breaker_threshold=BREAKER_THRESHOLD,
+                    breaker_cooldown=BREAKER_COOLDOWN)
+    batch = entry_records(rng, CLOSE_LEAVES)
+    want = hashlib_leaves(batch)
+    n_chunks = len(h.inner.plan([S.blocks_for_len(1 + len(r))
+                                 for r in batch])[1])
+    E.LAUNCHES = S.LAUNCHES = 0
+
+    def raised(exc_type):
+        try:
+            SC.entry_leaves(batch, h)
+        except exc_type as e:
+            return e
+        return None
+
+    for _ in range(BREAKER_THRESHOLD):
+        check(raised(InjectedFault) is not None, "a failed drain raises")
+    check(h.breaker.state == "open" and h.breaker.trips == 1,
+          "the hash breaker tripped")
+    check(raised(BreakerOpenError) is not None,
+          "the open hash breaker refuses a drain")
+    m = reg.to_json()
+    check(S.LAUNCHES == 0, "no launch while the dispatch fails or the "
+          "breaker is open")
+    check(m["hasher.dispatch-failure"]["count"] == BREAKER_THRESHOLD
+          and m["hasher.refused-drain"]["count"] == 1
+          and m["hasher.breaker.trip"]["count"] == 1,
+          "hasher.dispatch-failure %d, refused-drain 1, breaker.trip 1"
+          % BREAKER_THRESHOLD)
+    check(rec.dumps == 1 and "hash-breaker-trip" in rec.last_path,
+          "the trip left one hash-breaker-trip flight dump")
+    check(h.stats.to_json()["drains"]["by_backend"] == {},
+          "no drain was served while the breaker tripped")
+    clock.set_virtual_time(clock.now() + BREAKER_COOLDOWN + 1.0)
+    check(SC.entry_leaves(batch, h) == want, "the probe drain's leaves")
+    check(S.LAUNCHES == n_chunks and h.breaker.state == "closed"
+          and h.breaker.recoveries == 1,
+          "the half-open probe drain launched once per chunk and "
+          "re-closed the breaker")
+    faults.configure("hash.device-lost", count=1)
+    e = raised(InjectedFault)
+    check(e is not None and any(
+        isinstance(f.f_locals.get("self"), CudaBatchHasher)
+        for f, _l in traceback.walk_tb(e.__traceback__)),
+        "hash.device-lost raises from inside the device backend")
+    m = reg.to_json()
+    check(S.LAUNCHES == n_chunks and E.LAUNCHES == 0,
+          "hash.device-lost: no launch")
+    check(m["fault.injected.hash.device-lost"]["count"] == 1,
+          "hash.device-lost fired once")
+    check("hasher.fallback-drain" not in m
+          and set(h.stats.to_json()["drains"]["by_backend"]) == {"cuda"},
+          "every hash drain was served on the card")
+    log("H7 hash breaker: make_hasher('cuda-resilient'), hash.dispatch-fail "
+        "fired %d times: %d drains of %d leaves raised with no launch, "
+        "tripped (hasher.breaker.trip %d, flight dump %s), one drain refused "
+        "while open, none served on the CPU; the half-open probe after "
+        "%.0f s launched %d time(s) and re-closed the breaker; "
+        "hash.device-lost "
+        "raised inside CudaBatchHasher with no launch (breaker JSON %s)"
+        % (BREAKER_THRESHOLD, BREAKER_THRESHOLD, CLOSE_LEAVES,
+           m["hasher.breaker.trip"]["count"], os.path.basename(rec.last_path),
+           BREAKER_COOLDOWN + 1.0, n_chunks,
+           json.dumps(h.breaker.to_json())))
 
 
 def main() -> int:
@@ -1446,6 +1793,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # the breaker phases' flight dumps go to a directory of their own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flight_") as fdir:
+        return smoke(torch, args, fdir)
+
+
+def smoke(torch, args, flight_dir: str) -> int:
+    """The phases of the module docstring, in order; raises on a failed
+    check."""
     from stellar_core_tpu_torch import _build
     from stellar_core_tpu_torch.graft_entry import entry
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
@@ -1647,12 +2002,21 @@ def main() -> int:
     host_prep_phase(E, K, native, drain, vectors)
     prep_mode_drains(BV, K, E, S, native, drain, cpu_ref[:n_drain])
     async_scp_phase(BV, K, E, S, rng, burst_pool, cpu_ref[n_drain:])
-    breaker_phase(BV, K, E, S, drain, got)
+    breaker_phase(BV, K, E, S, drain, got, flight_dir)
 
     fleet = fleet_path(torch, vectors, corpus, drain, cpu_ref[:n_drain],
                        props)
 
-    shapes, hash_launches = hash_path(torch, rng, props)
+    shapes, hash_launches, records, want_leaves = hash_path(torch, rng,
+                                                           props)
+
+    # --- the hasher's operator layers: C padder, staging, breaker ----------
+    from stellar_core_tpu_torch.crypto.batch_hasher import CudaBatchHasher
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    pad_phase(S, native, CudaBatchHasher(), records, rng)
+    hash_layer_drains(S, E, native, SC, records, want_leaves, rng,
+                      flight_dir, card)
+    hash_breaker_phase(S, E, SC, rng, flight_dir)
 
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]

@@ -5,8 +5,9 @@
   ctypes).
   Target `sm_90a` (Hopper). `-Xptxas -v` output (registers, spills) is
   kept beside each library as `<name>.log`.
-- `native/ed25519c.c` (the CPU ed25519 library) and `native/prep.c` (the
-  batched host prep), each built with `cc` into its own library.
+- `native/ed25519c.c` (the CPU ed25519 library), `native/prep.c` (the
+  verify boundary's batched host prep) and `native/sha256_pad.c` (the
+  hasher's chunk padder), each built with `cc` into its own library.
 
 Every artifact name carries a content hash of its sources and flags, so an
 edit never reuses a stale library, and a finished build is reused by every
@@ -126,9 +127,11 @@ def find_cc() -> Optional[str]:
     return None
 
 
-# the C libraries of `native/`: source stem -> library name prefix. Both
-# include the generated `prep_constants.h` (native/gen_constants.py)
-NATIVE_LIBS = {"ed25519c": "libscted25519", "prep": "libsctprep"}
+# the C libraries of `native/`: source stem -> library name prefix. Each
+# build can include the generated `prep_constants.h`
+# (native/gen_constants.py); ed25519c.c and prep.c do
+NATIVE_LIBS = {"ed25519c": "libscted25519", "prep": "libsctprep",
+               "sha256_pad": "libsctsha256pad"}
 
 
 def build_native(stem: str) -> Optional[str]:

@@ -8,6 +8,10 @@
   in another. No caller uses `cache_keys_native` yet: on the H100's host
   its scalar SHA-256 took about twice the time of the per-triple hashlib
   loop that `prewarm_many` keeps (PERF.md).
+- `sha256_pad.c`: the hasher's chunk padder (`sha256_pad_lib`,
+  `sha256_pad_native`): FIPS 180-4 padding of a chunk's messages into the
+  kernel's big-endian words, written straight into the staging buffer, one
+  C call per chunk (ops/sha256.pad_chunk).
 
 `ed25519c.c`, `prep.c` and `gen_constants.py` are copies of the reference
 package's files (see their headers); `_build.build_native` builds each C
@@ -32,11 +36,19 @@ _ED_LIB = None
 _ED_TRIED = False
 _PREP_LIB = None
 _PREP_TRIED = False
+_PAD_LIB = None
+_PAD_TRIED = False
 
 # prepare_batch_native calls that reached the C library (chip_smoke.py
 # reads it to show the drain prepared every chunk there)
 PREP_CALLS = 0
-_PREP_CALLS_LOCK = threading.Lock()
+_CALLS_LOCK = threading.Lock()
+# sha256_pad_native calls that reached the C library (chip_smoke.py reads
+# it to show a drain padded every chunk there)
+PAD_CALLS = 0
+_PAD_ERRORS = {1: "bad shape (n outside 0..lanes, or no lanes or blocks)",
+               2: "a message reaches past the end of the blob",
+               3: "a message needs more blocks than the chunk's bucket"}
 
 
 class _Ed25519Native:
@@ -182,7 +194,7 @@ def prepare_batch_native(pub_arr: np.ndarray, sig_arr: np.ndarray,
         ay.ctypes.data, a_sign.ctypes.data,
         ry.ctypes.data, r_sign.ctypes.data,
         s_nibs.ctypes.data, k_nibs.ctypes.data, pre_ok.ctypes.data)
-    with _PREP_CALLS_LOCK:
+    with _CALLS_LOCK:
         PREP_CALLS += 1
     return {"ay": ay, "a_sign": a_sign, "ry": ry, "r_sign": r_sign,
             "s_nibs": s_nibs, "k_nibs": k_nibs,
@@ -207,3 +219,63 @@ def cache_keys_native(triples) -> Optional[list]:
                        out.ctypes.data)
     ob = out.tobytes()
     return [ob[32 * i:32 * i + 32] for i in range(n)]
+
+
+def sha256_pad_lib() -> Optional[ctypes.CDLL]:
+    """Build + load the chunk padder (sha256_pad.c); None only when the
+    host has no C compiler (callers then use the numpy padding). A failed
+    build raises."""
+    global _PAD_LIB, _PAD_TRIED
+    with _LOCK:
+        if _PAD_TRIED:
+            return _PAD_LIB
+        from .._build import build_native
+        so = build_native("sha256_pad")
+        if so is not None:
+            lib = ctypes.CDLL(so)
+            lib.sct_sha256_pad.restype = ctypes.c_int
+            lib.sct_sha256_pad.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+            _PAD_LIB = lib
+        _PAD_TRIED = True
+        return _PAD_LIB
+
+
+def sha256_pad_native(blob: bytes, off: np.ndarray, lens: np.ndarray,
+                      words: np.ndarray, counts: np.ndarray) -> bool:
+    """Pad messages blob[off[i]:off[i] + lens[i]] into lanes 0..n-1 of
+    `words` ((lanes, blocks, 16) int32, C-contiguous) and write all of
+    `counts` ((lanes,) int32; 0 on padding lanes) in one C call. False
+    when the library is unavailable; ValueError on arrays of the wrong
+    type or shape and on a message that does not fit (nothing is written
+    then)."""
+    global PAD_CALLS
+    lib = sha256_pad_lib()
+    if lib is None:
+        return False
+    n = len(off)
+    if words.dtype != np.int32 or words.ndim != 3 or \
+            words.shape[2] != 16 or not words.flags.c_contiguous or \
+            counts.dtype != np.int32 or counts.shape != words.shape[:1] \
+            or not counts.flags.c_contiguous:
+        raise ValueError("sha256_pad_native wants (lanes, blocks, 16) and "
+                         "(lanes,) C-contiguous int32, got %s %r and %s %r"
+                         % (words.dtype, words.shape, counts.dtype,
+                            counts.shape))
+    if off.dtype != np.uint64 or lens.dtype != np.uint64 or \
+            off.shape != (n,) or lens.shape != (n,) or \
+            not off.flags.c_contiguous or not lens.flags.c_contiguous:
+        raise ValueError("sha256_pad_native wants (n,) C-contiguous uint64 "
+                         "offsets and lengths")
+    rc = lib.sct_sha256_pad(blob, len(blob), off.ctypes.data,
+                            lens.ctypes.data, n, words.shape[0],
+                            words.shape[1], words.ctypes.data,
+                            counts.ctypes.data)
+    if rc != 0:
+        raise ValueError("sct_sha256_pad refused the chunk: %s"
+                         % _PAD_ERRORS.get(rc, "error %d" % rc))
+    with _CALLS_LOCK:
+        PAD_CALLS += 1
+    return True

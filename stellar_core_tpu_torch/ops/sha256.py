@@ -23,6 +23,12 @@ other):
 - Layout: batch-first (B, max_blocks, 16) words, the host's byte order
   already turned into word values by `pad_messages_np` (big-endian), so
   neither version byte-swaps; `digests_to_bytes` swaps back on the host.
+- `pad_chunk` pads one chunk of a drain into a staging buffer: one call of
+  the C padder (`native/sha256_pad.c`) wherever the host has a C
+  compiler, else `pad_chunk_plain`, the numpy path over
+  `pad_messages_np`. The C padder writes each lane's real blocks only;
+  the words past a lane's count keep whatever the buffer held, which
+  neither version of the kernel reads.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import native as _native
 
 # FIPS 180-4 round constants and initial state
 _K = np.array([
@@ -214,6 +222,42 @@ def pad_messages_np(msgs: Sequence[bytes],
         arr = np.frombuffer(padded, dtype=">u4").astype(np.uint32)
         words[i, :len(arr) // 16] = arr.reshape(-1, 16)
     return words, counts
+
+
+def join_messages(msgs: Sequence[bytes]) -> Tuple[bytes, np.ndarray,
+                                                  np.ndarray]:
+    """(the messages joined, each one's uint64 offset, uint64 lengths): a
+    drain's messages in the form `pad_chunk` takes, a chunk being the
+    offsets and lengths of its lanes."""
+    lens = np.fromiter(map(len, msgs), np.uint64, len(msgs))
+    off = np.zeros(len(msgs), np.uint64)
+    np.cumsum(lens[:-1], out=off[1:])
+    return b"".join(msgs), off, lens
+
+
+def pad_chunk(blob: bytes, off: np.ndarray, lens: np.ndarray,
+              words: np.ndarray, counts: np.ndarray) -> None:
+    """Pad the messages blob[off[i]:off[i] + lens[i]] (uint64 offsets and
+    lengths) into lanes 0..n-1 of `words`, a (lanes, blocks, 16) int32
+    buffer, and write every lane's count into `counts`, 0 on the padding
+    lanes. Only each lane's real blocks are written. One C call where the
+    host has a C compiler (a message that does not fit raises ValueError),
+    else `pad_chunk_plain`."""
+    if not _native.sha256_pad_native(blob, off, lens, words, counts):
+        pad_chunk_plain(blob, off, lens, words, counts)
+
+
+def pad_chunk_plain(blob: bytes, off: np.ndarray, lens: np.ndarray,
+                    words: np.ndarray, counts: np.ndarray) -> None:
+    """`pad_chunk`'s numpy path: `pad_messages_np` over the chunk's
+    messages, copied into the first n lanes (every block of the bucket,
+    zeros past a lane's count)."""
+    n = len(off)
+    msgs = [blob[o:o + m] for o, m in zip(off.tolist(), lens.tolist())]
+    w, c = pad_messages_np(msgs, words.shape[1])
+    words[:n] = w.view(np.int32)
+    counts[:n] = c
+    counts[n:] = 0
 
 
 def digests_to_bytes(digests: np.ndarray) -> List[bytes]:

@@ -2,7 +2,8 @@
 
 Copied (`TrackedLock`, `WORKER_THREAD_REGISTRY`, `spawn_worker`) from
 `stellar_core_tpu/util/threads.py` at commit 02ed56d (the
-`crypto.verify-dispatch` entry at a29fd1b); carry a fix in
+`crypto.verify-dispatch` entry at a29fd1b, the `crypto.hash-*` entries
+at abe2377); carry a fix in
 either copy to the other. The reference's lock-order checker and
 main-thread affinity asserts are armed only by the node stack (its
 consensus thread), which the port does not have yet; here a `TrackedLock`
@@ -34,6 +35,16 @@ WORKER_THREAD_REGISTRY: Dict[str, str] = {
     "crypto.verify-warmup":
         "CudaSigVerifier warmup: builds the verify kernel and launches "
         "zeros on every planned bucket's route",
+    "crypto.hash-staging":
+        "CudaBatchHasher double-buffer staging: FIPS-pads hash chunk K+1 "
+        "into its pinned host buffer and copies it to the card on the "
+        "staging stream while the kernel digests chunk K (one short-lived "
+        "job thread per staged chunk, mirroring verify staging); launches "
+        "no kernel",
+    "crypto.hash-warmup":
+        "CudaBatchHasher warmup: builds the SHA-256 kernel and launches "
+        "zeros at every warm shape through the staging and launch path of "
+        "live traffic",
 }
 
 

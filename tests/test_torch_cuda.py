@@ -11,8 +11,14 @@ of 8,193 and the largest bucket;
 the SHA-256 kernel's digest words must equal its plain version's, every
 lane including padding lanes and out-of-range counts, and hashlib's, also
 on a full warp pair of 16-block lanes, one 16-block lane, a sorted
-per-close chunk of 1,000 entry leaves at 1024 x 16 and a batch with no
-positive count. Each
+per-close chunk of 1,000 entry leaves at 1024 x 16 (padded by
+`pad_chunk` over stale words) and a batch with no positive count. The
+hasher's staging: a drain of six chunks through its two pinned buffers
+(each reused three times), five times over, equals hashlib; every staged
+chunk's words are 16-byte aligned on the card; the warmup launches once
+per warm shape; `hash.device-lost` and `make_hasher("cuda-resilient")`
+with `hash.dispatch-fail` raise with no launch, an open breaker refuses
+and the probe launches. Each
 wrapper must count each launch and reject what its kernel does not take,
 and `CudaSigVerifier` / `CudaBatchHasher` on their default device must
 match the CPU backends, as must fleets of 2 and 3 members sharing the
@@ -213,8 +219,13 @@ def _staging_case(kind: str):
         h = CudaBatchHasher(device="cpu")
         _over, chunks = h.plan([S.blocks_for_len(len(m)) for m in msgs])
         msgs = [msgs[i] for i in chunks[0][0]]
-        words, counts = h.stage(msgs, 1024, 16)
-        return msgs, words.view(np.uint32), counts
+        # padded as the hasher stages it: real blocks only, stale words
+        # past each lane's count
+        words = rng.integers(0, 1 << 32, (1024, 16, 16),
+                             dtype=np.uint64).astype(np.uint32)
+        counts = np.empty((1024,), np.int32)
+        S.pad_chunk(*S.join_messages(msgs), words.view(np.int32), counts)
+        return msgs, words, counts
     # "pair": a full warp pair of 16-block lanes (the most staged);
     # "chain": one lane of 16 blocks
     lanes = 32 if kind == "pair" else 1
@@ -343,3 +354,83 @@ def test_cuda_resilient_trips_and_recovers(card):
     assert E.LAUNCHES == before + 1
     assert v.breaker.state == "closed" and v.breaker.recoveries == 1
     K.flush_verify_cache()
+
+
+# --- the hasher's staging and operator layers --------------------------------
+
+def _hash_msgs(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.bytes(int(x)) for x in rng.integers(0, 500, n)]
+
+
+def test_hash_drain_reuses_pinned_buffers(card):
+    """Six chunks of 1,024 lanes: buffers 0 and 1 each staged three times
+    a drain while the other's chunk runs; a padder that overwrote a buffer
+    before its copy was done would change digests on some run."""
+    msgs = _hash_msgs(6 * 1024 - 100, seed=24)
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    h = make_hasher("cuda")
+    h.LANE_BUCKETS = (256, 1024)
+    assert all(b.words.is_pinned() and b.counts.is_pinned()
+               for b in h._buffers)
+    before = S.LAUNCHES
+    for _ in range(5):
+        assert h.hash_many(msgs, site="bucket-entries") == want
+    assert S.LAUNCHES == before + 30 and h.batches == 30
+    st = h.stats.to_json()["staging"]
+    assert st["chunks"] == 25 and st["stalls"] == 0
+
+
+def test_hash_staged_words_are_aligned(card):
+    h = CudaBatchHasher()
+    for lanes, blocks in ((1, 1), (256, 2), (1024, 5), (4096, 16)):
+        msgs = _hash_msgs(lanes, seed=lanes)[:lanes]
+        msgs = [m[:64 * blocks - 9] for m in msgs]
+        blob, off, lens = S.join_messages(msgs)
+        staged = h._stage_hash_chunk(blob, off, lens, lanes, blocks,
+                                     lanes % 2)
+        assert staged["words"].data_ptr() % 16 == 0
+        assert staged["words"].is_cuda and staged["words"].shape == \
+            (lanes, blocks, 16)
+        got = h._launch(staged)[:lanes].cpu().numpy().view(np.uint32)
+        assert S.digests_to_bytes(got) == \
+            [hashlib.sha256(m).digest() for m in msgs]
+
+
+def test_hash_warmup_launches_each_shape(card):
+    h = make_hasher("cuda-resilient")
+    before = S.LAUNCHES
+    h.warmup(wait=True)
+    w = h.stats.to_json()["warmup"]
+    assert w["state"] == "done" and len(w["shapes"]) == 3
+    assert S.LAUNCHES == before + 3
+    assert all(v["cache"] in ("hit", "miss") for v in w["shapes"].values())
+
+
+def test_hash_faults_raise_on_the_card(card):
+    msgs = _hash_msgs(300, seed=25)
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    faults = FaultInjector()
+    faults.configure("hash.device-lost", count=1)
+    h = make_hasher("cuda", faults=faults)
+    before = S.LAUNCHES
+    with pytest.raises(InjectedFault):
+        h.hash_many(msgs)
+    assert S.LAUNCHES == before
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    reg = MetricsRegistry(now_fn=clock.now)
+    faults = FaultInjector(metrics=reg)
+    faults.configure("hash.dispatch-fail", count=3)
+    r = make_hasher("cuda-resilient", clock=clock, metrics=reg,
+                    faults=faults, breaker_threshold=3,
+                    breaker_cooldown=30.0)
+    for _ in range(3):
+        with pytest.raises(InjectedFault):
+            r.hash_many(msgs)
+    with pytest.raises(BreakerOpenError):
+        r.hash_many(msgs)
+    assert S.LAUNCHES == before
+    assert r.stats.to_json()["drains"]["by_backend"] == {}
+    clock.set_virtual_time(31.0)
+    assert r.hash_many(msgs) == want
+    assert S.LAUNCHES == before + 1 and r.breaker.state == "closed"
