@@ -7,7 +7,7 @@ one NVIDIA GPU.
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout (one nvcc per source, all started together), then
-drives three paths.
+drives three paths and the ledger that runs on the hash path.
 
 The verify path (`ed25519_verify`):
 
@@ -161,6 +161,50 @@ H7. trips `make_hasher("cuda-resilient")` (no fallback) with
    re-closes it; then `hash.device-lost` raises from inside
    `CudaBatchHasher` with no launch.
 
+The ledger (the port's XDR codec, bucket list and state commitment engine
+over the hash path), each phase driven with the counts set to 0 just
+before it and read just after:
+
+L1. builds 2^20 live entries of the testing/entries.py mix as the port's
+   `BucketEntry` objects (decoded by the port's codec), in canonical
+   order without a Python sort, adopts them as the curr buckets of levels
+   4-10 (most in level 10, which never spills) through a `BucketManager`
+   with background merges over a temporary bucket directory, and
+   restores the list with `assume_state` at a ledger that is a multiple
+   of 128, as a node starts after catchup. No launch. Prints the setup s;
+L2. builds a `StateCommitmentEngine` over `make_hasher("cuda-resilient")`
+   with a real `Tracer`, `FlightRecorder`, metrics and faults, a node seed
+   and network id and a checkpoint every 8 closes, and a twin engine over
+   `make_hasher("cpu")` on the same list. The first `update_root` drains
+   every entry through the card: its root == the twin's ==
+   `from_scratch_root`, one launch per planned chunk, every drain counted
+   under `bucket-entries`, none served on the CPU. Prints its ms, then
+   the card's busy share from a second, profiled first update;
+L3. 64 closes of 1,000 changed entries each (850 updates, 100 inits, 50
+   deads: an assumption with no published source) through
+   `BucketManager.add_batch`, the ready merges resolved and
+   `snapshot_ledger` stamping a real `LedgerHeader`, then `on_close` on
+   both engines: the roots equal on every close and == from_scratch_root
+   on the last, the same 8 checkpoints from both, and on every close
+   exactly one launch per 4,096-lane chunk of the leaves of the buckets
+   new in its slots, decided from the bucket list alone (a bucket moved
+   from curr to snap costs none). The closes run without the profiler.
+   Prints p50/p99 of `commitment.update-ms`, the changed leaves, launches
+   and shapes per close and the span breakdown; then replays the 64
+   updates on L2's profiled engine (CUDA activity only) for the card's
+   busy share: the same roots in the same launches;
+L4. proves keys whose newest version is in level 0, in a middle level and
+   in the deep bucket (which re-hashes its 2^20 entries through the card,
+   as the reference does): each proof == the twin's, accepted by
+   `light_client_verify` against the served checkpoint, rejected with a
+   flipped entry byte, a wrong sibling in `entry_path`, another network
+   id or a flipped signature byte; a deleted key gets no proof. Prints
+   each proof's ms and bytes;
+L5. fires `commitment.sign-fail` once over 16 more closes: that
+   interval's checkpoint is skipped (the twin's is not), the meter counts
+   1, the flight recorder dumps `checkpoint-sign-fail`, and the next
+   interval emits. Times nothing.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -170,7 +214,8 @@ the toolkit has it) and, for the SHA-256 kernel, each warp role's loop
 per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
-`{"kernels": [...]}` line (three entries) and, last,
+`{"kernels": [...]}` line (three entries; the sha256 entry's launches are
+the hash main path's and L2-L4's, `launches_by_path`) and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
 """
@@ -273,6 +318,28 @@ CACHE_KEY_REPS = 3
 BREAKER_THRESHOLD, BREAKER_COOLDOWN = 3, 30.0
 # the hash layers' drains: the padding's modes in turns
 PAD_MODES = ("c", "numpy", "numpy", "c")
+# the ledger phases (L1-L5): a restored state of LEDGER_STATE live entries
+# at LEDGER_START (a multiple of 128, so the 64 closes change levels 0-3
+# only); the curr buckets of levels 4-9 hold DEEP_LEVEL_ENTRIES, level 10
+# the rest. Each close changes LEDGER_MIX = (updates, inits, deads)
+# entries, the per-close cell's 1,000 (an assumption with no published
+# source, like the entries' mix); a checkpoint every CHECKPOINT_EVERY
+# closes, signed for the Stellar test network's id.
+LEDGER_STATE = 1 << 20
+LEDGER_START = 128 * 400_000
+DEEP_LEVEL_ENTRIES = {4: 256, 5: 512, 6: 1024, 7: 2048, 8: 4096, 9: 8192}
+LEDGER_CLOSES = 64
+LEDGER_MIX = (850, 100, 50)
+LEDGER_PROTOCOL = 13
+CHECKPOINT_EVERY = 8
+LEDGER_NETWORK_ID = hashlib.sha256(
+    b"Test SDF Network ; September 2015").digest()
+
+
+def p99(samples) -> float:
+    """The sample at or above the 99th percentile's rank, not an
+    interpolation: with fewer than 100 samples, their maximum."""
+    return float(np.percentile(samples, 99, method="higher"))
 
 
 def log(msg: str) -> None:
@@ -342,17 +409,17 @@ def time_cuda(fn, reps: int) -> float:
         cycles *= 2
 
 
-def profile_drain(run, kernel: str) -> dict:
-    """run() under torch.profiler (CPU and CUDA activity): its result, its
-    host wall time, and from the trace the card's busy time (the union of
-    all device activity), the launches and device time of the kernel
-    whose name contains `kernel`, and the device time of the five largest
-    names."""
+def profile_drain(run, kernel: str, cpu: bool = True) -> dict:
+    """run() under torch.profiler (CPU and CUDA activity, or CUDA alone
+    when not `cpu`): its result, its host wall time, and from the trace
+    the card's busy time (the union of all device activity), the launches
+    and device time of the kernel whose name contains `kernel`, and the
+    device time of the five largest names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
@@ -758,7 +825,7 @@ def hash_path(torch, rng: np.random.Generator, props) -> tuple:
     log("per-close entry_root, %d drains of %d leaves: p50 %.3f ms, "
         "p99 %.3f ms (p99 of %d samples is their maximum)"
         % (CLOSES, CLOSE_LEAVES, float(np.percentile(lat, 50)),
-           float(np.percentile(lat, 99)), len(lat)))
+           p99(lat), len(lat)))
     real = hasher.real_blocks - real0
     pad = hasher.pad_blocks - pad0
     log("per-close launch shapes (lanes x blocks): %s; %d real blocks, "
@@ -1408,7 +1475,7 @@ def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
         % (BURSTS, BURST_MIN, BURST_MAX, lat["median"] * 1e3,
            lat["p99"] * 1e3, lat["count"], Histogram.MAX_SAMPLES,
            wait["median"] * 1e3, wait["p99"] * 1e3, wait["count"],
-           float(np.percentile(walls, 50)), float(np.percentile(walls, 99)),
+           float(np.percentile(walls, 50)), p99(walls),
            E.LAUNCHES))
     return {"latency": lat, "wait": wait, "walls": walls}
 
@@ -1666,7 +1733,7 @@ def hash_layer_drains(S, E, native, SC, records: list, want_leaves: list,
             "(%s): p50 %.3f ms, p99 %.3f ms; host padding p50 %.3f ms"
             % (mode, CLOSES, CLOSE_LEAVES, card,
                float(np.percentile(lat[mode], 50)),
-               float(np.percentile(lat[mode], 99)),
+               p99(lat[mode]),
                float(np.percentile(lat[mode + "_pad"], 50))))
     for mode in ("c", "numpy"):
         with TimedSwap(S, "pad_chunk", mode == "numpy"):
@@ -1783,6 +1850,496 @@ def hash_breaker_phase(S, E, SC, rng, flight_dir: str) -> None:
            BREAKER_COOLDOWN + 1.0, n_chunks,
            json.dumps(h.breaker.to_json())))
 
+
+# --- the ledger phases (L1-L5): the state commitment over a real state -----
+
+def ledger_header(X, seq: int, prev: bytes):
+    """A protocol-13 header at `seq` after `prev` (bucket-list hash and
+    skip list filled by BucketManager.snapshot_ledger)."""
+    zero = b"\x00" * 32
+    return X.LedgerHeader(
+        ledgerVersion=LEDGER_PROTOCOL, previousLedgerHash=prev,
+        scpValue=X.StellarValue(txSetHash=zero, closeTime=seq, upgrades=[],
+                                ext=X.StellarValueExt(0, None)),
+        txSetResultHash=zero, bucketListHash=zero, ledgerSeq=seq,
+        totalCoins=10 ** 17, feePool=0, inflationSeq=0, idPool=0,
+        baseFee=100, baseReserve=5_000_000, maxTxSetSize=1000,
+        skipList=[zero] * 4, ext=X._Ext.v0())
+
+
+def leaf_blocks(S, bucket) -> list:
+    """SHA-256 block count of each of a bucket's entry leaves (the 0x00
+    prefix and the XDR body: its framed record less the 4-byte mark)."""
+    from stellar_core_tpu_torch.bucket.bucket import entry_record
+    return [S.blocks_for_len(len(entry_record(e)) - 3)
+            for e in bucket.entries]
+
+
+def bucket_launches(S, hasher, bucket) -> int:
+    """Launches that hashing a bucket's entry leaves takes on the card:
+    one per chunk of the widest lane bucket, over the leaves that fit the
+    longest block bucket (longer ones are hashed on the host)."""
+    ladder = type(hasher)
+    n = sum(1 for b in leaf_blocks(S, bucket)
+            if b <= ladder.BLOCK_BUCKETS[-1])
+    return -(-n // ladder.LANE_BUCKETS[-1])
+
+
+def list_slots(bl) -> list:
+    """The bucket list's 22 buckets in commitment leaf order (level 0
+    curr, level 0 snap, level 1 curr, ...), read from the list itself."""
+    return [b for lev in bl.levels for b in (lev.curr, lev.snap)]
+
+
+def slots_view(slots: list):
+    """A read-only stand-in for a bucket list holding `slots` (what
+    update_root reads), so a close's buckets can be committed again."""
+    from types import SimpleNamespace
+    return SimpleNamespace(levels=[SimpleNamespace(curr=c, snap=s)
+                                   for c, s in zip(slots[::2], slots[1::2])])
+
+
+def ledger_state(rng, bucket_dir: str, card: str) -> dict:
+    """L1: LEDGER_STATE live entries of the testing/entries.py mix as the
+    port's BucketEntry objects, in canonical order (one numpy sort of the
+    bodies' identity prefixes), split into the deep levels' curr buckets
+    (DEEP_LEVEL_ENTRIES, the rest in level 10), adopted through a
+    BucketManager with background merges over `bucket_dir`, then restored
+    with assume_state at LEDGER_START."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.bucket import BucketManager, K_NUM_LEVELS
+    from stellar_core_tpu_torch.bucket.bucket import (
+        Bucket, bucket_entry_sort_key,
+    )
+    from stellar_core_tpu_torch.testing import entries as TE
+    zero = b"\x00" * 32
+    t0 = time.perf_counter()
+    records = TE.entry_records(rng, LEDGER_STATE)
+    order = TE.canonical_order(records)
+    level = np.full(LEDGER_STATE, K_NUM_LEVELS - 1)
+    pick = rng.permutation(LEDGER_STATE)
+    k = 0
+    for lv, n in sorted(DEEP_LEVEL_ENTRIES.items()):
+        level[pick[k:k + n]] = lv
+        k += n
+    t_gen = time.perf_counter()
+    mgr = BucketManager(bucket_dir, background_merges=True)
+    hashes, live, by_level = [], [], {}
+    t_decode = t_hash = 0.0
+    for lv in range(K_NUM_LEVELS):
+        idx = order[level[order] == lv]
+        if not len(idx):
+            hashes.append({"curr": zero, "snap": zero})
+            continue
+        t1 = time.perf_counter()
+        ents = TE.bucket_entries([records[i] for i in idx.tolist()])
+        t2 = time.perf_counter()
+        b = mgr.adopt_bucket(Bucket([X.BucketEntry.meta(LEDGER_PROTOCOL)]
+                                    + ents))
+        t_hash += time.perf_counter() - t2
+        t_decode += t2 - t1
+        check(b.path is not None and os.path.exists(b.path),
+              "L1: level %d's bucket is written to the bucket directory"
+              % lv)
+        live.extend(e.value for e in ents)
+        by_level[lv] = b
+        hashes.append({"curr": b.get_hash(), "snap": zero})
+    del records
+    mgr.assume_state(hashes, LEDGER_START, LEDGER_PROTOCOL)
+    setup_s = time.perf_counter() - t0
+    bl = mgr.bucket_list
+    check(all(lev.curr is by_level.get(i, lev.curr) and lev.snap.is_empty()
+              and lev.next.is_clear() for i, lev in enumerate(bl.levels)),
+          "L1: assume_state restored every level, no merge to restart")
+    check(sum(len(b.payload_entries()) for b in by_level.values())
+          == len(live) == LEDGER_STATE, "L1: %d live entries" % LEDGER_STATE)
+    deep = by_level[K_NUM_LEVELS - 1].entries
+    for i in rng.integers(1, len(deep) - 1, 2000).tolist():
+        check(bucket_entry_sort_key(deep[i]) < bucket_entry_sort_key(
+            deep[i + 1]), "L1: the deep bucket is in canonical order")
+    log("L1 state (%s): %d live entries at ledger %d in %.1f s (generate + "
+        "sort %.1f s, decode %.1f s, bucket hash + file %.1f s); levels "
+        "%s; level 10 holds %d; bucket-list hash %s"
+        % (card, LEDGER_STATE, LEDGER_START, setup_s, t_gen - t0, t_decode,
+           t_hash, json.dumps({str(k): len(b) - 1
+                               for k, b in sorted(by_level.items())}),
+           len(deep) - 1, mgr.get_hash().hex()[:16]))
+    return {"mgr": mgr, "live": live, "deep": deep, "setup_s": setup_s}
+
+
+def ledger_close(X, S, SC, st: dict, seq: int, rng) -> dict:
+    """One close of LEDGER_MIX changed entries through
+    BucketManager.add_batch, then on_close on both engines. Checks the
+    roots equal and that the card hashed exactly the leaves of the changed
+    buckets not seen in an earlier close. Which buckets those are is
+    decided from the bucket list alone (the slot hashes of the previous
+    close and every hash seen before, kept in `st`), never from the
+    engine's caches."""
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.testing import entries as TE
+    from stellar_core_tpu_torch.xdr import fastcodec
+    n_up, n_init, n_dead = LEDGER_MIX
+    live, eng, twin, mgr = st["live"], st["eng"], st["twin"], st["mgr"]
+    copy = fastcodec.compile_copy(X.LedgerEntry)
+    pick = rng.choice(len(live), n_up + n_dead, replace=False).tolist()
+    ups = []
+    for i in pick[:n_up]:
+        e = copy(live[i])
+        e.lastModifiedLedgerSeq = seq
+        live[i] = e
+        ups.append(e)
+        st["touched"][X.ledger_entry_key(e).to_xdr()] = seq
+    deads = []
+    for i in sorted(pick[n_up:], reverse=True):
+        k = X.ledger_entry_key(live[i])
+        deads.append(k)
+        st["touched"][k.to_xdr()] = -seq
+        live[i] = live[-1]
+        live.pop()
+    inits = [b.value for b in TE.bucket_entries(
+        TE.entry_records(rng, n_init))]
+    for e in inits:
+        e.lastModifiedLedgerSeq = seq
+        st["touched"][X.ledger_entry_key(e).to_xdr()] = seq
+    live.extend(inits)
+    t0 = time.perf_counter()
+    mgr.add_batch(seq, LEDGER_PROTOCOL, inits, ups, deads)
+    mgr.bucket_list.resolve_any_ready_futures()
+    hdr = st["header"]
+    hdr.ledgerSeq = seq
+    hdr.previousLedgerHash = st["header_hash"]
+    hdr.scpValue.closeTime = seq
+    mgr.snapshot_ledger(hdr)
+    st["header_hash"] = hh = sha256(hdr.to_xdr())
+    add_ms = (time.perf_counter() - t0) * 1e3
+    # what the card must hash: the buckets in slots whose hash changed
+    # since the previous close and was never seen before (a bucket that
+    # moved from curr to snap, or an empty one, costs no launch)
+    slots = list_slots(mgr.bucket_list)
+    fresh, cached = {}, 0
+    for prev, b in zip(st["slot_hashes"], slots):
+        bh = b.get_hash()
+        if bh == prev or bh == SC.ZERO_HASH:
+            continue
+        if bh in st["seen"] or bh in fresh:
+            cached += 1
+        else:
+            fresh[bh] = b
+    st["slot_hashes"] = [b.get_hash() for b in slots]
+    st["seen"].update(st["slot_hashes"])
+    want_launches = sum(bucket_launches(S, st["hasher"].inner, b)
+                        for b in fresh.values())
+    want_msgs = sum(len(b.entries) for b in fresh.values())
+    l0 = S.LAUNCHES
+    m0 = st["hasher"].stats.to_json()["sites"].get(
+        "bucket-entries", {}).get("msgs", 0)
+    t0 = time.perf_counter()
+    cp = eng.on_close(mgr.bucket_list, seq, hh)
+    close_ms = (time.perf_counter() - t0) * 1e3
+    launches = S.LAUNCHES - l0
+    msgs = st["hasher"].stats.to_json()["sites"]["bucket-entries"]["msgs"] \
+        - m0
+    t0 = time.perf_counter()
+    tcp = twin.on_close(mgr.bucket_list, seq, hh)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    check(eng.root == twin.root, "close %d: the card's root == the hashlib "
+          "twin's" % seq)
+    check(launches == want_launches and msgs == want_msgs,
+          "close %d: %d launches for the %d leaves of the %d buckets new "
+          "in its slots (got %d launches, %d leaves)"
+          % (seq, want_launches, want_msgs, len(fresh), launches, msgs))
+    check((cp is None and tcp is None) or (
+        cp is not None and tcp is not None
+        and cp.to_json() == tcp.to_json()) or (
+        cp is None and st.get("sign_fail")),
+          "close %d: the same checkpoint from both engines" % seq)
+    mgr.forget_unreferenced_buckets()
+    return {"seq": seq, "leaves": msgs, "launches": launches,
+            "buckets": list(fresh.values()), "slots": slots,
+            "root": eng.root,
+            "changed": len(fresh), "cached": cached, "add_ms": add_ms,
+            "close_ms": close_ms, "twin_ms": twin_ms,
+            "checkpoint": cp is not None}
+
+
+def ledger_layers(S, SC, h, cpu, buckets: list, card: str) -> None:
+    """Where the closes' commitment time goes: the entry-root work of the
+    buckets the 64 closes drained, each layer timed alone on them (the
+    records' XDR bodies, the leaves through the card's hasher and through
+    hashlib, the Merkle interior on the host), each leaf == hashlib's."""
+    from stellar_core_tpu_torch.bucket.bucket import entry_record
+    t0 = time.perf_counter()
+    recs = [[entry_record(e)[4:] for e in b.entries] for b in buckets]
+    t1 = time.perf_counter()
+    leaves = [SC.entry_leaves(r, h) for r in recs]
+    t2 = time.perf_counter()
+    want = [SC.entry_leaves(r, cpu) for r in recs]
+    t3 = time.perf_counter()
+    for lv in leaves:
+        SC.merkle_root(lv)
+    t4 = time.perf_counter()
+    check(leaves == want, "L3 layers: every leaf == hashlib's")
+    log("L3 layers timed alone over the %d buckets the closes drained "
+        "(%d leaves; %s): records %.1f ms, leaves through the card %.1f "
+        "ms (hashlib %.1f ms), Merkle interior %.1f ms"
+        % (len(buckets), sum(len(r) for r in recs), card,
+           (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+           (t4 - t3) * 1e3))
+
+
+def ledger_path(S, E, rng, flight_dir: str, card: str) -> dict:
+    """L1-L5 of the module docstring; returns the launches of L2-L4."""
+    from types import SimpleNamespace
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.util.faults import FaultInjector
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_buckets_") as bdir:
+        # --- L1 ------------------------------------------------------------
+        E.LAUNCHES = S.LAUNCHES = 0
+        st = ledger_state(rng, bdir, card)
+        check(S.LAUNCHES == 0 and E.LAUNCHES == 0,
+              "L1 builds the state without a launch")
+        mgr = st["mgr"]
+        bl = mgr.bucket_list
+        out["setup_s"] = st["setup_s"]
+
+        # --- L2 ------------------------------------------------------------
+        reg = MetricsRegistry()
+        tr = Tracer()
+        tr.enable()
+        faults = FaultInjector(seed=LEDGER_START, metrics=reg, tracer=tr)
+        rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+        h = make_hasher("cuda-resilient", metrics=reg, tracer=tr,
+                        faults=faults, flight_recorder=rec)
+        check(h.fallback is None, "L2: the card's hash stack has no "
+              "fallback")
+        cfg = SimpleNamespace(NODE_SEED=SecretKey(rng.bytes(32)),
+                              network_id=LEDGER_NETWORK_ID,
+                              STATE_CHECKPOINT_INTERVAL=CHECKPOINT_EVERY)
+        eng = SC.StateCommitmentEngine(SimpleNamespace(
+            batch_hasher=h, config=cfg, metrics=reg, tracer=tr,
+            faults=faults, flight_recorder=rec))
+        twin = SC.StateCommitmentEngine(SimpleNamespace(
+            batch_hasher=make_hasher("cpu"), config=cfg,
+            metrics=MetricsRegistry()))
+        st.update(eng=eng, twin=twin, hasher=h, touched={},
+                  header=ledger_header(X, LEDGER_START, b"\x00" * 32),
+                  header_hash=b"\x00" * 32)
+        buckets = [b for b in list_slots(bl) if b.get_hash() != SC.ZERO_HASH]
+        st["slot_hashes"] = [b.get_hash() for b in list_slots(bl)]
+        st["seen"] = set(st["slot_hashes"])
+        want = sum(bucket_launches(S, h.inner, b) for b in buckets)
+        E.LAUNCHES = S.LAUNCHES = 0
+        t0 = time.perf_counter()
+        root = eng.update_root(bl)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        first_launches = S.LAUNCHES
+        t0 = time.perf_counter()
+        twin_root = twin.update_root(bl)
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        oracle = eng.from_scratch_root(bl)
+        oracle_s = time.perf_counter() - t0
+        check(root == twin_root == oracle, "L2: the first root == the "
+              "hashlib twin's == from_scratch_root")
+        check(first_launches == want > 0, "L2: %d launches, one per planned "
+              "chunk of the %d buckets" % (want, len(buckets)))
+        # a second engine over the same hasher, profiled; its caches then
+        # hold the state `eng`'s hold before L3, and L3 replays its closes
+        # on it under the profiler
+        fresh = SC.StateCommitmentEngine(SimpleNamespace(
+            batch_hasher=h, config=None, metrics=None))
+        prof = profile_drain(lambda: fresh.update_root(bl),
+                             "sha256_blocks_kernel")
+        check(prof["result"] == root, "L2: the profiled first root")
+        j = h.stats.to_json()
+        check(j["sites"]["bucket-entries"]["drains"] == 2 * len(buckets)
+              and set(j["drains"]["by_backend"]) == {"cuda"}
+              and j["oversize_msgs"] == 0,
+              "L2: every drain on the card, counted under bucket-entries")
+        out["launches"]["L2"] = S.LAUNCHES
+        check(S.LAUNCHES == 2 * want and E.LAUNCHES == 0,
+              "L2: launches (first update + profiled update)")
+        out["first_ms"] = first_ms
+        log("L2 first update_root (%s): %d leaves of %d buckets through "
+            "make_hasher(\"cuda-resilient\") in %.1f ms (%d launches); "
+            "hashlib twin %.1f ms; from_scratch_root %.1f s; root %s"
+            % (card, sum(len(b) for b in buckets), len(buckets), first_ms,
+               first_launches, twin_ms, oracle_s, root.hex()[:16]))
+        log_profile("L2 first update_root", prof, "sha256_blocks_kernel")
+
+        # --- L3 ------------------------------------------------------------
+        log("L3 mix per close: %d updates of live entries, %d inits, %d "
+            "deads (an assumption, no published source)" % LEDGER_MIX)
+        shapes0 = {k: v["dispatches"] for k, v in j["buckets"].items()}
+        tr.clear()
+        E.LAUNCHES = S.LAUNCHES = 0
+        t0 = time.perf_counter()
+        closes = [ledger_close(X, S, SC, st, LEDGER_START + k, rng)
+                  for k in range(1, LEDGER_CLOSES + 1)]
+        wall_s = time.perf_counter() - t0
+        out["launches"]["L3"] = S.LAUNCHES
+        check(S.LAUNCHES == sum(c["launches"] for c in closes) > 0
+              and E.LAUNCHES == 0, "L3: the closes launched the hash kernel")
+        last = LEDGER_START + LEDGER_CLOSES
+        check(eng.root == twin.root == eng.from_scratch_root(bl),
+              "L3: the root == from_scratch_root on the last close")
+        check(sorted(eng.checkpoints) == sorted(twin.checkpoints)
+              == [LEDGER_START + CHECKPOINT_EVERY * i for i in
+                  range(1, LEDGER_CLOSES // CHECKPOINT_EVERY + 1)]
+              and reg.to_json()["commitment.checkpoint.emitted"]["count"]
+              == LEDGER_CLOSES // CHECKPOINT_EVERY,
+              "L3: %d checkpoints" % (LEDGER_CLOSES // CHECKPOINT_EVERY))
+        check(any(c["cached"] for c in closes),
+              "L3: slots that took a cached bucket (curr to snap) cost no "
+              "launch")
+        upd = reg.new_histogram("commitment.update-ms")
+        check(upd.count == 1 + LEDGER_CLOSES, "commitment.update-ms: one "
+              "sample per update")
+        ms = list(upd._samples[1:1 + LEDGER_CLOSES])
+        j = h.stats.to_json()
+        shapes = {k: v["dispatches"] - shapes0.get(k, 0)
+                  for k, v in j["buckets"].items()
+                  if v["dispatches"] - shapes0.get(k, 0)}
+        check(set(j["drains"]["by_backend"]) == {"cuda"},
+              "L3: no drain served on the CPU")
+        leaves = [c["leaves"] for c in closes]
+        out.update(update_ms=ms, closes=closes)
+        log("L3 %d closes (%s): commitment.update-ms p50 %.3f ms, p99 %.3f "
+            "ms (p99 of %d samples is their maximum); on_close p50 %.3f "
+            "ms, hashlib twin p50 %.3f ms, add_batch p50 %.3f ms; changed "
+            "leaves per close min %d / p50 %d / max %d; %d launches, "
+            "shapes %s; closes with a slot served from the cache %d; wall "
+            "%.1f s"
+            % (LEDGER_CLOSES, card, float(np.percentile(ms, 50)),
+               p99(ms), len(ms),
+               float(np.percentile([c["close_ms"] for c in closes], 50)),
+               float(np.percentile([c["twin_ms"] for c in closes], 50)),
+               float(np.percentile([c["add_ms"] for c in closes], 50)),
+               min(leaves), int(np.percentile(leaves, 50)), max(leaves),
+               S.LAUNCHES, json.dumps(shapes),
+               sum(1 for c in closes if c["cached"]), wall_s))
+        log("L3 per close (seq: leaves/launches/update ms): %s"
+            % " ".join("%d:%d/%d/%.1f" % (c["seq"] - LEDGER_START,
+                                          c["leaves"], c["launches"], m)
+                       for c, m in zip(closes, ms)))
+        log("L3 spans: %s" % phases_line(tr.phase_breakdown(wall_s=wall_s)))
+        # the card's busy share: the closes above run without the profiler;
+        # their 64 updates are replayed on L2's profiled engine (whose
+        # caches start where `eng`'s did), recording CUDA activity only
+        l3_launches = S.LAUNCHES
+        prof = profile_drain(
+            lambda: [fresh.update_root(slots_view(c.pop("slots")))
+                     for c in closes],
+            "sha256_blocks_kernel", cpu=False)
+        check(prof["result"] == [c["root"] for c in closes]
+              and S.LAUNCHES - l3_launches == l3_launches,
+              "L3 replay: the same %d roots in the same %d launches"
+              % (LEDGER_CLOSES, l3_launches))
+        log_profile("L3 replay of the 64 updates (CUDA activity only)",
+                    prof, "sha256_blocks_kernel")
+        if prof["device_events"]:
+            log("L3 card busy %.3f ms over the unprofiled closes' %.3f ms "
+                "of commitment.update-ms = %.2f%%"
+                % (prof["busy_ms"], sum(ms),
+                   100.0 * prof["busy_ms"] / sum(ms)))
+        ledger_layers(S, SC, h, st["twin"].app.batch_hasher,
+                      [b for c in closes for b in c.pop("buckets")], card)
+
+        # --- L4 ------------------------------------------------------------
+        touched = st["touched"]
+        ups = [k for k, s in touched.items() if s == LEDGER_START + 1]
+        newest = [k for k, s in touched.items() if s == last]
+        gone = [k for k, s in touched.items() if s < 0]
+        untouched = [e for e in st["deep"][1:50000]
+                     if X.ledger_entry_key(e.value).to_xdr() not in touched]
+        cases = [("level 0", X.LedgerKey.from_xdr(newest[0]), (0,)),
+                 ("middle", X.LedgerKey.from_xdr(ups[0]), range(1, 10)),
+                 ("deep", X.ledger_entry_key(untouched[0].value), (10,))]
+        cp = eng.checkpoint()
+        check(cp is not None and cp["ledger_seq"] == last,
+              "L4: the served checkpoint is the last close's")
+        E.LAUNCHES = S.LAUNCHES = 0
+        out["proofs"] = {}
+        for what, key, levels in cases:
+            l0 = S.LAUNCHES
+            t0 = time.perf_counter()
+            proof = eng.prove_entry(key)
+            p_ms = (time.perf_counter() - t0) * 1e3
+            check(proof is not None and proof["leaf_index"] // 2 in levels,
+                  "L4: a %s proof, in level %s" % (what, list(levels)))
+            # no close since the served checkpoint: its buckets are the
+            # list's own
+            bucket = list_slots(bl)[proof["leaf_index"]]
+            check(S.LAUNCHES - l0 == bucket_launches(S, h.inner, bucket) > 0,
+                  "L4: the %s proof re-hashes its bucket on the card"
+                  % what)
+            check(proof == twin.prove_entry(key), "L4: %s proof == the "
+                  "hashlib twin's" % what)
+            check(SC.light_client_verify(proof, cp, LEDGER_NETWORK_ID)
+                  == (True, "ok"), "L4: %s proof accepted" % what)
+            bad = json.loads(json.dumps(proof))
+            bad["entry"] = bad["entry"][:-2] + (
+                "00" if bad["entry"][-2:] != "00" else "01")
+            check(SC.light_client_verify(bad, cp, LEDGER_NETWORK_ID)
+                  == (False, "merkle root mismatch"),
+                  "L4: a flipped entry byte is rejected")
+            bad = json.loads(json.dumps(proof))
+            bad["entry_path"][0]["h"] = sha256(b"evil").hex()
+            check(not SC.light_client_verify(bad, cp, LEDGER_NETWORK_ID)[0],
+                  "L4: a wrong sibling in entry_path is rejected")
+            check(not SC.light_client_verify(proof, cp, b"\x42" * 32)[0],
+                  "L4: another network_id is rejected")
+            forged = dict(cp)
+            forged["signature"] = "%02x" % (int(cp["signature"][:2], 16)
+                                            ^ 1) + cp["signature"][2:]
+            check(SC.light_client_verify(proof, forged, LEDGER_NETWORK_ID)
+                  == (False, "checkpoint signature invalid"),
+                  "L4: a flipped signature byte is rejected")
+            nbytes = len(json.dumps(proof))
+            out["proofs"][what] = {"ms": p_ms, "bytes": nbytes}
+            log("L4 %s proof (%s): level %d of %d entries, %.3f ms, %d "
+                "bytes, %d launches; accepted, 4 tamperings rejected"
+                % (what, card, proof["leaf_index"] // 2,
+                   proof["entry_count"], p_ms, nbytes, S.LAUNCHES - l0))
+        check(all(eng.prove_entry(X.LedgerKey.from_xdr(k)) is None
+                  for k in gone[:20]), "L4: a deleted key gets no proof")
+        out["launches"]["L4"] = S.LAUNCHES
+        check(E.LAUNCHES == 0, "L4 launched no verify kernel")
+
+        # --- L5 ------------------------------------------------------------
+        faults.configure("commitment.sign-fail", probability=1.0, count=1)
+        st["sign_fail"] = True
+        dumps = rec.dumps
+        for k in range(1, 2 * CHECKPOINT_EVERY + 1):
+            ledger_close(X, S, SC, st, last + k, rng)
+        skipped, emitted = last + CHECKPOINT_EVERY, last + 2 * CHECKPOINT_EVERY
+        m = reg.to_json()
+        check(skipped not in eng.checkpoints and skipped in twin.checkpoints
+              and emitted in eng.checkpoints
+              and eng.checkpoint() == twin.checkpoint(emitted),
+              "L5: the failed interval is skipped, the next one emits")
+        check(m["commitment.sign-fail"]["count"] == 1
+              and m["fault.injected.commitment.sign-fail"]["count"] == 1,
+              "L5: the meter counts 1")
+        check(rec.dumps == dumps + 1
+              and "checkpoint-sign-fail" in rec.last_path,
+              "L5: the flight recorder dumped checkpoint-sign-fail")
+        with open(rec.last_path) as fh:
+            check(json.load(fh)["extra"]["ledger_seq"] == skipped,
+                  "L5: the dump names the skipped ledger")
+        check(eng.root == twin.root, "L5: roots still equal")
+        log("L5 commitment.sign-fail: checkpoint at ledger %d skipped, "
+            "meter 1, flight dump %s, checkpoint at %d emitted"
+            % (skipped, os.path.basename(rec.last_path), emitted))
+        mgr.shutdown()
+    return out
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1988,7 +2545,7 @@ def smoke(torch, args, flight_dir: str) -> int:
     log("flush latency, 128 bucket, %d bursts of %d-%d: p50 %.3f ms, "
         "p99 %.3f ms (p99 of %d samples is their maximum)"
         % (BURSTS, BURST_MIN, BURST_MAX, float(np.percentile(lat, 50)),
-           float(np.percentile(lat, 99)), len(lat)))
+           p99(lat), len(lat)))
     log("main path kernel launches: ed25519_verify %d" % launches)
 
     # --- the drain again, from an empty cache, under the profiler ----------
@@ -2018,6 +2575,10 @@ def smoke(torch, args, flight_dir: str) -> int:
                       flight_dir, card)
     hash_breaker_phase(S, E, SC, rng, flight_dir)
 
+    # --- the ledger: bucket list and state commitment over 2^20 entries ---
+    ledger = ledger_path(S, E, rng, flight_dir, card)
+    ledger_launches = sum(ledger["launches"].values())
+
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
     main_f = fleet["shard"][DRAIN_CHUNK]
@@ -2035,7 +2596,9 @@ def smoke(torch, args, flight_dir: str) -> int:
         "name": "sha256", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/sha256.cu",
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
-        "launches": hash_launches,
+        "launches": hash_launches + ledger_launches,
+        "launches_by_path": {"hash main path": hash_launches,
+                             **ledger["launches"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

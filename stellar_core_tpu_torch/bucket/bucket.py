@@ -1,0 +1,320 @@
+"""Bucket: an immutable, content-addressed, sorted file of ledger entries.
+
+Copied from `stellar_core_tpu/bucket/bucket.py` at commit 637fb91; carry a
+fix in either copy to the other.
+
+Role parity: reference `src/bucket/Bucket.{h,cpp}` — a bucket is a sorted
+run of BucketEntry records (META first, then LIVE/INIT/DEAD by entry
+identity) whose SHA256 over the file bytes is its name; `fresh()` builds
+one from a ledger close's delta (Bucket.cpp:136-167) and `merge()` combines
+an older and newer bucket under the protocol-versioned INITENTRY/shadow
+rules (Bucket.cpp:455-638).
+
+Buckets persist in the reference's on-disk format: RFC 5531 record-marked
+XDR stream (util/xdrstream framing), so history archives interop with the
+same byte layout the hash chain commits to.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+from ..util.xdrstream import XDRInputFileStream, XDROutputFileStream
+from ..xdr import (
+    BucketEntry, BucketEntryType, LedgerEntry, LedgerKey, ledger_entry_key,
+    ledger_key_sort_key,
+)
+
+# Protocol feature gates (reference src/bucket/Bucket.h:40-46).
+FIRST_PROTOCOL_SUPPORTING_INITENTRY_AND_METAENTRY = 11
+FIRST_PROTOCOL_SHADOWS_REMOVED = 12
+
+_META = BucketEntryType.METAENTRY
+_LIVE = BucketEntryType.LIVEENTRY
+_DEAD = BucketEntryType.DEADENTRY
+_INIT = BucketEntryType.INITENTRY
+
+
+def bucket_entry_sort_key(e: BucketEntry):
+    """Reference BucketEntryIdCmp (src/bucket/LedgerCmp.h:90-140):
+    METAENTRY below everything, others ordered by ledger-entry identity
+    (LIVE/INIT expose liveEntry.data, DEAD exposes deadEntry)."""
+    t = e.disc
+    if t == _META:
+        return ((-1,),)
+    if t in (_LIVE, _INIT):
+        return (ledger_key_sort_key(ledger_entry_key(e.value)),)
+    if t == _DEAD:
+        return (ledger_key_sort_key(e.value),)
+    raise ValueError("malformed bucket entry type %d" % t)
+
+
+def check_protocol_legality(e: BucketEntry, protocol_version: int) -> None:
+    """INIT/META entries are illegal below protocol 11
+    (reference Bucket.cpp:190-200)."""
+    if protocol_version < FIRST_PROTOCOL_SUPPORTING_INITENTRY_AND_METAENTRY \
+            and e.disc in (_INIT, _META):
+        raise ValueError(
+            "unsupported entry type %d in protocol %d bucket"
+            % (e.disc, protocol_version))
+
+
+class Bucket:
+    """An immutable sorted entry run. Empty buckets have the zero hash and
+    no backing file (reference Bucket() default ctor)."""
+
+    __slots__ = ("_entries", "_hash", "path")
+
+    def __init__(self, entries: Sequence[BucketEntry] = (),
+                 hash_: Optional[bytes] = None,
+                 path: Optional[str] = None) -> None:
+        self._entries: Tuple[BucketEntry, ...] = tuple(entries)
+        if hash_ is None:
+            hash_ = _hash_entries(self._entries)
+        self._hash = hash_
+        self.path = path
+
+    # -- identity ------------------------------------------------------------
+    def get_hash(self) -> bytes:
+        return self._hash
+
+    def is_empty(self) -> bool:
+        return not self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def entries(self) -> Tuple[BucketEntry, ...]:
+        return self._entries
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    # -- metadata ------------------------------------------------------------
+    def get_version(self) -> int:
+        """Protocol version from the META entry; 0 for empty/pre-11 buckets
+        (reference Bucket::getBucketVersion, Bucket.cpp:641-647)."""
+        if self._entries and self._entries[0].disc == _META:
+            return self._entries[0].value.ledgerVersion
+        return 0
+
+    def payload_entries(self) -> Tuple[BucketEntry, ...]:
+        """Entries excluding the leading META (what input iterators yield)."""
+        if self._entries and self._entries[0].disc == _META:
+            return self._entries[1:]
+        return self._entries
+
+    # -- persistence ---------------------------------------------------------
+    def write_to(self, path: str) -> None:
+        # the memoized framed records the hash already serialized —
+        # a bucket file write never re-serializes its entries
+        with XDROutputFileStream(path) as out:
+            for e in self._entries:
+                out.write_record(entry_record(e))
+        self.path = path
+
+    @classmethod
+    def read_from(cls, path: str) -> "Bucket":
+        with XDRInputFileStream(path) as ins:
+            entries = list(ins.read_all(BucketEntry))
+        return cls(entries, path=path)
+
+    # -- constructors --------------------------------------------------------
+    @classmethod
+    def fresh(cls, protocol_version: int,
+              init_entries: Iterable[LedgerEntry],
+              live_entries: Iterable[LedgerEntry],
+              dead_entries: Iterable[LedgerKey]) -> "Bucket":
+        """Build a level-0 batch bucket from one ledger close's delta
+        (reference Bucket::fresh, Bucket.cpp:136-167). Below protocol 11,
+        inits demote to LIVE and no META entry is written."""
+        use_init = (protocol_version >=
+                    FIRST_PROTOCOL_SUPPORTING_INITENTRY_AND_METAENTRY)
+        entries: List[BucketEntry] = []
+        for e in init_entries:
+            entries.append(BucketEntry.init(e) if use_init
+                           else BucketEntry.live(e))
+        for e in live_entries:
+            entries.append(BucketEntry.live(e))
+        for k in dead_entries:
+            entries.append(BucketEntry.dead(k))
+        entries.sort(key=bucket_entry_sort_key)
+        for a, b in zip(entries, entries[1:]):
+            if bucket_entry_sort_key(a) == bucket_entry_sort_key(b):
+                raise ValueError("duplicate identity in fresh batch")
+        out = _OutputRun(keep_dead=True,
+                         meta_version=protocol_version if use_init else None)
+        for e in entries:
+            out.put(e)
+        return out.bucket()
+
+
+class _OutputRun:
+    """Sorted, deduplicating output accumulator (reference
+    BucketOutputIterator, BucketOutputIterator.cpp:65-108): later entries
+    with the same identity replace buffered ones; DEAD entries are elided
+    when keep_dead is false (oldest level); META goes first when the merge
+    protocol supports it."""
+
+    def __init__(self, keep_dead: bool, meta_version: Optional[int]) -> None:
+        self._entries: List[BucketEntry] = []
+        self._buf: Optional[BucketEntry] = None
+        self._buf_key = None
+        self._keep_dead = keep_dead
+        self._meta_version = meta_version
+        self._put_meta = meta_version is not None
+
+    def put(self, e: BucketEntry, k=None) -> None:
+        if not self._keep_dead and e.disc == _DEAD:
+            return
+        if k is None:
+            k = bucket_entry_sort_key(e)
+        if self._buf is not None:
+            assert not (k < self._buf_key), "entries out of order"
+            if self._buf_key < k:
+                self._entries.append(self._buf)
+        self._buf = e
+        self._buf_key = k
+
+    def bucket(self) -> Bucket:
+        if self._buf is not None:
+            self._entries.append(self._buf)
+            self._buf = None
+        if not self._entries:
+            return Bucket()          # empty output drops the meta too
+        entries = self._entries
+        if self._put_meta:
+            entries = [BucketEntry.meta(self._meta_version)] + entries
+        return Bucket(entries)
+
+
+def merge_buckets(old_bucket: Bucket, new_bucket: Bucket,
+                  shadows: Sequence[Bucket] = (),
+                  keep_dead_entries: bool = True,
+                  max_protocol_version: int = 0xFFFFFFFF) -> Bucket:
+    """Merge an older and a newer bucket into one (reference Bucket::merge,
+    Bucket.cpp:599-638 + mergeCasesWithEqualKeys :460-597 + maybePut
+    :203-275).
+
+    Same-key lifecycle table (protocol >= 11):
+        old DEAD + new INIT=x -> LIVE=x
+        old INIT + new LIVE=y -> INIT=y
+        old INIT + new DEAD   -> (annihilate)
+        otherwise             -> newer wins
+    Shadow elision only below protocol 12; below 11 it elides every shadowed
+    entry, at 11 it keeps INIT/DEAD lifecycle entries.
+    """
+    protocol_version = max(old_bucket.get_version(), new_bucket.get_version())
+    for s in shadows:
+        v = s.get_version()
+        if v < FIRST_PROTOCOL_SHADOWS_REMOVED:
+            protocol_version = max(protocol_version, v)
+    if protocol_version > max_protocol_version:
+        raise ValueError("bucket protocol %d exceeds max %d"
+                         % (protocol_version, max_protocol_version))
+
+    keep_shadowed_lifecycle = (
+        protocol_version >= FIRST_PROTOCOL_SUPPORTING_INITENTRY_AND_METAENTRY)
+    if protocol_version >= FIRST_PROTOCOL_SHADOWS_REMOVED:
+        shadow_runs: List[Tuple[BucketEntry, ...]] = []
+    else:
+        shadow_runs = [s.payload_entries() for s in shadows]
+
+    put_meta = (protocol_version >=
+                FIRST_PROTOCOL_SUPPORTING_INITENTRY_AND_METAENTRY)
+    out = _OutputRun(keep_dead=keep_dead_entries,
+                     meta_version=protocol_version if put_meta else None)
+    # precompute sort keys once per entry; comparisons dominate the merge
+    shadow_keys = [[bucket_entry_sort_key(e) for e in run]
+                   for run in shadow_runs]
+    shadow_pos = [0] * len(shadow_runs)
+
+    def maybe_put(e: BucketEntry, ek) -> None:
+        if keep_shadowed_lifecycle and e.disc in (_INIT, _DEAD):
+            out.put(e, ek)
+            return
+        for i, keys in enumerate(shadow_keys):
+            p = shadow_pos[i]
+            while p < len(keys) and keys[p] < ek:
+                p += 1
+            shadow_pos[i] = p
+            if p < len(keys) and not (ek < keys[p]):
+                return               # shadowed: elide
+        out.put(e, ek)
+
+    oe = old_bucket.payload_entries()
+    ne = new_bucket.payload_entries()
+    ok = [bucket_entry_sort_key(e) for e in oe]
+    nk = [bucket_entry_sort_key(e) for e in ne]
+    i = j = 0
+    while i < len(oe) or j < len(ne):
+        if j >= len(ne) or (i < len(oe) and ok[i] < nk[j]):
+            check_protocol_legality(oe[i], protocol_version)
+            maybe_put(oe[i], ok[i])
+            i += 1
+            continue
+        if i >= len(oe) or nk[j] < ok[i]:
+            check_protocol_legality(ne[j], protocol_version)
+            maybe_put(ne[j], nk[j])
+            j += 1
+            continue
+        # equal identity: lifecycle merge
+        o, n = oe[i], ne[j]
+        check_protocol_legality(o, protocol_version)
+        check_protocol_legality(n, protocol_version)
+        if n.disc == _INIT:
+            if o.disc != _DEAD:
+                raise ValueError("malformed bucket: old non-DEAD + new INIT")
+            maybe_put(BucketEntry.live(n.value), nk[j])
+        elif o.disc == _INIT:
+            if n.disc == _LIVE:
+                maybe_put(BucketEntry.init(n.value), nk[j])
+            elif n.disc == _DEAD:
+                pass                 # create+delete annihilate
+            else:
+                raise ValueError("malformed bucket: old INIT + new non-DEAD")
+        else:
+            maybe_put(n, nk[j])
+        i += 1
+        j += 1
+
+    return out.bucket()
+
+
+def entry_record(e: BucketEntry) -> bytes:
+    """One entry's on-disk framed record (RFC 5531 mark + XDR body),
+    MEMOIZED on the entry object. Bucket entries are immutable
+    snapshots by construction (the ledgertxn layer hands the close
+    delta out as structural copies, and buckets never mutate their
+    entries), so one serialization serves the bucket's identity hash,
+    its file write, AND every later merge that re-hashes the same
+    entry objects into a new bucket — the `bucket add` close phase."""
+    rec = e.__dict__.get("_sct_rec")
+    if rec is None:
+        from ..util.xdrstream import frame_record
+        rec = frame_record(e.to_xdr())
+        e.__dict__["_sct_rec"] = rec
+    return rec
+
+
+def entry_record_chunks(entries: Sequence[BucketEntry]):
+    """The bucket's on-disk byte stream as chunks — the exact bytes
+    XDROutputFileStream writes, so the stream digest IS the file
+    identity."""
+    for e in entries:
+        yield entry_record(e)
+
+
+def _hash_entries(entries: Sequence[BucketEntry]) -> bytes:
+    """Hash over the serialized stream exactly as it sits on disk
+    (reference hashes the XDR file bytes including record marks via
+    SHA256 in XDROutputFileStream::writeOne). Routed through the
+    port's bounded-join stream digest: one C-level hashlib update
+    per ~1 MiB group, over memoized per-entry records — registry-free
+    (merge worker threads call this)."""
+    if not entries:
+        return b"\x00" * 32
+    from ..crypto.batch_hasher import stream_digest
+    return stream_digest(entry_record_chunks(entries))

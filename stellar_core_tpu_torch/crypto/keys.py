@@ -8,8 +8,12 @@ verify-result cache that sits in front of every batch backend.
 
 CPU crypto is the native C library (native/ed25519c.c) where a C compiler
 exists and the pure-Python RFC 8032 code (crypto/fallback.py) elsewhere:
-identical accept/reject decisions either way. Keys are raw 32-byte values;
-the XDR `PublicKey` type arrives with a later slice of the port.
+identical accept/reject decisions either way. Keys are raw 32-byte values:
+`SecretKey.public_key` returns the raw key, not the reference's XDR
+`PublicKey`, and its callers rely on that. `PubKeyUtils.verify_sig`
+(copied from the reference at commit 89bbd6f) is the one entry that takes
+an XDR `PublicKey`, for the state commitment's light clients; it reads
+the key's `key_bytes` and goes through the same cached `verify_sig`.
 """
 
 from __future__ import annotations
@@ -82,6 +86,14 @@ def verify_sig(key32: bytes, sig: bytes, msg: bytes) -> bool:
     with _cache_lock:
         _verify_cache.put(ck, ok)
     return ok
+
+
+class PubKeyUtils:
+    @staticmethod
+    def verify_sig(key, sig: bytes, msg: bytes) -> bool:
+        """Cached verify of an XDR `PublicKey`'s signature (reference
+        SecretKey.cpp:310-337)."""
+        return verify_sig(key.key_bytes, sig, msg)
 
 
 class SecretKey:

@@ -1,0 +1,71 @@
+"""StrKey: human-readable base32 key encoding with version byte + CRC16.
+
+Copied from `stellar_core_tpu/crypto/strkey.py` at commit a7226ae; carry a
+fix in either copy to the other.
+
+Role parity: reference `src/crypto/StrKey.cpp` (G... account IDs, S... seeds,
+T/X... pre-auth/hash-x signers).
+"""
+
+from __future__ import annotations
+
+import base64
+import struct
+
+
+class StrKeyVersion:
+    PUBKEY = 6 << 3       # 'G'
+    SEED = 18 << 3        # 'S'
+    PRE_AUTH_TX = 19 << 3  # 'T'
+    HASH_X = 23 << 3      # 'X'
+
+
+def _crc16_xmodem(data: bytes) -> int:
+    crc = 0
+    for byte in data:
+        crc ^= byte << 8
+        for _ in range(8):
+            crc = ((crc << 1) ^ 0x1021) if crc & 0x8000 else (crc << 1)
+            crc &= 0xFFFF
+    return crc
+
+
+def encode(version: int, payload: bytes) -> str:
+    body = bytes([version]) + payload
+    chk = struct.pack("<H", _crc16_xmodem(body))
+    return base64.b32encode(body + chk).decode("ascii").rstrip("=")
+
+
+def decode(version: int, s: str) -> bytes:
+    pad = "=" * ((8 - len(s) % 8) % 8)
+    raw = base64.b32decode(s + pad)
+    if len(raw) < 3:
+        raise ValueError("strkey too short")
+    body, chk = raw[:-2], raw[-2:]
+    if struct.pack("<H", _crc16_xmodem(body)) != chk:
+        raise ValueError("strkey checksum mismatch")
+    if body[0] != version:
+        raise ValueError("strkey wrong version byte")
+    return body[1:]
+
+
+def encode_public_key(raw32: bytes) -> str:
+    return encode(StrKeyVersion.PUBKEY, raw32)
+
+
+def decode_public_key(s: str) -> bytes:
+    v = decode(StrKeyVersion.PUBKEY, s)
+    if len(v) != 32:
+        raise ValueError("bad public key length")
+    return v
+
+
+def encode_seed(raw32: bytes) -> str:
+    return encode(StrKeyVersion.SEED, raw32)
+
+
+def decode_seed(s: str) -> bytes:
+    v = decode(StrKeyVersion.SEED, s)
+    if len(v) != 32:
+        raise ValueError("bad seed length")
+    return v

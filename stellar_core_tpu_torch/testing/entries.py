@@ -1,12 +1,15 @@
 """Bucket entries as the state commitment hashes them, for drains at scale.
 
-The port has no XDR layer yet, so this module writes the XDR of a
-protocol-13 `BucketEntry` (LIVEENTRY) for the four ledger entry kinds with
-a small hand-written encoder (RFC 4506: big-endian 4-byte words, strings
-and opaques padded to 4 bytes). The layouts follow
-`stellar_core_tpu/xdr/ledger_entries.py` and `xdr/ledger.py` at commit
-ada2c73; `tests/test_torch_state_commitment.py` holds every body here
-against that codec byte for byte.
+This module writes the XDR of a protocol-13 `BucketEntry` (LIVEENTRY) for
+the four ledger entry kinds with a small hand-written encoder (RFC 4506:
+big-endian 4-byte words, strings and opaques padded to 4 bytes), which
+fills a million bodies from numpy arrays in well under a second. The
+layouts follow `stellar_core_tpu/xdr/ledger_entries.py` and `xdr/ledger.py`
+at commit ada2c73; `tests/test_torch_state_commitment.py` holds every body
+here byte for byte against that codec and against the port's copy of it
+(`stellar_core_tpu_torch.xdr`). `bucket_entries` turns bodies into the
+port's `BucketEntry` objects through that copy, and `canonical_order`
+sorts bodies into a bucket's entry order without decoding them.
 
 Scalar fields are fixed values (below); every 32-byte key field (account
 IDs, issuers, signer keys, the data value) is a slot that the bulk
@@ -25,6 +28,8 @@ import struct
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from ..xdr import BucketEntry
 
 LIVEENTRY = 0
 ACCOUNT, TRUSTLINE, OFFER, DATA = 0, 1, 2, 3
@@ -187,3 +192,31 @@ def entry_records(rng: np.random.Generator, n: int) -> List[bytes]:
             for j, i in enumerate(idx.tolist()):
                 out[i] = blob[j * size:(j + 1) * size]
     return out
+
+
+# A body's identity prefix: the LedgerEntryData discriminant (the entry
+# type) and the first field of every kind, its account ID as XDR (4-byte
+# key type + 32 bytes). With distinct account IDs the bucket order
+# (bucket.bucket_entry_sort_key: type, then account ID, then the kind's
+# other fields) is the byte order of this prefix.
+ID_START, ID_END = 8, 48
+
+
+def canonical_order(records: Sequence[bytes]) -> np.ndarray:
+    """Indices that put `records` (bodies of this module) in the bucket
+    list's canonical entry order, by one numpy sort of their identity
+    prefixes. Raises ValueError if two bodies share an account ID within
+    one type (then the prefix does not decide the order)."""
+    ids = np.frombuffer(b"".join(r[ID_START:ID_END] for r in records),
+                        dtype="S%d" % (ID_END - ID_START))
+    order = np.argsort(ids, kind="stable")
+    s = ids[order]
+    if len(s) > 1 and bool((s[1:] == s[:-1]).any()):
+        raise ValueError("two entries share a type and an account ID")
+    return order
+
+
+def bucket_entries(records: Sequence[bytes]) -> list:
+    """The port's `BucketEntry` objects of these bodies, each decoded by
+    the port's XDR codec."""
+    return [BucketEntry.from_xdr(r) for r in records]

@@ -1,24 +1,35 @@
-"""Named locks and the registry of worker threads.
+"""Named locks, the registry of worker threads and the main-thread guard.
 
 Copied (`TrackedLock`, `WORKER_THREAD_REGISTRY`, `spawn_worker`) from
 `stellar_core_tpu/util/threads.py` at commit 02ed56d (the
 `crypto.verify-dispatch` entry at a29fd1b, the `crypto.hash-*` entries
-at abe2377); carry a fix in
-either copy to the other. The reference's lock-order checker and
-main-thread affinity asserts are armed only by the node stack (its
-consensus thread), which the port does not have yet; here a `TrackedLock`
-is a `threading.Lock` that carries its name, so the lock graph reads the
-same once the checker arrives.
+at abe2377; `main_thread_only`, `assert_main_thread`, `arm`, `disarm` and
+`ThreadDisciplineError` at 89bbd6f); carry a fix in
+either copy to the other. The reference's lock-order checker is armed
+only by the node stack (its consensus thread), which the port does not
+have yet; here a `TrackedLock` is a `threading.Lock` that carries its
+name, so the lock graph reads the same once the checker arrives.
 
 - `WORKER_THREAD_REGISTRY` + `spawn_worker(name, target)`: every worker
   the port starts is spawned through one factory under a registered
   name, so the set of threads that may exist is a reviewable list.
+- `@main_thread_only` marks a ledger mutation entry point (the bucket
+  manager's `add_batch`): it registers the function's qualname and, once
+  `arm()` has bound a main thread, raises `ThreadDisciplineError` when
+  another thread calls it. Unarmed it only forwards the call.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
+
+_armed = False
+_main_thread: Optional[threading.Thread] = None
+
+# qualname -> module of every @main_thread_only function
+MAIN_THREAD_REGISTRY: Dict[str, str] = {}
 
 # name -> description of every worker thread the port may start
 WORKER_THREAD_REGISTRY: Dict[str, str] = {
@@ -86,3 +97,49 @@ class TrackedLock:
 
     def __exit__(self, *exc) -> None:
         self.release()
+
+
+class ThreadDisciplineError(AssertionError):
+    """A worker thread called a main-thread-only entry point."""
+
+
+def arm(main_thread: Optional[threading.Thread] = None) -> None:
+    """Enable the affinity checks; binds `main_thread` (default: the
+    calling thread) as THE consensus thread. Re-arming rebinds."""
+    global _armed, _main_thread
+    _main_thread = main_thread or threading.current_thread()
+    _armed = True
+
+
+def disarm() -> None:
+    global _armed, _main_thread
+    _armed = False
+    _main_thread = None
+
+
+def assert_main_thread(what: str = "") -> None:
+    """Raise unless the caller is the bound main thread (no-op until
+    armed). Mirrors reference `releaseAssert(threadIsMain())`."""
+    if not _armed:
+        return
+    cur = threading.current_thread()
+    if cur is not _main_thread:
+        raise ThreadDisciplineError(
+            "%s called from thread %r; ledger/consensus state may only "
+            "be touched from the main thread %r (use clock.post_to_main)"
+            % (what or "main-thread-only code", cur.name,
+               _main_thread.name if _main_thread else "<unbound>"))
+
+
+def main_thread_only(fn: Callable) -> Callable:
+    """Mark + guard a consensus/ledger mutation entry point."""
+    MAIN_THREAD_REGISTRY[fn.__qualname__] = fn.__module__
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _armed and threading.current_thread() is not _main_thread:
+            assert_main_thread(fn.__qualname__)
+        return fn(*args, **kwargs)
+
+    wrapper.__sct_main_thread_only__ = True
+    return wrapper

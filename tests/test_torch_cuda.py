@@ -29,7 +29,11 @@ through `make_verifier("cuda-async")` must launch once and complete every
 future from the card; `make_verifier("cuda-resilient")` with
 `device.dispatch` firing must raise, trip, refuse drains while open
 (no launch, no CPU verify) and re-close on the half-open probe, which
-launches the kernel. Tolerance: none.
+launches the kernel. The state commitment engine over the card's hasher
+must give the `hashlib` twin's root on every close of a churned bucket
+list (40 closes of entries in the testing/entries.py mix, with updates
+and tombstones), `from_scratch_root` on the last, and the twin's proofs.
+Tolerance: none.
 """
 
 import numpy as np
@@ -434,3 +438,50 @@ def test_hash_faults_raise_on_the_card(card):
     clock.set_virtual_time(31.0)
     assert r.hash_many(msgs) == want
     assert S.LAUNCHES == before + 1 and r.breaker.state == "closed"
+
+
+def test_state_commitment_on_the_card(card):
+    from types import SimpleNamespace
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.bucket import BucketManager
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.testing.entries import bucket_entries
+    rng = np.random.default_rng(17)
+    mgr = BucketManager(background_merges=False)
+    cfg = SimpleNamespace(NODE_SEED=SecretKey(b"\x07" * 32),
+                          network_id=b"\x4e" * 32,
+                          STATE_CHECKPOINT_INTERVAL=8)
+    eng = SC.StateCommitmentEngine(SimpleNamespace(
+        batch_hasher=make_hasher("cuda"), config=cfg, metrics=None))
+    twin = SC.StateCommitmentEngine(SimpleNamespace(
+        batch_hasher=make_hasher("cpu"), config=cfg, metrics=None))
+    live = []
+    S.LAUNCHES = 0
+    for seq in range(1, 41):
+        inits = [b.value for b in bucket_entries(entry_records(rng, 60))]
+        pick = rng.choice(len(live), min(len(live), 30),
+                          replace=False).tolist() if live else []
+        ups = []
+        for i in pick[:25]:
+            e = X.LedgerEntry.from_xdr(live[i].to_xdr())
+            e.lastModifiedLedgerSeq = seq
+            live[i] = e
+            ups.append(e)
+        deads = []
+        for i in sorted(pick[25:], reverse=True):
+            deads.append(X.ledger_entry_key(live.pop(i)))
+        live += inits
+        mgr.add_batch(seq, 13, inits, ups, deads)
+        hh = bytes([seq]) * 32
+        cp, tcp = eng.on_close(mgr.bucket_list, seq, hh), \
+            twin.on_close(mgr.bucket_list, seq, hh)
+        assert eng.root == twin.root, seq
+        assert (cp and cp.to_json()) == (tcp and tcp.to_json())
+    assert S.LAUNCHES > 0
+    assert eng.root == eng.from_scratch_root(mgr.bucket_list)
+    for e in live[::97]:
+        key = X.ledger_entry_key(e)
+        proof = eng.prove_entry(key)
+        assert proof is not None and proof == twin.prove_entry(key)
+        assert SC.light_client_verify(proof, eng.checkpoint(),
+                                      b"\x4e" * 32) == (True, "ok")

@@ -45,7 +45,13 @@ def test_port_modules_import_no_jax():
               "crypto.batch_hasher", "ledger.state_commitment",
               "testing.entries", "parallel.mesh", "util.metrics",
               "util.tracing", "util.threads", "util.timer", "util.faults",
-              "native", "crypto.batch_verifier"):
+              "native", "crypto.batch_verifier", "util.log",
+              "util.xdrstream", "util.tmpdir", "crypto.strkey",
+              "crypto.keys", "xdr", "xdr.codec", "xdr.fastcodec",
+              "xdr.basic", "xdr.ledger_entries", "xdr.transaction",
+              "xdr.scp", "xdr.ledger", "xdr.overlay", "bucket",
+              "bucket.bucket", "bucket.bucket_list",
+              "bucket.bucket_manager"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
