@@ -7,7 +7,8 @@ one NVIDIA GPU.
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout (one nvcc per source, all started together), then
-drives three paths and the ledger that runs on the hash path.
+drives three paths, the ledger that runs on the hash path, and the
+ledger manager's close that runs on both.
 
 The verify path (`ed25519_verify`):
 
@@ -205,6 +206,47 @@ L5. fires `commitment.sign-fail` once over 16 more closes: that
    1, the flight recorder dumps `checkpoint-sign-fail`, and the next
    interval emits. Times nothing.
 
+The close (the port's LedgerTxn, transactions layer, TxSetFrame and
+LedgerManager over both paths), each phase driven with the counts set to
+0 just before it and read just after. The card's LedgerManager closes
+through `make_verifier("cuda-resilient")` and `make_hasher(
+"cuda-resilient")` (no fallback), with a real Tracer, FlightRecorder and
+metrics; a CPU twin (`CpuSigVerifier`, the hashlib hasher, the in-memory
+root) closes the same values. Each side validates from an empty verify
+cache (the process has one), so neither reads the other's decisions:
+
+C1. restores a state of CLOSE_STATE entries of the same mix (every offer
+   with an ID of its own) plus the network root account: buckets written
+   and adopted as in L1, `assume_state` at LEDGER_START, then
+   `apply_buckets` into a `LedgerTxnRoot` over sqlite `:memory:` (the
+   twin: its own list over the same buckets, the in-memory root) and
+   `set_last_closed_ledger` on a header that commits to the list. The
+   commitment's first root follows, one launch per planned chunk. Prints
+   the restore's seconds split into generation, buckets and apply;
+C2. three closes build the senders as `replay_bench` does: the root
+   creates 200 in two 100-operation transactions, then one close arms
+   them (senders 0-99: 19 more signers and a medium threshold of 20;
+   100-199: one more signer and 2);
+C3. 64 closes of 100 payments, each signed by 20 keys, every 7th with one
+   signature corrupted, each run as a node runs it:
+   `TxSetFrame.trim_invalid` (the herder's call), a StellarValue over the
+   trimmed set, `LedgerManager.value_externalized`. Checks: the trimmed
+   transactions are the corrupted ones on both sides; one verify launch
+   per validation (one prewarm of 2,000 triples at the 2,048 bucket) and
+   none in a close; SHA-256 launches per close as derived from the bucket
+   list alone (L3's rule); lcl_hash, every result pair, the bucket-list
+   hash and the commitment root equal to the twin's after every close.
+   Prints validation p50/p99 and sigs/s, `ledger.ledger.close` p50/p99,
+   the close's spans per close, and the card's busy share from a replay
+   of the validations' prewarm drains with only CUDA activity profiled;
+C4. 32 closes of 100 two-signature payments between disjoint partner
+   pairs (the standard mix's payments), with the same checks and prints;
+C5. a cold close: one C3-shaped set validated on the card, the verify
+   cache flushed, then closed, so each transaction's first signature
+   check launches the kernel: the launches equal the transactions left
+   after trimming, decisions and lcl_hash equal the twin's, and the root
+   equals `from_scratch_root`. Prints the close's time beside C3's.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -214,8 +256,10 @@ the toolkit has it) and, for the SHA-256 kernel, each warp role's loop
 per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
-`{"kernels": [...]}` line (three entries; the sha256 entry's launches are
-the hash main path's and L2-L4's, `launches_by_path`) and, last,
+`{"kernels": [...]}` line (three entries; the ed25519_verify entry's
+launches are the verify main path's and C2-C5's, the sha256 entry's the
+hash main path's, L2-L4's and C1-C5's, each split in `launches_by_path`)
+and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
 """
@@ -334,6 +378,21 @@ LEDGER_PROTOCOL = 13
 CHECKPOINT_EVERY = 8
 LEDGER_NETWORK_ID = hashlib.sha256(
     b"Test SDF Network ; September 2015").digest()
+# the close phases (C1-C5): a state of CLOSE_STATE entries of the same mix
+# plus the network root account, restored at LEDGER_START through the
+# bucket applicator (2^18: at 2^19 C1 took 95.0 s on an H100's host, over
+# the 90 s a restore is given here); CLOSE_SENDERS senders, the first
+# CLOSE_TXS with CLOSE_SIGS signatures a payment (replay_bench's
+# txs_per_ledger=100, sigs_per_tx=20, bench.py:339-341), the rest with 2;
+# C3_CLOSES closes of the multisig mix, C4_CLOSES of the standard mix's
+# payments; every CLOSE_CORRUPT_EVERY-th payment carries a corrupted
+# signature.
+CLOSE_STATE = 1 << 18
+GENESIS_TOTAL_COINS = 10 ** 17
+CLOSE_MAX_TX_SET_SIZE = 10_000
+CLOSE_SENDERS, CLOSE_TXS, CLOSE_SIGS = 200, 100, 20
+C3_CLOSES, C4_CLOSES = 64, 32
+CLOSE_CORRUPT_EVERY = 7
 
 
 def p99(samples) -> float:
@@ -378,7 +437,7 @@ def make_corpus(rng: np.random.Generator, n: int, keys: list) -> tuple:
         bad = i % CORRUPT_EVERY == CORRUPT_EVERY - 1
         if bad:
             sig[flips[i] // 8] ^= 1 << (flips[i] % 8)
-        triples.append((sk.public_key, bytes(sig), msg))
+        triples.append((sk.public_key.key_bytes, bytes(sig), msg))
         expect.append(not bad)
     return triples, expect
 
@@ -1431,6 +1490,7 @@ def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
     the node's loop) until every future completes: one launch a burst,
     every decision right, none verified on the CPU, no failed or requeued
     dispatch, the breaker closed."""
+    from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.util.metrics import Histogram, MetricsRegistry
     from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
     K.flush_verify_cache()
@@ -1445,7 +1505,8 @@ def async_scp_phase(BV, K, E, S, rng, pool: list, want: list) -> dict:
         burst, exp = pool[pos:pos + n], want[pos:pos + n]
         pos += n
         before = E.LAUNCHES
-        futs = [v.enqueue(*t) for t in burst]
+        futs = [v.enqueue(X.PublicKey.ed25519(k), sg, m)
+                for (k, sg, m) in burst]
         check(v.pending() == n, "async burst queued")
         t0 = time.perf_counter()
         v.flush()
@@ -1899,13 +1960,16 @@ def slots_view(slots: list):
                                    for c, s in zip(slots[::2], slots[1::2])])
 
 
-def ledger_state(rng, bucket_dir: str, card: str) -> dict:
-    """L1: LEDGER_STATE live entries of the testing/entries.py mix as the
+def ledger_state(rng, bucket_dir: str, card: str, n: int = LEDGER_STATE,
+                 extra=(), phase: str = "L1") -> dict:
+    """L1 (and C1): `n` live entries of the testing/entries.py mix as the
     port's BucketEntry objects, in canonical order (one numpy sort of the
     bodies' identity prefixes), split into the deep levels' curr buckets
     (DEEP_LEVEL_ENTRIES, the rest in level 10), adopted through a
     BucketManager with background merges over `bucket_dir`, then restored
-    with assume_state at LEDGER_START."""
+    with assume_state at LEDGER_START. Every offer has an ID of its own
+    (C1's SQL root keys offers by ID alone); the LedgerEntry objects of
+    `extra` join level 4's bucket."""
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.bucket import BucketManager, K_NUM_LEVELS
     from stellar_core_tpu_torch.bucket.bucket import (
@@ -1914,14 +1978,14 @@ def ledger_state(rng, bucket_dir: str, card: str) -> dict:
     from stellar_core_tpu_torch.testing import entries as TE
     zero = b"\x00" * 32
     t0 = time.perf_counter()
-    records = TE.entry_records(rng, LEDGER_STATE)
+    records = TE.unique_offer_ids(TE.entry_records(rng, n))
     order = TE.canonical_order(records)
-    level = np.full(LEDGER_STATE, K_NUM_LEVELS - 1)
-    pick = rng.permutation(LEDGER_STATE)
+    level = np.full(n, K_NUM_LEVELS - 1)
+    pick = rng.permutation(n)
     k = 0
-    for lv, n in sorted(DEEP_LEVEL_ENTRIES.items()):
-        level[pick[k:k + n]] = lv
-        k += n
+    for lv, m in sorted(DEEP_LEVEL_ENTRIES.items()):
+        level[pick[k:k + m]] = lv
+        k += m
     t_gen = time.perf_counter()
     mgr = BucketManager(bucket_dir, background_merges=True)
     hashes, live, by_level = [], [], {}
@@ -1933,14 +1997,17 @@ def ledger_state(rng, bucket_dir: str, card: str) -> dict:
             continue
         t1 = time.perf_counter()
         ents = TE.bucket_entries([records[i] for i in idx.tolist()])
+        if lv == 4 and extra:
+            ents = sorted(ents + [X.BucketEntry.live(e) for e in extra],
+                          key=bucket_entry_sort_key)
         t2 = time.perf_counter()
         b = mgr.adopt_bucket(Bucket([X.BucketEntry.meta(LEDGER_PROTOCOL)]
                                     + ents))
         t_hash += time.perf_counter() - t2
         t_decode += t2 - t1
         check(b.path is not None and os.path.exists(b.path),
-              "L1: level %d's bucket is written to the bucket directory"
-              % lv)
+              "%s: level %d's bucket is written to the bucket directory"
+              % (phase, lv))
         live.extend(e.value for e in ents)
         by_level[lv] = b
         hashes.append({"curr": b.get_hash(), "snap": zero})
@@ -1950,21 +2017,26 @@ def ledger_state(rng, bucket_dir: str, card: str) -> dict:
     bl = mgr.bucket_list
     check(all(lev.curr is by_level.get(i, lev.curr) and lev.snap.is_empty()
               and lev.next.is_clear() for i, lev in enumerate(bl.levels)),
-          "L1: assume_state restored every level, no merge to restart")
+          "%s: assume_state restored every level, no merge to restart"
+          % phase)
     check(sum(len(b.payload_entries()) for b in by_level.values())
-          == len(live) == LEDGER_STATE, "L1: %d live entries" % LEDGER_STATE)
+          == len(live) == n + len(extra), "%s: %d live entries"
+          % (phase, n + len(extra)))
     deep = by_level[K_NUM_LEVELS - 1].entries
     for i in rng.integers(1, len(deep) - 1, 2000).tolist():
         check(bucket_entry_sort_key(deep[i]) < bucket_entry_sort_key(
-            deep[i + 1]), "L1: the deep bucket is in canonical order")
-    log("L1 state (%s): %d live entries at ledger %d in %.1f s (generate + "
+            deep[i + 1]), "%s: the deep bucket is in canonical order" % phase)
+    log("%s state (%s): %d live entries at ledger %d in %.1f s (generate + "
         "sort %.1f s, decode %.1f s, bucket hash + file %.1f s); levels "
         "%s; level 10 holds %d; bucket-list hash %s"
-        % (card, LEDGER_STATE, LEDGER_START, setup_s, t_gen - t0, t_decode,
+        % (phase, card, n + len(extra), LEDGER_START, setup_s, t_gen - t0,
+           t_decode,
            t_hash, json.dumps({str(k): len(b) - 1
                                for k, b in sorted(by_level.items())}),
            len(deep) - 1, mgr.get_hash().hex()[:16]))
-    return {"mgr": mgr, "live": live, "deep": deep, "setup_s": setup_s}
+    return {"mgr": mgr, "live": live, "deep": deep, "setup_s": setup_s,
+            "generate_s": t_gen - t0, "decode_s": t_decode,
+            "bucket_s": t_hash}
 
 
 def ledger_close(X, S, SC, st: dict, seq: int, rng) -> dict:
@@ -2341,6 +2413,474 @@ def ledger_path(S, E, rng, flight_dir: str, card: str) -> dict:
         mgr.shutdown()
     return out
 
+
+# --- the close phases (C1-C5): LedgerManager closes over a restored state --
+
+def close_side(mgr, verifier, hasher, sql: bool, root_sk, node_seed,
+               metrics=None, tracer=None, recorder=None):
+    """A port LedgerManager over `mgr`, closing through `verifier` and
+    `hasher`, with its own StateCommitmentEngine, on a LedgerTxnRoot over
+    sqlite `:memory:` (`sql`) or the in-memory root."""
+    from types import SimpleNamespace
+    from stellar_core_tpu_torch.database.database import Database
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerManager
+    cfg = SimpleNamespace(
+        DATABASE="sqlite3://:memory:" if sql else "in-memory",
+        LEDGER_PROTOCOL_VERSION=LEDGER_PROTOCOL,
+        GENESIS_TOTAL_COINS=GENESIS_TOTAL_COINS,
+        TESTING_UPGRADE_DESIRED_FEE=100, TESTING_UPGRADE_RESERVE=5_000_000,
+        TESTING_UPGRADE_MAX_TX_SET_SIZE=CLOSE_MAX_TX_SET_SIZE,
+        network_id=LEDGER_NETWORK_ID, NODE_SEED=node_seed,
+        STATE_CHECKPOINT_INTERVAL=CHECKPOINT_EVERY)
+    app = SimpleNamespace(
+        config=cfg, network_root_key=lambda: root_sk, sig_verifier=verifier,
+        batch_hasher=hasher, bucket_manager=mgr,
+        database=Database() if sql else None, metrics=metrics,
+        tracer=tracer, flight_recorder=recorder)
+    app.state_commitment = SC.StateCommitmentEngine(app)
+    return LedgerManager(app)
+
+
+def fresh_slots(S, SC, st: dict, bl) -> int:
+    """SHA-256 launches the card's commitment owes for the list's current
+    slots: one per 4,096-lane chunk of the leaves of each bucket whose
+    hash changed since the previous close and was never seen before,
+    decided from the bucket list alone, as L3 decides them."""
+    slots = list_slots(bl)
+    fresh = {}
+    for prev, b in zip(st["slot_hashes"], slots):
+        bh = b.get_hash()
+        if bh == prev or bh == SC.ZERO_HASH or bh in st["seen"]:
+            continue
+        fresh[bh] = b
+    st["slot_hashes"] = [b.get_hash() for b in slots]
+    st["seen"].update(st["slot_hashes"])
+    return sum(bucket_launches(S, st["hasher"].inner, b)
+               for b in fresh.values())
+
+
+class GcPauses:
+    """Full (generation 2) collections of the cyclic garbage collector
+    while it is entered: their count and each one's ms, from
+    `gc.callbacks`."""
+
+    def __enter__(self):
+        import gc
+        self.ms, self._t0 = [], None
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._cb)
+        return False
+
+    def line(self) -> str:
+        return ("%d full collections, %.1f ms in all, the longest %.1f ms"
+                % (len(self.ms), sum(self.ms), max(self.ms, default=0.0)))
+
+
+def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
+                prewarm: bool = True) -> dict:
+    """One ledger on the card's LedgerManager and on its CPU twin, as a
+    node runs it: TxSetFrame.trim_invalid through the side's verifier
+    (the herder's call), a StellarValue over the trimmed set, then
+    value_externalized. Each side starts from an empty verify cache (they
+    share the process's). Without `prewarm` the cache is flushed again
+    between the card's validation and its close. Checks: the removed
+    transactions are the corrupted ones on both sides; the card's verify
+    launches are as derived from the set (one prewarm batch for two or
+    more transactions, else one per transaction, and none in the close,
+    or one per transaction in a cold close); its SHA-256 launches are as
+    derived from the bucket list; and lcl_hash, each result pair, the
+    bucket-list hash and the commitment root equal the twin's."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    out = {}
+    for side in ("card", "twin"):
+        lm = st[side]
+        frames = [TransactionFrame.make_from_wire(
+            LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(b))
+            for b in blobs]
+        ts = TxSetFrame(LEDGER_NETWORK_ID, lm.lcl_hash, frames)
+        K.flush_verify_cache()
+        e0 = E.LAUNCHES
+        t0 = time.perf_counter()
+        removed = ts.trim_invalid(lm.ltx_root(), lm.app.sig_verifier)
+        val_ms = (time.perf_counter() - t0) * 1e3
+        e_val = E.LAUNCHES - e0
+        if not prewarm:
+            K.flush_verify_cache()
+        header = lm.root.get_header()
+        seq = header.ledgerSeq + 1
+        value = X.StellarValue(
+            txSetHash=ts.get_contents_hash(hasher=lm.app.batch_hasher),
+            closeTime=header.scpValue.closeTime + 1,
+            upgrades=[], ext=X.StellarValueExt(0, None))
+        e0, s0 = E.LAUNCHES, S.LAUNCHES
+        t0 = time.perf_counter()
+        lm.value_externalized(LedgerCloseData(seq, ts, value))
+        close_ms = (time.perf_counter() - t0) * 1e3
+        check(lm.last_closed_ledger_num() == seq, "close %d applied" % seq)
+        applied = ts.sort_for_apply()
+        out[side] = {
+            "hashes": {f.contents_hash() for f in frames},
+            "removed": sorted(f.contents_hash() for f in removed),
+            "val_ms": val_ms, "close_ms": close_ms, "e_val": e_val,
+            "e_close": E.LAUNCHES - e0, "s_close": S.LAUNCHES - s0,
+            "lcl": lm.lcl_hash,
+            "results": [f.result_pair_xdr() for f in applied],
+            "bucket_list": lm.app.bucket_manager.get_hash(),
+            "root": lm.app.state_commitment.root, "txs": len(applied)}
+        if side == "card":
+            want_s = fresh_slots(S, SC, st, lm.app.bucket_manager.bucket_list)
+    card, twin = out["card"], out["twin"]
+    want_removed = sorted(card.pop("hashes") & corrupted)
+    check(card["removed"] == twin["removed"] == want_removed,
+          "close %d: the trimmed transactions are the %d corrupted ones"
+          % (seq, len(want_removed)))
+    n = len(blobs)
+    want_val = 1 if n > 1 else n
+    want_close = 0 if prewarm else n - len(want_removed)
+    check(card["e_val"] == want_val and card["e_close"] == want_close,
+          "close %d: verify launches %d in validation, %d in the close "
+          "(got %d, %d)" % (seq, want_val, want_close, card["e_val"],
+                            card["e_close"]))
+    check(card["s_close"] == want_s, "close %d: %d SHA-256 launches as "
+          "derived from the bucket list (got %d)"
+          % (seq, want_s, card["s_close"]))
+    check(twin["e_val"] == twin["e_close"] == twin["s_close"] == 0,
+          "close %d: the twin launched nothing" % seq)
+    for k in ("lcl", "results", "bucket_list", "root"):
+        check(card[k] == twin[k], "close %d: the card's %s == the twin's"
+              % (seq, k))
+    card["seq"] = seq
+    card["twin_val_ms"], card["twin_close_ms"] = twin["val_ms"], \
+        twin["close_ms"]
+    return card
+
+
+class CloseTraffic:
+    """The reference bench's senders (`replay_bench`, bench.py:339-468)
+    built with the port's TestAccount against the card side's state:
+    CLOSE_SENDERS senders, the first CLOSE_TXS armed with 19 extra signers
+    and a medium threshold of 20, the rest with one extra signer and a
+    threshold of 2. Every key comes from SecretKey.from_seed; every
+    CLOSE_CORRUPT_EVERY-th payment has one signature corrupted."""
+
+    def __init__(self, lm, root_sk):
+        from stellar_core_tpu_torch import testing as T
+        from stellar_core_tpu_torch.crypto.keys import SecretKey
+        from stellar_core_tpu_torch.xdr import LedgerKey
+
+        class Shim:
+            network_id = LEDGER_NETWORK_ID
+
+            def header(self):
+                return lm.root.get_header()
+
+            def seq_num(self, account_id):
+                e = lm.root.get_entry(LedgerKey.account(account_id))
+                return e.data.value.seqNum if e is not None else 0
+
+        shim = Shim()
+        self.root = T.TestAccount(shim, root_sk)
+        self.senders = [T.TestAccount(shim, SecretKey.from_seed(
+            bytes([7, i & 0xFF] + [11] * 30))) for i in range(CLOSE_SENDERS)]
+        self.extra = [[SecretKey.from_seed(bytes([201 + j, i & 0xFF]
+                                                 + [7] * 30))
+                       for j in range((CLOSE_SIGS if i < CLOSE_TXS else 2)
+                                      - 1)]
+                      for i in range(CLOSE_SENDERS)]
+        self.corrupted = set()
+        self.k = 0
+
+    def fund(self, lo: int) -> list:
+        r = self.root
+        return [r.tx([r.op_create_account(s.account_id, 10 ** 10)
+                      for s in self.senders[lo:lo + CLOSE_TXS]])
+                .envelope_bytes()]
+
+    def arm(self) -> list:
+        return [s.tx([s.op_add_signer(k.public_key.key_bytes) for k in ks]
+                     + [s.op_set_options(med=len(ks) + 1)]).envelope_bytes()
+                for s, ks in zip(self.senders, self.extra)]
+
+    def _signed(self, s, ks, dest, amount):
+        f = s.tx([s.op_payment(dest, amount)], extra_signers=ks)
+        self.k += 1
+        if self.k % CLOSE_CORRUPT_EVERY == 0:
+            ds = f.signatures[1 + self.k % len(ks)]
+            ds.signature = ds.signature[:9] + bytes(
+                [ds.signature[9] ^ 0x10]) + ds.signature[10:]
+            self.corrupted.add(f.contents_hash())
+        return f.envelope_bytes()
+
+    def multisig(self, rnd: int) -> list:
+        """CLOSE_TXS payments to the root, each signed by CLOSE_SIGS keys
+        (the multisig mix). The amount varies by round so that a trimmed
+        payment's successor, which reuses its sequence number, does not
+        reuse its contents hash."""
+        return [self._signed(s, self.extra[i], self.root.account_id,
+                             1000 + rnd)
+                for i, s in enumerate(self.senders[:CLOSE_TXS])]
+
+    def standard(self, rnd: int) -> list:
+        """Two-signature payments between disjoint partner pairs (the
+        standard mix's payments, bench.py:457-468)."""
+        pay = self.senders[CLOSE_TXS:]
+        return [self._signed(s, self.extra[CLOSE_TXS + i],
+                             pay[i ^ 1].account_id, 1000 + rnd)
+                for i, s in enumerate(pay)]
+
+
+def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
+    """C1-C5 of the module docstring; returns the launches by phase."""
+    from stellar_core_tpu_torch import testing as T
+    from stellar_core_tpu_torch.bucket import BucketManager, apply_buckets
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.transactions.account_helpers import (
+        make_account_entry,
+    )
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    out = {"verify": {}, "sha256": {}}
+    root_sk = T.root_secret_key(LEDGER_NETWORK_ID)
+    node_seed = SecretKey(rng.bytes(32))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_close_") as bdir:
+        # --- C1 ------------------------------------------------------------
+        E.LAUNCHES = S.LAUNCHES = 0
+        t0 = time.perf_counter()
+        st = ledger_state(rng, bdir, card, n=CLOSE_STATE, phase="C1",
+                          extra=[make_account_entry(
+                              root_sk.public_key, GENESIS_TOTAL_COINS, 0,
+                              LEDGER_START)])
+        mgr = st.pop("mgr")
+        st.pop("live")
+        st.pop("deep")
+        slots = list_slots(mgr.bucket_list)
+        # the twin's list holds the same bucket objects, in memory only
+        twin_mgr = BucketManager(None, background_merges=True)
+        for b in slots:
+            twin_mgr.adopt_bucket(b)
+        twin_mgr.assume_state(
+            [{"curr": lev.curr.get_hash(), "snap": lev.snap.get_hash()}
+             for lev in mgr.bucket_list.levels], LEDGER_START,
+            LEDGER_PROTOCOL)
+        check(twin_mgr.get_hash() == mgr.get_hash(),
+              "C1: the twin's bucket list == the card's")
+        reg = MetricsRegistry()
+        tr = Tracer()
+        rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+        v = make_verifier("cuda-resilient", metrics=reg, tracer=tr,
+                          flight_recorder=rec)
+        h = make_hasher("cuda-resilient", metrics=reg, tracer=tr,
+                        flight_recorder=rec)
+        check(v.fallback is None and h.fallback is None,
+              "C1: the card's stacks have no fallback")
+        lm = close_side(mgr, v, h, True, root_sk, node_seed, metrics=reg,
+                        tracer=tr, recorder=rec)
+        twin = close_side(twin_mgr, make_verifier("cpu"),
+                          make_hasher("cpu"), False, root_sk, node_seed)
+        # the downloaded header the restore fast-forwards to
+        header = ledger_header(X, LEDGER_START, b"\x00" * 32)
+        header.maxTxSetSize = CLOSE_MAX_TX_SET_SIZE
+        header.totalCoins = GENESIS_TOTAL_COINS
+        header.bucketListHash = mgr.get_hash()
+        header.idPool = CLOSE_STATE     # above every restored offer's ID
+        for side in (lm, twin):
+            side.root.set_header(X.LedgerHeader.from_xdr(header.to_xdr()))
+        t1 = time.perf_counter()
+        n_applied = apply_buckets(lm.root, slots)
+        apply_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        apply_buckets(twin.root, slots)
+        twin_apply_s = time.perf_counter() - t1
+        check(n_applied == lm.root.count_entries() == CLOSE_STATE + 1
+              == twin.root.count_entries(),
+              "C1: %d entries applied into each root (%d, %d, %d)" % (
+                  CLOSE_STATE + 1, n_applied, lm.root.count_entries(),
+                  twin.root.count_entries()))
+        for side in (lm, twin):
+            side.set_last_closed_ledger(
+                X.LedgerHeader.from_xdr(header.to_xdr()),
+                sha256(header.to_xdr()))
+        check(lm.lcl_hash == twin.lcl_hash and
+              lm.lcl_header.bucketListHash == mgr.get_hash(),
+              "C1: both LCLs at the restored header")
+        restore_s = st["setup_s"] + apply_s
+        wall_s = time.perf_counter() - t0
+        check(S.LAUNCHES == 0 and E.LAUNCHES == 0,
+              "C1's restore launches nothing")
+        # the commitment's first root, as a restarted node computes it
+        st.update(hasher=h, seen=set(),
+                  slot_hashes=[SC.ZERO_HASH] * len(slots))
+        want = fresh_slots(S, SC, st, mgr.bucket_list)
+        t1 = time.perf_counter()
+        root = lm.app.state_commitment.update_root(mgr.bucket_list)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        check(root == twin.app.state_commitment.update_root(
+            twin_mgr.bucket_list), "C1: the first commitment root == the "
+            "twin's")
+        check(S.LAUNCHES == want > 0 and E.LAUNCHES == 0,
+              "C1: %d SHA-256 launches for the first root" % want)
+        out["sha256"]["C1"] = S.LAUNCHES
+        out["restore_s"] = restore_s
+        log("C1 restore (%s): %d entries in %.1f s: generation %.1f s, "
+            "buckets %.1f s (decode %.1f, hash + file %.1f), apply_buckets "
+            "into a LedgerTxnRoot over sqlite :memory: %.1f s (%.1f us an "
+            "entry); with the twin's list and in-memory root (%.1f s) %.1f "
+            "s; first commitment root %.1f ms in %d launches"
+            % (card, CLOSE_STATE + 1, restore_s, st["generate_s"],
+               st["setup_s"] - st["generate_s"], st["decode_s"],
+               st["bucket_s"], apply_s, apply_s / (CLOSE_STATE + 1) * 1e6,
+               twin_apply_s, wall_s, first_ms, S.LAUNCHES))
+        st.update(card=lm, twin=twin)
+        traffic = CloseTraffic(lm, root_sk)
+
+        # --- C2 ------------------------------------------------------------
+        E.LAUNCHES = S.LAUNCHES = 0
+        c2 = [close_round(S, E, K, SC, st, traffic.fund(lo), set())
+              for lo in range(0, CLOSE_SENDERS, CLOSE_TXS)]
+        c2.append(close_round(S, E, K, SC, st, traffic.arm(), set()))
+        out["verify"]["C2"], out["sha256"]["C2"] = E.LAUNCHES, S.LAUNCHES
+        log("C2 senders (%s): %d closes (%s txs), %d verify and %d SHA-256 "
+            "launches, close ms %s"
+            % (card, len(c2), "/".join(str(c["txs"]) for c in c2),
+               E.LAUNCHES, S.LAUNCHES,
+               " ".join("%.1f" % c["close_ms"] for c in c2)))
+
+        # --- C3 and C4 -----------------------------------------------------
+        recorded = []
+        pw = v.prewarm_many
+
+        def recording_prewarm(triples):
+            got = pw(triples)
+            recorded.append((list(triples), got))
+            return got
+
+        for phase, closes, build in (
+                ("C3", C3_CLOSES, traffic.multisig),
+                ("C4", C4_CLOSES, traffic.standard)):
+            timer = reg.new_timer("ledger.ledger.close")
+            n0 = timer.count
+            tr.clear()
+            tr.enable(capacity=65536)
+            recorded.clear()
+            v.prewarm_many = recording_prewarm
+            E.LAUNCHES = S.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with GcPauses() as gcp:
+                rounds = [close_round(S, E, K, SC, st, build(k),
+                                      traffic.corrupted)
+                          for k in range(closes)]
+            wall_s = time.perf_counter() - t0
+            v.prewarm_many = pw
+            tr.disable()
+            out["verify"][phase], out["sha256"][phase] = \
+                E.LAUNCHES, S.LAUNCHES
+            check(timer.count - n0 == closes,
+                  "%s: ledger.ledger.close sampled once a close" % phase)
+            close_s = list(timer._samples[n0:n0 + closes])
+            val = [c["val_ms"] for c in rounds]
+            sigs = sum(len(t) for t, _g in recorded)
+            pb = tr.phase_breakdown(wall_s=wall_s)
+            spans = {k: pb["phases"][k]["total_s"] * 1e3 / closes
+                     for k in ("close.apply", "close.result_hash",
+                               "close.bucket_add", "close.commitment",
+                               "close.sql_commit", "close.txset_sort",
+                               "close.commit", "close.header_hash")
+                     if k in pb["phases"]}
+            log("%s %d closes of %d txs (%s): %d trimmed (the corrupted); "
+                "validation p50 %.1f ms, p99 %.1f ms, %.0f sigs/s over %d "
+                "prewarmed signatures; ledger.ledger.close p50 %.1f ms, p99 "
+                "%.1f ms (p99 of %d samples is their maximum); the twin's "
+                "validation p50 %.1f ms, close p50 %.1f ms; launches: verify "
+                "%d, SHA-256 %d; wall %.1f s"
+                % (phase, closes, len(rounds[0]["results"]) +
+                   len(rounds[0]["removed"]), card,
+                   sum(len(c["removed"]) for c in rounds),
+                   float(np.percentile(val, 50)), p99(val),
+                   sigs / (sum(val) / 1e3), sigs,
+                   float(np.percentile(close_s, 50)) * 1e3,
+                   p99(close_s) * 1e3, len(close_s),
+                   float(np.percentile([c["twin_val_ms"] for c in rounds],
+                                       50)),
+                   float(np.percentile([c["twin_close_ms"] for c in rounds],
+                                       50)),
+                   E.LAUNCHES, S.LAUNCHES, wall_s))
+            log("%s close spans, exclusive ms per close: %s; every span: %s"
+                % (phase, ", ".join("%s %.2f" % kv for kv in sorted(
+                    spans.items(), key=lambda kv: -kv[1])), phases_line(pb)))
+            log("%s garbage collector over the %d closes (both sides and "
+                "the transactions' building): %s; validations over 1 s: %s; "
+                "closes over 1 s: %s"
+                % (phase, closes, gcp.line(),
+                   [round(x, 1) for x in val if x > 1e3],
+                   [round(x * 1e3, 1) for x in close_s if x > 1.0]))
+            # the card's busy share: the validations' prewarm drains
+            # replayed from an empty cache, CUDA activity only
+            l0 = E.LAUNCHES
+            prof = profile_drain(
+                lambda: [(K.flush_verify_cache(), pw(t))[1]
+                         for t, _g in recorded],
+                "ed25519_verify_kernel", cpu=False)
+            check(prof["result"] == [g for _t, g in recorded]
+                  and E.LAUNCHES - l0 == len(recorded),
+                  "%s replay: the same decisions in %d launches"
+                  % (phase, len(recorded)))
+            log_profile("%s replay of the %d validations' prewarm drains "
+                        "(CUDA activity only)" % (phase, len(recorded)),
+                        prof, "ed25519_verify_kernel")
+            if prof["device_events"]:
+                log("%s card busy %.3f ms over the validations' %.1f ms = "
+                    "%.2f%%" % (phase, prof["busy_ms"], sum(val),
+                                100.0 * prof["busy_ms"] / sum(val)))
+            out[phase] = {"val_ms": val, "close_ms": [x * 1e3
+                                                      for x in close_s],
+                          "sigs_per_s": sigs / (sum(val) / 1e3)}
+
+        # --- C5 ------------------------------------------------------------
+        E.LAUNCHES = S.LAUNCHES = 0
+        c5 = close_round(S, E, K, SC, st, traffic.multisig(C3_CLOSES),
+                         traffic.corrupted, prewarm=False)
+        out["verify"]["C5"], out["sha256"]["C5"] = E.LAUNCHES, S.LAUNCHES
+        log("C5 cold close (%s): %d txs after trimming %d, the verify cache "
+            "flushed between validation and close: %d launches in the close "
+            "(one per transaction), close %.1f ms against C3's p50 %.1f ms"
+            % (card, c5["txs"], len(c5["removed"]), c5["e_close"],
+               c5["close_ms"], float(np.percentile(out["C3"]["close_ms"],
+                                                   50))))
+        sce = lm.app.state_commitment
+        t0 = time.perf_counter()
+        check(sce.root == sce.from_scratch_root(mgr.bucket_list),
+              "C5: the commitment root == from_scratch_root")
+        log("C5 from_scratch_root over the final list: %.1f s"
+            % (time.perf_counter() - t0))
+        for m in (mgr, twin_mgr):
+            m.shutdown()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2363,6 +2903,7 @@ def smoke(torch, args, flight_dir: str) -> int:
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
     from stellar_core_tpu_torch.crypto import keys as K
     from stellar_core_tpu_torch import native
+    from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.native import ed25519_native
     from stellar_core_tpu_torch.ops import ed25519 as E
     from stellar_core_tpu_torch.ops import sha256 as S
@@ -2528,7 +3069,8 @@ def smoke(torch, args, flight_dir: str) -> int:
         burst = burst_pool[pos:pos + n]
         want = burst_expect[pos:pos + n]
         pos += n
-        futs = [v.enqueue(*t) for t in burst]
+        futs = [v.enqueue(X.PublicKey.ed25519(k), sg, m)
+                for (k, sg, m) in burst]
         check(v.pending() == n, "burst queued")
         t0 = time.perf_counter()
         v.flush()
@@ -2579,6 +3121,9 @@ def smoke(torch, args, flight_dir: str) -> int:
     ledger = ledger_path(S, E, rng, flight_dir, card)
     ledger_launches = sum(ledger["launches"].values())
 
+    # --- the close: LedgerManager closes of signed multisig ledgers -------
+    closes = close_path(S, E, K, rng, flight_dir, card)
+
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
     main_f = fleet["shard"][DRAIN_CHUNK]
@@ -2586,7 +3131,10 @@ def smoke(torch, args, flight_dir: str) -> int:
         "name": "ed25519_verify", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519.py:328",
-        "launches": launches, "max_abs_err": float(main_b["mismatches"]),
+        "launches": launches + sum(closes["verify"].values()),
+        "launches_by_path": {"verify main path": launches,
+                             **closes["verify"]},
+        "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
         "library_ms": None, "check": "ok",
@@ -2596,9 +3144,10 @@ def smoke(torch, args, flight_dir: str) -> int:
         "name": "sha256", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/sha256.cu",
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
-        "launches": hash_launches + ledger_launches,
+        "launches": hash_launches + ledger_launches
+        + sum(closes["sha256"].values()),
         "launches_by_path": {"hash main path": hash_launches,
-                             **ledger["launches"]},
+                             **ledger["launches"], **closes["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

@@ -2,8 +2,7 @@
 
 Copied (the exports of what is ported) from `stellar_core_tpu/bucket/
 __init__.py` at commit bb973b8; carry a fix in either copy to the other.
-The reference's `BucketApplicator` / `apply_buckets` (they write through
-`ledgertxn`) and BucketDB (`bucket_index.py`) are not ported yet.
+BucketDB (`bucket_index.py`) is not ported yet.
 
 Role parity: reference `src/bucket` (BucketList.h:14)."""
 
@@ -18,10 +17,11 @@ from .bucket_list import (
     oldest_ledger_in_snap, size_of_curr, size_of_snap,
 )
 from .bucket_manager import BucketManager
+from .applicator import BucketApplicator, apply_buckets
 
 __all__ = [
-    "Bucket", "BucketLevel", "BucketList", "BucketManager", "FutureBucket",
-    "K_NUM_LEVELS",
+    "Bucket", "BucketApplicator", "BucketLevel", "BucketList",
+    "BucketManager", "FutureBucket", "K_NUM_LEVELS", "apply_buckets",
     "bucket_entry_sort_key", "keep_dead_entries", "level_half",
     "level_should_spill", "level_size", "mask", "merge_buckets",
     "oldest_ledger_in_curr", "oldest_ledger_in_snap", "size_of_curr",

@@ -7,7 +7,7 @@ Port of `stellar_core_tpu/crypto/batch_verifier.py` at commit 02ed56d
 flight recorder and queue series, `ResilientBatchVerifier`,
 `ThreadedBatchVerifier`, `make_verifier`):
 
-    enqueue(key32, sig, msg) -> VerifyFuture   (accumulate)
+    enqueue(key, sig, msg) -> VerifyFuture     (accumulate; key: PublicKey)
     flush()                                    (dispatch one device batch)
     verify_many(triples) -> [bool]             (whole-ledger/checkpoint drain)
     prewarm_many(triples) -> [bool]            (drain that seeds the cache)
@@ -85,6 +85,7 @@ from ..util.metrics import MetricsRegistry
 from ..util.threads import TrackedLock, spawn_worker
 from ..util.timer import real_monotonic
 from ..util.tracing import tracer_instant, tracer_span
+from ..xdr import PublicKey
 from . import keys as _keys
 
 log = logging.getLogger(__name__)
@@ -506,6 +507,10 @@ class BatchSigVerifier:
     """Abstract backend; see module docstring."""
 
     name = "abstract"
+    # backends whose per-dispatch cost dwarfs per-signature cost want whole
+    # batches: TxSetFrame.check_or_trim prewarms a set's signatures
+    # through prewarm_many before walking its transactions
+    wants_prewarm = False
     # span tracer, metrics registry, fault injector and the shared
     # VerifierStats, installed by make_verifier; None keeps direct
     # constructions silent
@@ -517,7 +522,7 @@ class BatchSigVerifier:
     def _span(self, name: str, **tags):
         return tracer_span(self.tracer, name, cat="crypto", **tags)
 
-    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
+    def enqueue(self, key: PublicKey, sig: bytes, msg: bytes) -> VerifyFuture:
         raise NotImplementedError
 
     def flush(self) -> None:
@@ -567,16 +572,16 @@ class BatchSigVerifier:
     _pending: List[Tuple[Triple, VerifyFuture]]
     _max_pending: int
 
-    def _batch_enqueue(self, key32: bytes, sig: bytes,
+    def _batch_enqueue(self, key: PublicKey, sig: bytes,
                        msg: bytes) -> VerifyFuture:
-        ck = _keys._cache_key(key32, sig, msg)
+        ck = _keys._cache_key(key.key_bytes, sig, msg)
         with _keys._cache_lock:
             hit = _keys._verify_cache.maybe_get(ck)
         f = VerifyFuture()
         if hit is not None:
             f._complete(hit)
             return f
-        self._pending.append(((key32, sig, msg), f))
+        self._pending.append(((key.key_bytes, sig, msg), f))
         if self.stats is not None:
             self.stats.set_queue_depth(len(self._pending))
         if len(self._pending) >= self._max_pending:
@@ -607,9 +612,9 @@ class CpuSigVerifier(BatchSigVerifier):
 
     name = "cpu"
 
-    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
+    def enqueue(self, key: PublicKey, sig: bytes, msg: bytes) -> VerifyFuture:
         f = VerifyFuture()
-        f._complete(_keys.verify_sig(key32, sig, msg))
+        f._complete(_keys.PubKeyUtils.verify_sig(key, sig, msg))
         return f
 
     def flush(self) -> None:
@@ -638,6 +643,7 @@ class CudaSigVerifier(BatchSigVerifier):
     members gets the kernel's plain version on the host."""
 
     name = "cuda"
+    wants_prewarm = True
     BUCKETS = (128, 512, 2048, 8192)
 
     # chunks below this size stay on one member: sharding a handful of
@@ -892,8 +898,8 @@ class CudaSigVerifier(BatchSigVerifier):
                 st.warmup_failed(repr(e))
 
     # -- the boundary --------------------------------------------------------
-    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
-        return self._batch_enqueue(key32, sig, msg)
+    def enqueue(self, key: PublicKey, sig: bytes, msg: bytes) -> VerifyFuture:
+        return self._batch_enqueue(key, sig, msg)
 
     def pending(self) -> int:
         return len(self._pending)
@@ -1272,6 +1278,10 @@ class ResilientBatchVerifier(BatchSigVerifier):
 
     # -- delegation ----------------------------------------------------------
     @property
+    def wants_prewarm(self) -> bool:
+        return self.primary.wants_prewarm
+
+    @property
     def inner(self) -> BatchSigVerifier:
         return self.primary
 
@@ -1341,8 +1351,8 @@ class ResilientBatchVerifier(BatchSigVerifier):
                         n=len(triples), breaker=self.breaker.state):
             return self.fallback.verify_many(triples)
 
-    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
-        return self._batch_enqueue(key32, sig, msg)
+    def enqueue(self, key: PublicKey, sig: bytes, msg: bytes) -> VerifyFuture:
+        return self._batch_enqueue(key, sig, msg)
 
     def pending(self) -> int:
         return len(self._pending)
@@ -1376,6 +1386,10 @@ class ThreadedBatchVerifier(BatchSigVerifier):
         self._inflight = False
 
     @property
+    def wants_prewarm(self) -> bool:
+        return self._inner.wants_prewarm
+
+    @property
     def inner(self) -> BatchSigVerifier:
         """The device verifier (unwrapping a resilient layer)."""
         return getattr(self._inner, "inner", self._inner)
@@ -1397,8 +1411,8 @@ class ThreadedBatchVerifier(BatchSigVerifier):
     def fleet_health(self):
         return getattr(self._inner, "fleet_health", None)
 
-    def enqueue(self, key32: bytes, sig: bytes, msg: bytes) -> VerifyFuture:
-        ck = _keys._cache_key(key32, sig, msg)
+    def enqueue(self, key: PublicKey, sig: bytes, msg: bytes) -> VerifyFuture:
+        ck = _keys._cache_key(key.key_bytes, sig, msg)
         with _keys._cache_lock:
             hit = _keys._verify_cache.maybe_get(ck)
         f = VerifyFuture()
@@ -1406,7 +1420,8 @@ class ThreadedBatchVerifier(BatchSigVerifier):
             f._complete(hit)
             return f
         with self._lock:
-            self._pending.append(((key32, sig, msg), f, self._clock.now()))
+            self._pending.append(
+                ((key.key_bytes, sig, msg), f, self._clock.now()))
             depth = len(self._pending)
         if self.stats is not None:
             self.stats.set_queue_depth(depth)

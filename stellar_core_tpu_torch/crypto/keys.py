@@ -1,29 +1,28 @@
 """Keys, the synchronous CPU signature path and the verify-result cache.
 
-Port of the parts of `stellar_core_tpu/crypto/keys.py` the verify boundary
-needs: `SecretKey` (from a 32-byte seed; `public_key` is the raw 32-byte
-ed25519 key), `raw_verify` / `raw_verify_batch` (RFC 8032 cofactorless,
-the semantics every verify backend must match) and the global
-verify-result cache that sits in front of every batch backend.
+Port of `stellar_core_tpu/crypto/keys.py` (its API as at commit
+89bbd6f): `SecretKey` (seed form; `public_key` is the XDR `PublicKey`),
+`PubKeyUtils` and `KeyUtils`, `raw_verify` / `raw_verify_batch` (RFC 8032
+cofactorless, the semantics every verify backend must match) and the
+global verify-result cache that sits in front of every batch backend.
 
 CPU crypto is the native C library (native/ed25519c.c) where a C compiler
 exists and the pure-Python RFC 8032 code (crypto/fallback.py) elsewhere:
-identical accept/reject decisions either way. Keys are raw 32-byte values:
-`SecretKey.public_key` returns the raw key, not the reference's XDR
-`PublicKey`, and its callers rely on that. `PubKeyUtils.verify_sig`
-(copied from the reference at commit 89bbd6f) is the one entry that takes
-an XDR `PublicKey`, for the state commitment's light clients; it reads
-the key's `key_bytes` and goes through the same cached `verify_sig`.
+identical accept/reject decisions either way. The reference's sharding of
+large CPU batches over worker threads is left out.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 
 from ..native import ed25519_native
 from ..util.cache import RandomEvictionCache
+from ..xdr import PublicKey
 from . import fallback as _fb
+from . import strkey
 
 VERIFY_CACHE_SIZE = 0xFFFF
 
@@ -90,10 +89,15 @@ def verify_sig(key32: bytes, sig: bytes, msg: bytes) -> bool:
 
 class PubKeyUtils:
     @staticmethod
-    def verify_sig(key, sig: bytes, msg: bytes) -> bool:
+    def verify_sig(key: PublicKey, sig: bytes, msg: bytes) -> bool:
         """Cached verify of an XDR `PublicKey`'s signature (reference
         SecretKey.cpp:310-337)."""
         return verify_sig(key.key_bytes, sig, msg)
+
+    @staticmethod
+    def get_hint(key: PublicKey) -> bytes:
+        """Last 4 bytes of the key (reference getHint)."""
+        return key.key_bytes[-4:]
 
 
 class SecretKey:
@@ -103,18 +107,64 @@ class SecretKey:
         if len(seed32) != 32:
             raise ValueError("ed25519 seed must be 32 bytes")
         self._seed = seed32
-        self._pub = _fb.ed25519_public(seed32)
+        self._pub = PublicKey.ed25519(_fb.ed25519_public(seed32))
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def random(cls) -> "SecretKey":
+        return cls(os.urandom(32))
 
     @classmethod
     def from_seed(cls, seed32: bytes) -> "SecretKey":
         return cls(seed32)
 
+    @classmethod
+    def pseudo_random_for_testing(cls, rng=None) -> "SecretKey":
+        from ..util import rnd
+        r = rng or rnd.g_random
+        return cls(bytes(r.getrandbits(8) for _ in range(32)))
+
+    @classmethod
+    def from_strkey_seed(cls, s: str) -> "SecretKey":
+        return cls(strkey.decode_seed(s))
+
+    # -- accessors ----------------------------------------------------------
     @property
-    def public_key(self) -> bytes:
+    def public_key(self) -> PublicKey:
         return self._pub
 
+    @property
+    def seed(self) -> bytes:
+        return self._seed
+
+    def strkey_seed(self) -> str:
+        return strkey.encode_seed(self._seed)
+
+    def strkey_public(self) -> str:
+        return strkey.encode_public_key(self._pub.key_bytes)
+
+    # -- signing ------------------------------------------------------------
     def sign(self, msg: bytes) -> bytes:
         return _fb.ed25519_sign(self._seed, msg)
 
+    def sign_decorated(self, msg: bytes):
+        from ..xdr import DecoratedSignature
+        return DecoratedSignature(hint=PubKeyUtils.get_hint(self._pub),
+                                  signature=self.sign(msg))
+
     def __repr__(self) -> str:
-        return "SecretKey(%s)" % self._pub.hex()
+        return "SecretKey(%s)" % self.strkey_public()
+
+
+class KeyUtils:
+    @staticmethod
+    def to_strkey(key: PublicKey) -> str:
+        return strkey.encode_public_key(key.key_bytes)
+
+    @staticmethod
+    def from_strkey(s: str) -> PublicKey:
+        return PublicKey.ed25519(strkey.decode_public_key(s))
+
+    @staticmethod
+    def short_name(key: PublicKey) -> str:
+        return KeyUtils.to_strkey(key)[:5]

@@ -1,0 +1,711 @@
+"""LedgerTxn: nested in-memory copy-on-write ledger state transactions.
+
+Copied from `stellar_core_tpu/ledger/ledgertxn.py` at commit bb973b8; carry
+a fix in either copy to the other. Left out, with the modules that drive
+them: the native apply engine's hooks (`inject_native_changes`, the root's
+`get_entry_blob` / `offers_for_book_blobs` / `offers_by_account_blobs`
+callbacks, and the serialized-entry cache `_cur_blobs` and `blobs`
+argument of `commit_child` that only its injected deltas fill); BucketDB
+(`attach_bucketdb`, `detach_bucketdb`, `bucket_backed` and the bucket
+routing of point reads); the close cockpit's `stats` hooks
+(`ledger/apply_stats.py`) with the root's `prefetch`, which only its
+`txset_prefetch_keys` drives.
+
+Role parity: reference `src/ledger/LedgerTxn*` (LedgerTxn.h:18-165): a tree
+of transactions over (LedgerKey → LedgerEntry), root backed by SQL with an
+entry cache and bulk commits; children see parent state copy-on-write;
+commit merges down, rollback discards. Entry-type-specific SQL backends
+(LedgerTxnAccountSQL.cpp etc.) correspond to the per-table writers here.
+
+Simplifications vs reference: Python object mutability replaces the
+"activeness" discipline — load() snapshots the pre-image for delta/meta
+generation, and entries are owned by the innermost open txn.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional, Tuple
+
+from ..database.database import Database
+from ..util.cache import LRUCache
+from ..xdr import (
+    Asset, LedgerEntry, LedgerEntryType, LedgerHeader, LedgerKey, OfferEntry,
+    ledger_entry_key,
+)
+from ..xdr import fastcodec
+from ..crypto import strkey
+
+
+def _kb(key: LedgerKey) -> bytes:
+    """LedgerKey → canonical bytes (the txn tree's map key), memoized on
+    the instance — keys are treated as immutable once built, and the same
+    key object flows through load/commit/delta several times per access."""
+    kb = key.__dict__.get("_kb")
+    if kb is None:
+        kb = key.to_xdr()
+        key.__dict__["_kb"] = kb
+    return kb
+
+
+# copy-on-write primitives: compiled structural copies (xdr/fastcodec.py),
+# ~4x cheaper than the pack+unpack round-trip (replay profile: entry/header
+# copies were ~14% of catchup CPU)
+_copy_entry = fastcodec.compile_copy(LedgerEntry)
+_copy_header = fastcodec.compile_copy(LedgerHeader)
+
+
+_acc_str_cache: Dict[bytes, str] = {}
+
+
+def _acc_str(account_id) -> str:
+    """strkey encoding for SQL row keys, memoized — a busy account's key
+    is re-encoded on every load/commit otherwise (CRC16 per call)."""
+    kb = account_id.key_bytes
+    s = _acc_str_cache.get(kb)
+    if s is None:
+        if len(_acc_str_cache) > 0x10000:
+            _acc_str_cache.clear()
+        s = strkey.encode_public_key(kb)
+        _acc_str_cache[kb] = s
+    return s
+
+
+def _asset_str(asset: Asset) -> str:
+    import base64
+    return base64.b64encode(asset.to_xdr()).decode()
+
+
+def price_less(a_offer: OfferEntry, b_offer: OfferEntry) -> bool:
+    """Exact fraction compare a.price < b.price, tie-break by offerID
+    (reference isBetterOffer, LedgerTxn.cpp role)."""
+    lhs = a_offer.price.n * b_offer.price.d
+    rhs = b_offer.price.n * a_offer.price.d
+    if lhs != rhs:
+        return lhs < rhs
+    return a_offer.offerID < b_offer.offerID
+
+
+class AbstractLedgerTxnParent:
+    # Exactly one child may be open under any parent — roots included
+    # (reference LedgerTxn.cpp addChild: both LedgerTxn and LedgerTxnRoot
+    # throw if a child is already open).
+    _child: Optional["LedgerTxn"] = None
+
+    def _register_child(self, child: "LedgerTxn") -> None:
+        assert self._child is None, "parent already has an open child"
+        self._child = child
+
+    def _clear_child(self, child: "LedgerTxn") -> None:
+        if self._child is child:
+            self._child = None
+
+    def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        raise NotImplementedError
+
+    def get_header(self) -> LedgerHeader:
+        raise NotImplementedError
+
+    def _all_offers_for_book(self, selling: Asset,
+                             buying: Asset) -> Dict[bytes, LedgerEntry]:
+        raise NotImplementedError
+
+    def _offers_by_account(self, account_id) -> Dict[bytes, LedgerEntry]:
+        raise NotImplementedError
+
+    def commit_child(self, changes: Dict[bytes, Optional[LedgerEntry]],
+                     header: LedgerHeader) -> None:
+        raise NotImplementedError
+
+
+class LedgerTxn(AbstractLedgerTxnParent):
+    """A nested transaction. Exactly one child may be open at a time."""
+
+    def __init__(self, parent: AbstractLedgerTxnParent) -> None:
+        self._parent = parent
+        self._changes: Dict[bytes, Optional[LedgerEntry]] = {}
+        self._previous: Dict[bytes, Optional[bytes]] = {}  # pre-images (xdr)
+        # parsed pre-image snapshots (same instant as _previous): get_delta
+        # reads these instead of re-parsing the blob — a structural copy at
+        # record time is ~4x cheaper than LedgerEntry.from_xdr at delta
+        # time, and the close path takes a delta per fee/op txn
+        self._prev_objs: Dict[bytes, LedgerEntry] = {}
+        self._header = _copy_header(parent.get_header())
+        self._open = True
+        self._child: Optional["LedgerTxn"] = None
+        if isinstance(parent, LedgerTxn):
+            assert parent._open, "parent is sealed"
+        parent._register_child(self)
+
+    # -- header -------------------------------------------------------------
+    def load_header(self) -> LedgerHeader:
+        self._assert_open()
+        return self._header
+
+    def get_header(self) -> LedgerHeader:
+        return self._header
+
+    # -- entry access -------------------------------------------------------
+    def _assert_open(self) -> None:
+        assert self._open, "LedgerTxn is closed"
+        assert self._child is None, "child transaction is open"
+
+    def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        kb = _kb(key)
+        if kb in self._changes:
+            return self._changes[kb]
+        return self._parent.get_entry(key)
+
+    def load(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        """Load for update: snapshots the pre-image, returns a mutable entry
+        owned by this txn (None if absent)."""
+        self._assert_open()
+        kb = _kb(key)
+        if kb in self._changes:
+            return self._changes[kb]
+        base = self._parent.get_entry(key)
+        if base is None:
+            return None
+        mine = _copy_entry(base)
+        if kb not in self._previous:
+            self._previous[kb] = base.to_xdr()
+            self._prev_objs[kb] = _copy_entry(base)
+        self._changes[kb] = mine
+        return mine
+
+    def load_without_record(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        """Read-only peek (reference loadWithoutRecord): no delta recorded."""
+        self._assert_open()
+        e = self.get_entry(key)
+        return _copy_entry(e) if e is not None else None
+
+    def create(self, entry: LedgerEntry) -> LedgerEntry:
+        self._assert_open()
+        key = ledger_entry_key(entry)
+        kb = _kb(key)
+        assert self.get_entry(key) is None, "entry already exists"
+        mine = _copy_entry(entry)
+        self._previous.setdefault(kb, None)
+        self._changes[kb] = mine
+        return mine
+
+    def _record_previous(self, kb: bytes) -> None:
+        """Snapshot the parent-visible state of `kb` (blob + parsed)."""
+        if kb in self._previous:
+            return
+        base = self._parent.get_entry(LedgerKey.from_xdr(kb))
+        if base is None:
+            self._previous[kb] = None
+        else:
+            self._previous[kb] = base.to_xdr()
+            self._prev_objs[kb] = _copy_entry(base)
+
+    def create_or_update_without_loading(self, entry: LedgerEntry) -> None:
+        """Upsert with no existence check and no returned handle
+        (reference createOrUpdateWithoutLoading, LedgerTxn.h: bulk-apply
+        path). Still records the pre-image so deltas stay exact."""
+        self._assert_open()
+        key = ledger_entry_key(entry)
+        kb = _kb(key)
+        self._record_previous(kb)
+        self._changes[kb] = _copy_entry(entry)
+
+    def erase(self, key: LedgerKey) -> None:
+        self._assert_open()
+        kb = _kb(key)
+        existing = self.get_entry(key)
+        assert existing is not None, "erasing missing entry"
+        if kb not in self._previous:
+            # `existing` is the parent's state here (anything recorded in
+            # _changes implies _previous was already recorded)
+            self._previous[kb] = existing.to_xdr()
+            self._prev_objs[kb] = _copy_entry(existing)
+        self._changes[kb] = None
+
+    def erase_without_loading(self, key: LedgerKey) -> None:
+        """Delete with no existence check (reference eraseWithoutLoading):
+        erasing an absent key is a no-op record of absence, not an error."""
+        self._assert_open()
+        kb = _kb(key)
+        self._record_previous(kb)
+        self._changes[kb] = None
+
+    # -- order book ---------------------------------------------------------
+    def _all_offers_for_book(self, selling: Asset,
+                             buying: Asset) -> Dict[bytes, LedgerEntry]:
+        out = self._parent._all_offers_for_book(selling, buying)
+        sb = (selling.to_xdr(), buying.to_xdr())
+        for kb, e in self._changes.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            if e is None:
+                out.pop(kb, None)
+            else:
+                o = e.data.value
+                if (o.selling.to_xdr(), o.buying.to_xdr()) == sb:
+                    out[kb] = e
+                else:
+                    out.pop(kb, None)
+        return out
+
+    def best_offer(self, selling: Asset, buying: Asset,
+                   exclude: Optional[set] = None) -> Optional[LedgerEntry]:
+        """Best (lowest-price) offer in the book, excluding offer ids in
+        `exclude`."""
+        self._assert_open()
+        offers = self._all_offers_for_book(selling, buying)
+        best: Optional[LedgerEntry] = None
+        for e in offers.values():
+            o = e.data.value
+            if exclude and o.offerID in exclude:
+                continue
+            if best is None or price_less(o, best.data.value):
+                best = e
+        return best
+
+    def _offers_by_account(self, account_id) -> Dict[bytes, LedgerEntry]:
+        out = self._parent._offers_by_account(account_id)
+        acc = account_id.to_xdr()
+        for kb, e in self._changes.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            if e is None:
+                out.pop(kb, None)
+            elif e.data.value.sellerID.to_xdr() == acc:
+                out[kb] = e
+            else:
+                out.pop(kb, None)
+        return out
+
+    def load_offers_by_account(self, account_id,
+                               asset: Optional[Asset] = None
+                               ) -> List[LedgerEntry]:
+        """Load (for update) the account's offers; with `asset`, only
+        offers buying or selling it (reference
+        loadOffersByAccountAndAsset, LedgerTxn.h)."""
+        self._assert_open()
+        res = []
+        for kb, view in list(self._offers_by_account(account_id).items()):
+            if asset is not None:
+                o = view.data.value
+                # filter on the view BEFORE load(): non-matching offers
+                # must not be copied or recorded in the delta
+                if o.selling != asset and o.buying != asset:
+                    continue
+            e = self.load(LedgerKey.from_xdr(kb))
+            if e is not None:
+                res.append(e)
+        return res
+
+    def _all_offers(self) -> Dict[bytes, LedgerEntry]:
+        out = self._parent._all_offers()
+        for kb, e in self._changes.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            if e is None:
+                out.pop(kb, None)
+            else:
+                out[kb] = e
+        return out
+
+    def load_all_offers(self) -> List[LedgerEntry]:
+        """Load (for update) every offer in the ledger (reference
+        loadAllOffers, LedgerTxn.h — liability-upgrade path)."""
+        self._assert_open()
+        res = []
+        for kb in list(self._all_offers()):
+            e = self.load(LedgerKey.from_xdr(kb))
+            if e is not None:
+                res.append(e)
+        return res
+
+    def query_inflation_winners(self, max_winners: int,
+                                min_votes: int) -> List[Tuple[bytes, int]]:
+        """[(accountID key_bytes, votes)] for inflation destinations with
+        at least `min_votes` of balance-weighted votes, sorted votes
+        descending (ties: account key descending), capped at
+        `max_winners` (reference queryInflationWinners, LedgerTxn.cpp —
+        including uncommitted changes in this txn chain, which the SQL
+        root alone cannot see)."""
+        self._assert_open()
+        # innermost change wins: collect ancestor overlays root-first
+        chain: List["LedgerTxn"] = []
+        node: AbstractLedgerTxnParent = self
+        while isinstance(node, LedgerTxn):
+            chain.append(node)
+            node = node._parent
+        merged: Dict[bytes, Optional[LedgerEntry]] = dict(
+            node._all_accounts())
+        for txn in reversed(chain):
+            for kb, e in txn._changes.items():
+                if LedgerKey.from_xdr(kb).disc == LedgerEntryType.ACCOUNT:
+                    merged[kb] = e
+        votes: Dict[bytes, int] = {}
+        for e in merged.values():
+            if e is None:
+                continue
+            acc = e.data.value
+            if acc.inflationDest is not None:
+                k = acc.inflationDest.key_bytes
+                votes[k] = votes.get(k, 0) + acc.balance
+        winners = sorted(
+            ((k, v) for k, v in votes.items() if v >= min_votes),
+            key=lambda kv: (-kv[1], tuple(
+                -c for c in strkey.encode_public_key(kv[0]).encode())))
+        return winners[:max_winners]
+
+    # -- lifecycle ----------------------------------------------------------
+    def commit(self) -> None:
+        self._assert_open()
+        # seal only after commit_child succeeds: a transient failure there
+        # (e.g. sqlite "database is locked" at the root) must leave this
+        # txn open and registered so the caller can roll back — otherwise
+        # the parent's child slot is bricked for every future txn
+        self._parent.commit_child(self._changes, self._header)
+        self._open = False
+        self._parent._clear_child(self)
+
+    def rollback(self) -> None:
+        assert self._open
+        if self._child is not None:
+            self._child.rollback()
+        self._open = False
+        self._changes.clear()
+        self._prev_objs.clear()
+        self._parent._clear_child(self)
+
+    def commit_child(self, changes: Dict[bytes, Optional[LedgerEntry]],
+                     header: LedgerHeader) -> None:
+        for kb, e in changes.items():
+            self._record_previous(kb)
+            self._changes[kb] = e
+        # adopt the child's header VALUES in place: callers hold references
+        # from load_header(), and replacing the object would silently orphan
+        # their later mutations (close_ledger sets txSetResultHash /
+        # bucketListHash after per-tx child commits)
+        new = _copy_header(header)
+        for n, _t in type(self._header).xdr_fields:
+            setattr(self._header, n, getattr(new, n))
+
+    # -- delta (meta + invariants) ------------------------------------------
+    def get_delta(self, raw_keys: bool = False
+                  ) -> List[Tuple[LedgerKey, Optional[LedgerEntry],
+                                  Optional[LedgerEntry]]]:
+        """[(key, previous, current)] for every touched-and-changed entry.
+
+        raw_keys=True returns the raw LedgerKey XDR instead of a parsed
+        LedgerKey — the close path only needs key OBJECTS for deleted
+        entries (bucket dead keys), so it parses those itself instead of
+        paying ~one parse per touched account per close.
+
+        The returned `current` entries are the LIVE _changes objects and
+        must be treated READ-ONLY."""
+        out = []
+        for kb, cur in self._changes.items():
+            prev_b = self._previous.get(kb)
+            cur_b = None if cur is None else cur.to_xdr()
+            if prev_b == cur_b:
+                continue  # touched but unchanged
+            prev = self._prev_objs[kb] if prev_b else None
+            key = kb if raw_keys else LedgerKey.from_xdr(kb)
+            out.append((key, prev, cur))
+        return out
+
+    def has_changes(self) -> bool:
+        return bool(self._changes)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, et, ev, tb):
+        if self._open:
+            if et is None:
+                self.commit()
+            else:
+                self.rollback()
+        return False
+
+
+class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
+    """Dict-backed root (reference InMemoryLedgerTxnRoot.h role; used by
+    standalone/test mode)."""
+
+    def __init__(self, header: Optional[LedgerHeader] = None) -> None:
+        self._entries: Dict[bytes, bytes] = {}
+        self._header = header
+
+    def set_header(self, header: LedgerHeader) -> None:
+        self._header = header
+
+    def get_header(self) -> LedgerHeader:
+        assert self._header is not None
+        return self._header
+
+    def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        b = self._entries.get(_kb(key))
+        return LedgerEntry.from_xdr(b) if b is not None else None
+
+    def _all_offers_for_book(self, selling, buying):
+        out: Dict[bytes, LedgerEntry] = {}
+        sb = (selling.to_xdr(), buying.to_xdr())
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            o = e.data.value
+            if (o.selling.to_xdr(), o.buying.to_xdr()) == sb:
+                out[kb] = e
+        return out
+
+    def _offers_by_account(self, account_id):
+        out: Dict[bytes, LedgerEntry] = {}
+        acc = account_id.to_xdr()
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            if e.data.value.sellerID.to_xdr() == acc:
+                out[kb] = e
+        return out
+
+    def _all_offers(self):
+        out: Dict[bytes, LedgerEntry] = {}
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc == LedgerEntryType.OFFER:
+                out[kb] = LedgerEntry.from_xdr(eb)
+        return out
+
+    def _all_accounts(self):
+        out: Dict[bytes, LedgerEntry] = {}
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc == LedgerEntryType.ACCOUNT:
+                out[kb] = LedgerEntry.from_xdr(eb)
+        return out
+
+    def commit_child(self, changes, header) -> None:
+        for kb, e in changes.items():
+            if e is None:
+                self._entries.pop(kb, None)
+            else:
+                self._entries[kb] = e.to_xdr()
+        self._header = header
+
+    def count_entries(self) -> int:
+        return len(self._entries)
+
+    def all_entries(self) -> Iterator[LedgerEntry]:
+        for eb in self._entries.values():
+            yield LedgerEntry.from_xdr(eb)
+
+    def clear_entries(self) -> None:
+        """Drop all ledger entries (bucket-apply catchup resets state
+        before loading the snapshot)."""
+        self._entries.clear()
+
+
+class LedgerTxnRoot(AbstractLedgerTxnParent):
+    """SQL-backed root with an entry cache and per-type bulk writers
+    (reference LedgerTxnRoot + LedgerTxn{Account,Offer,TrustLine,Data}SQL).
+    The entry cache is a true-LRU bound."""
+
+    ENTRY_CACHE_SIZE = 4096
+
+    def __init__(self, db: Database,
+                 header: Optional[LedgerHeader] = None) -> None:
+        self._db = db
+        self._header = header
+        self._cache: LRUCache = LRUCache(self.ENTRY_CACHE_SIZE)
+
+    def set_header(self, header: LedgerHeader) -> None:
+        self._header = header
+
+    def get_header(self) -> LedgerHeader:
+        assert self._header is not None
+        return self._header
+
+    # -- reads --------------------------------------------------------------
+    def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
+        kb = _kb(key)
+        blob = self._cache.maybe_get(kb)
+        if blob is None:
+            blob = self._select_blob(key)
+            self._cache.put(kb, blob if blob is not None else b"")
+        if not blob:
+            return None
+        return LedgerEntry.from_xdr(blob)
+
+    def _select_blob(self, key: LedgerKey) -> Optional[bytes]:
+        t = key.disc
+        v = key.value
+        if t == LedgerEntryType.ACCOUNT:
+            cur = self._db.execute(
+                "SELECT entry FROM accounts WHERE accountid=?",
+                (_acc_str(v.accountID),))
+        elif t == LedgerEntryType.TRUSTLINE:
+            cur = self._db.execute(
+                "SELECT entry FROM trustlines WHERE accountid=? AND asset=?",
+                (_acc_str(v.accountID), _asset_str(v.asset)))
+        elif t == LedgerEntryType.OFFER:
+            cur = self._db.execute(
+                "SELECT entry FROM offers WHERE offerid=?", (v.offerID,))
+        elif t == LedgerEntryType.DATA:
+            cur = self._db.execute(
+                "SELECT entry FROM accountdata WHERE accountid=? AND "
+                "dataname=?", (_acc_str(v.accountID), v.dataName))
+        else:
+            raise ValueError("bad key type %d" % t)
+        row = cur.fetchone()
+        return row[0] if row else None
+
+    def _all_offers_for_book(self, selling, buying):
+        out: Dict[bytes, LedgerEntry] = {}
+        cur = self._db.execute(
+            "SELECT entry FROM offers WHERE selling=? AND buying=?",
+            (_asset_str(selling), _asset_str(buying)))
+        for (blob,) in cur.fetchall():
+            e = LedgerEntry.from_xdr(blob)
+            out[_kb(ledger_entry_key(e))] = e
+        return out
+
+    def _offers_by_account(self, account_id):
+        out: Dict[bytes, LedgerEntry] = {}
+        cur = self._db.execute(
+            "SELECT entry FROM offers WHERE sellerid=?",
+            (_acc_str(account_id),))
+        for (blob,) in cur.fetchall():
+            e = LedgerEntry.from_xdr(blob)
+            out[_kb(ledger_entry_key(e))] = e
+        return out
+
+    def _all_offers(self):
+        out: Dict[bytes, LedgerEntry] = {}
+        for (blob,) in self._db.execute(
+                "SELECT entry FROM offers").fetchall():
+            e = LedgerEntry.from_xdr(blob)
+            out[_kb(ledger_entry_key(e))] = e
+        return out
+
+    def _all_accounts(self):
+        out: Dict[bytes, LedgerEntry] = {}
+        for (blob,) in self._db.execute(
+                "SELECT entry FROM accounts").fetchall():
+            e = LedgerEntry.from_xdr(blob)
+            out[_kb(ledger_entry_key(e))] = e
+        return out
+
+    def clear_entries(self) -> None:
+        """Drop all ledger entries + cache (bucket-apply catchup resets
+        state before loading the snapshot)."""
+        with self._db.transaction():
+            for table in ("accounts", "trustlines", "offers",
+                          "accountdata"):
+                self._db.execute("DELETE FROM %s" % table)
+        self._cache.clear()
+
+    # -- commit -------------------------------------------------------------
+    def commit_child(self, changes, header) -> None:
+        with self._db.transaction():
+            for kb, e in changes.items():
+                key = LedgerKey.from_xdr(kb)
+                if e is None:
+                    self._delete(key)
+                    self._cache.put(kb, b"")
+                else:
+                    b = e.to_xdr()
+                    self._upsert(key, e, b)
+                    self._cache.put(kb, b)
+            self._header = header
+
+    def _delete(self, key: LedgerKey) -> None:
+        t, v = key.disc, key.value
+        if t == LedgerEntryType.ACCOUNT:
+            self._db.execute("DELETE FROM accounts WHERE accountid=?",
+                             (_acc_str(v.accountID),))
+        elif t == LedgerEntryType.TRUSTLINE:
+            self._db.execute(
+                "DELETE FROM trustlines WHERE accountid=? AND asset=?",
+                (_acc_str(v.accountID), _asset_str(v.asset)))
+        elif t == LedgerEntryType.OFFER:
+            self._db.execute("DELETE FROM offers WHERE offerid=?",
+                             (v.offerID,))
+        elif t == LedgerEntryType.DATA:
+            self._db.execute(
+                "DELETE FROM accountdata WHERE accountid=? AND dataname=?",
+                (_acc_str(v.accountID), v.dataName))
+
+    def _upsert(self, key: LedgerKey, e: LedgerEntry,
+                blob: Optional[bytes] = None) -> None:
+        t = key.disc
+        if blob is None:
+            blob = e.to_xdr()
+        lm = e.lastModifiedLedgerSeq
+        d = e.data.value
+        if t == LedgerEntryType.ACCOUNT:
+            self._db.execute(
+                "INSERT INTO accounts (accountid,balance,seqnum,"
+                "numsubentries,flags,lastmodified,entry) VALUES (?,?,?,?,?,?,?)"
+                " ON CONFLICT(accountid) DO UPDATE SET balance=excluded."
+                "balance,seqnum=excluded.seqnum,numsubentries=excluded."
+                "numsubentries,flags=excluded.flags,lastmodified=excluded."
+                "lastmodified,entry=excluded.entry",
+                (_acc_str(d.accountID), d.balance, d.seqNum, d.numSubEntries,
+                 d.flags, lm, blob))
+        elif t == LedgerEntryType.TRUSTLINE:
+            self._db.execute(
+                "INSERT INTO trustlines (accountid,asset,balance,flags,"
+                "lastmodified,entry) VALUES (?,?,?,?,?,?)"
+                " ON CONFLICT(accountid,asset) DO UPDATE SET balance="
+                "excluded.balance,flags=excluded.flags,lastmodified="
+                "excluded.lastmodified,entry=excluded.entry",
+                (_acc_str(d.accountID), _asset_str(d.asset), d.balance,
+                 d.flags, lm, blob))
+        elif t == LedgerEntryType.OFFER:
+            self._db.execute(
+                "INSERT INTO offers (sellerid,offerid,selling,buying,amount,"
+                "pricen,priced,price,flags,lastmodified,entry) "
+                "VALUES (?,?,?,?,?,?,?,?,?,?,?)"
+                " ON CONFLICT(offerid) DO UPDATE SET sellerid=excluded."
+                "sellerid,selling=excluded.selling,buying=excluded.buying,"
+                "amount=excluded.amount,pricen=excluded.pricen,priced="
+                "excluded.priced,price=excluded.price,flags=excluded.flags,"
+                "lastmodified=excluded.lastmodified,entry=excluded.entry",
+                (_acc_str(d.sellerID), d.offerID, _asset_str(d.selling),
+                 _asset_str(d.buying), d.amount, d.price.n, d.price.d,
+                 d.price.n / d.price.d, d.flags, lm, blob))
+        elif t == LedgerEntryType.DATA:
+            self._db.execute(
+                "INSERT INTO accountdata (accountid,dataname,lastmodified,"
+                "entry) VALUES (?,?,?,?)"
+                " ON CONFLICT(accountid,dataname) DO UPDATE SET lastmodified"
+                "=excluded.lastmodified,entry=excluded.entry",
+                (_acc_str(d.accountID), d.dataName, lm, blob))
+
+    def count_entries(self) -> int:
+        n = 0
+        for table in ("accounts", "trustlines", "offers", "accountdata"):
+            n += self._db.execute(
+                "SELECT COUNT(*) FROM %s" % table).fetchone()[0]
+        return n
+
+    def all_entries(self) -> Iterator[LedgerEntry]:
+        for table in ("accounts", "trustlines", "offers", "accountdata"):
+            for (blob,) in self._db.execute(
+                    "SELECT entry FROM %s" % table).fetchall():
+                yield LedgerEntry.from_xdr(blob)
+
+
+def delta_to_changes(delta) -> list:
+    """LedgerTxn delta triples → LedgerEntryChanges wire form (reference
+    meta convention: CREATED alone; STATE pre-image before
+    UPDATED/REMOVED). Feeds TransactionMeta and txfeehistory rows."""
+    from ..xdr import LedgerEntryChange, LedgerEntryChangeType as CT
+    out = []
+    for key, prev, cur in delta:
+        if prev is None and cur is not None:
+            out.append(LedgerEntryChange(CT.LEDGER_ENTRY_CREATED, cur))
+        elif cur is None:
+            out.append(LedgerEntryChange(CT.LEDGER_ENTRY_STATE, prev))
+            out.append(LedgerEntryChange(CT.LEDGER_ENTRY_REMOVED, key))
+        else:
+            out.append(LedgerEntryChange(CT.LEDGER_ENTRY_STATE, prev))
+            out.append(LedgerEntryChange(CT.LEDGER_ENTRY_UPDATED, cur))
+    return out

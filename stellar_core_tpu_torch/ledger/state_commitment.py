@@ -9,8 +9,7 @@ with `hashlib` on the host when the app has no `batch_hasher`; the copy
 raises TypeError instead, as the module's `entry_leaves` does without a
 hasher, so a node meant to hash on the card never does so silently on the
 host. `from_scratch_root` stays the `hashlib` oracle, as in the
-reference. `SecretKey.public_key` is the raw key in the port, so a
-checkpoint's `node_id` is taken from it directly.
+reference.
 
 The bucket list already content-addresses the whole ledger state — but
 its hash chain (`SHA256(concat_i SHA256(curr_i ‖ snap_i))`) only proves
@@ -387,10 +386,8 @@ class StateCommitmentEngine:
                         extra={"ledger_seq": ledger_seq,
                                "error": repr(e)})
             return None
-        # the port's SecretKey.public_key is already the raw 32-byte key
-        # (the reference reads its XDR PublicKey's key_bytes)
         cp = StateCheckpoint(ledger_seq, header_hash, self._root,
-                             seed.public_key, sig)
+                             seed.public_key.key_bytes, sig)
         self.checkpoints[ledger_seq] = cp
         # freeze the proof view (module docstring): immutable bucket
         # refs + the leaf vector that hashes to cp.merkle_root

@@ -29,7 +29,7 @@ def make_example_batch(batch: int = 256, n_keys: int = 16,
         s = bytearray(sk.sign(m))
         if corrupt_every and i % corrupt_every == corrupt_every - 1:
             s[i % 64] ^= 1
-        pubs.append(sk.public_key)
+        pubs.append(sk.public_key.key_bytes)
         sigs.append(bytes(s))
         msgs.append(m)
     return pubs, sigs, msgs

@@ -194,6 +194,28 @@ def entry_records(rng: np.random.Generator, n: int) -> List[bytes]:
     return out
 
 
+# where an offer body's ID sits: after the LIVEENTRY and lastModified
+# words, the entry type and the seller's AccountID (4-byte type + key)
+OFFER_ID_AT = 48
+
+
+def unique_offer_ids(records: Sequence[bytes], first: int = 1
+                     ) -> List[bytes]:
+    """`records` with each offer's ID replaced by first, first + 1, ... in
+    record order. The mix's offers all carry OFFER_ID, which a bucket
+    allows (their keys differ by seller), but a SQL root keys offers by ID
+    alone, as the protocol's ID pool keeps them unique."""
+    kind = struct.pack(">I", OFFER)
+    out = list(records)
+    nxt = first
+    for i, r in enumerate(out):
+        if r[8:12] == kind:
+            out[i] = (r[:OFFER_ID_AT] + struct.pack(">q", nxt)
+                      + r[OFFER_ID_AT + 8:])
+            nxt += 1
+    return out
+
+
 # A body's identity prefix: the LedgerEntryData discriminant (the entry
 # type) and the first field of every kind, its account ID as XDR (4-byte
 # key type + 32 bytes). With distinct account IDs the bucket order

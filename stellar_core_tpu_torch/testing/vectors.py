@@ -46,7 +46,7 @@ def _vectors():
     """(label, pub32, sig64, msg) tuples — ≥50 adversarial cases."""
     torsion = _torsion_points()
     sk = SecretKey.from_seed(b"\x2a" * 32)
-    pub = sk.public_key
+    pub = sk.public_key.key_bytes
     msg = b"wycheproof-class vector"
     good = sk.sign(msg)
     vecs = [("honest baseline", pub, good, msg)]

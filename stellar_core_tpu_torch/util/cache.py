@@ -1,7 +1,9 @@
-"""RandomEvictionCache: bounded map with random eviction.
+"""RandomEvictionCache: bounded map with random eviction; LRUCache.
 
-Copied (RandomEvictionCache only) from `stellar_core_tpu/util/cache.py` at
-commit 6685f6a; carry a fix in either copy to the other.
+Copied from `stellar_core_tpu/util/cache.py` (RandomEvictionCache at commit
+6685f6a, LRUCache at commit 02f8fbd); carry a fix in either copy to the
+other. LRUCache's `on_evict` hook is left out: only the close cockpit's
+eviction meter (`ledger/apply_stats.py`, not ported) drives it.
 
 Role parity: reference `src/util/RandomEvictionCache.h` — O(1) insert/lookup,
 evicts a uniformly random victim when full (better worst-case than LRU under
@@ -11,6 +13,7 @@ adversarial scan patterns, which matters for the signature cache).
 from __future__ import annotations
 
 import random
+from collections import OrderedDict
 from typing import Dict, Generic, Hashable, List, TypeVar
 
 K = TypeVar("K", bound=Hashable)
@@ -97,3 +100,52 @@ class RandomEvictionCache(Generic[K, V]):
         self._map.clear()
         self._keys.clear()
         self._vals.clear()
+
+
+class LRUCache(Generic[K, V]):
+    """Bounded map with true least-recently-used eviction (the ledger
+    root's entry cache: its access pattern is the txset working set,
+    where LRU beats random eviction). O(1) get/put via OrderedDict
+    move-to-end."""
+
+    def __init__(self, max_size: int) -> None:
+        assert max_size > 0
+        self._max = max_size
+        self._od: "OrderedDict[K, V]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._od)
+
+    def __contains__(self, k: K) -> bool:
+        return k in self._od
+
+    def get(self, k: K) -> V:
+        v = self._od[k]
+        self._od.move_to_end(k)
+        return v
+
+    def maybe_get(self, k: K):
+        od = self._od
+        if k not in od:
+            self.misses += 1
+            return None
+        self.hits += 1
+        od.move_to_end(k)
+        return od[k]
+
+    def put(self, k: K, v: V) -> None:
+        od = self._od
+        if k in od:
+            od[k] = v
+            od.move_to_end(k)
+            return
+        while len(od) >= self._max:
+            od.popitem(last=False)
+            self.evictions += 1
+        od[k] = v
+
+    def clear(self) -> None:
+        self._od.clear()

@@ -2,8 +2,8 @@
 
 Copied (`Span`, `_NoopSpan`, `tracer_span`, `tracer_instant`, `Tracer`,
 `FlightRecorder`) from `stellar_core_tpu/util/tracing.py` at commit
-abe2377; carry a fix in either copy to the other. `app_span`, which needs
-an `Application`, comes with the node stack.
+abe2377, and `app_span` at commit 6dc7ba8; carry a fix in either copy to
+the other.
 
 - `Tracer`: nested spans with tags in a bounded ring buffer. Disabled
   (the default) a span is one attribute check, so the instrumentation
@@ -114,6 +114,13 @@ def tracer_span(tracer, name: str, cat: str = "core", **tags):
 def tracer_instant(tracer, name: str, cat: str = "core", **tags) -> None:
     if tracer is not None and tracer.enabled:
         tracer.instant(name, cat, **tags)
+
+
+def app_span(app, name: str, cat: str = "core", **tags):
+    """Span against `app.tracer`, tolerating apps (test doubles, partial
+    wirings) that have no tracer at all — the instrumentation sites must
+    never require one."""
+    return tracer_span(getattr(app, "tracer", None), name, cat, **tags)
 
 
 class Tracer:

@@ -337,7 +337,7 @@ def test_add_batch_is_main_thread_only(tmp_path):
 
 def _account_entry(i, balance):
     sk = SecretKey.from_seed(bytes([i & 0xFF]) + b"\x51" * 31)
-    return make_account_entry(X.PublicKey.ed25519(sk.public_key), balance, 1)
+    return make_account_entry(sk.public_key, balance, 1)
 
 
 def _contains_key(bucket, entry):

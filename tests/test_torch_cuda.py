@@ -58,6 +58,7 @@ from stellar_core_tpu_torch.testing.vectors import _vectors
 from stellar_core_tpu_torch.util.faults import FaultInjector, InjectedFault
 from stellar_core_tpu_torch.util.metrics import MetricsRegistry
 from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+from stellar_core_tpu_torch.xdr import PublicKey
 
 pytestmark = pytest.mark.cuda
 
@@ -78,7 +79,7 @@ def _triples(n: int, seed: int = 11):
         sig = bytearray(keys[i % 8].sign(msg))
         if i % 7 == 6:
             sig[int(rng.integers(0, 64))] ^= 4
-        out.append((keys[i % 8].public_key, bytes(sig), msg))
+        out.append((keys[i % 8].public_key.key_bytes, bytes(sig), msg))
     return out
 
 
@@ -311,7 +312,8 @@ def test_cuda_async_burst_launches_once(card):
     triples = _triples(120, seed=21)
     want = CpuSigVerifier().verify_many(triples)
     before = E.LAUNCHES
-    futs = [v.enqueue(*t) for t in triples]
+    futs = [v.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples]
     v.flush()
     deadline = clock.now() + 60
     while not all(f.done() for f in futs) and clock.now() < deadline:
@@ -485,3 +487,46 @@ def test_state_commitment_on_the_card(card):
         assert proof is not None and proof == twin.prove_entry(key)
         assert SC.light_client_verify(proof, eng.checkpoint(),
                                       b"\x4e" * 32) == (True, "ok")
+
+
+def _close_side(lm, blobs, upgrades=()):
+    """trim_invalid then value_externalized on one port side, from an
+    empty verify cache (the card and its twin share the process's
+    cache); returns the removed hashes and the applied frames."""
+    from torch_close_harness import PORT, close_one
+    K.flush_verify_cache()
+    return close_one(lm, PORT, blobs, upgrades)
+
+
+def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
+    """The ledger-close schedule of test_torch_ledger_close on a port
+    LedgerManager whose verifier and hasher are the card's
+    "cuda-resilient" stacks, against a twin on CpuSigVerifier and the
+    hashlib hasher: the same trimmed sets and every observed byte equal
+    after every close; each validation launches the verify kernel once
+    (one prewarm batch, or a lone transaction's check) and its close not
+    at all."""
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from torch_close_harness import Workload, make_port_side, observe
+    v = make_verifier("cuda-resilient")
+    h = make_hasher("cuda-resilient")
+    lm = make_port_side(str(tmp_path / "card"), "sqlite3://:memory:",
+                        verifier=v, hasher=h)
+    twin = make_port_side(str(tmp_path / "twin"), "sqlite3://:memory:")
+    w = Workload(lm)
+    E.LAUNCHES = S.LAUNCHES = 0
+    closes = 0
+    for build, ups in w.schedule():
+        blobs = [f.envelope_bytes() for f in build()]
+        e0 = E.LAUNCHES
+        removed, frames = _close_side(lm, blobs, ups)
+        assert E.LAUNCHES - e0 == 1, closes
+        t_removed, t_frames = _close_side(twin, blobs, ups)
+        assert removed == t_removed
+        got, want = observe(lm, frames), observe(twin, t_frames)
+        for k in got:
+            assert got[k] == want[k], (closes, k)
+        closes += 1
+    assert closes == 18 and S.LAUNCHES > 0
+    for side in (lm, twin):
+        side.app.bucket_manager.shutdown()

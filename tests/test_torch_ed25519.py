@@ -68,7 +68,7 @@ def _corpus(n: int, seed: int = 7):
         if i % 7 == 6:
             bit = int(rng.integers(0, 512))
             sig[bit // 8] ^= 1 << (bit % 8)
-        out.append((sk.public_key, bytes(sig), msg))
+        out.append((sk.public_key.key_bytes, bytes(sig), msg))
     return out
 
 

@@ -39,6 +39,7 @@ from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.ops import ed25519 as E
 from stellar_core_tpu_torch.util.faults import FaultInjector
 from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+from stellar_core_tpu_torch.xdr import PublicKey
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,7 +64,7 @@ def _batch(n, n_keys=6, tag=b"fleet"):
     for i in range(n):
         sk = sks[i % n_keys]
         m = tag + b"-%04d" % i
-        out.append((sk.public_key, sk.sign(m), m))
+        out.append((sk.public_key.key_bytes, sk.sign(m), m))
     return out
 
 
@@ -329,7 +330,8 @@ def test_a_raising_member_raises_and_counts_against_every_participant(
     assert v.batches_dispatched == 0
     assert all(d["inflight"] == 0 for d in st.to_json()["devices"].values())
     # a flush keeps its batch queued, every future unresolved
-    futs = [v.enqueue(*t) for t in triples[:5]]
+    futs = [v.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples[:5]]
     calls.clear()
     with pytest.raises(RuntimeError, match="member 1 lost"):
         v.flush()

@@ -1,10 +1,13 @@
 """Import hygiene of the port: no module of `stellar_core_tpu_torch`, and
 not `chip_smoke.py`, imports JAX or anything of the JAX package.
 
-Two checks: every port module imported in a fresh interpreter leaves
-neither `jax` nor a `stellar_core_tpu` module in `sys.modules`, and no
-import statement in the port's sources (including the ones inside
-functions, which an import-time check cannot reach) names them.
+Three checks: every port module imported in a fresh interpreter leaves
+neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
+statement in the port's sources (including the ones inside functions,
+which an import-time check cannot reach) names them; and every relative
+import in the port's sources, inside functions too, resolves to a module
+of `stellar_core_tpu_torch/` (a lazy import of a module the port lacks
+fails only when its function first runs).
 """
 
 import ast
@@ -80,4 +83,67 @@ def test_port_source_names_no_jax_import(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             if _forbidden(node.module or ""):
                 bad.append(node.module)
+    assert not bad, bad
+
+
+def _module_file(parts) -> str:
+    """The file of the port module `parts` (a list of names under the
+    package root), or None."""
+    base = os.path.join(PKG, *parts)
+    for cand in (base + ".py", os.path.join(base, "__init__.py")):
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+def _defined_names(path: str) -> set:
+    """Top-level names a module binds (defs, classes, assignments,
+    imports)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0]
+                       for a in node.names)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                out.update(n.id for n in ast.walk(t)
+                           if isinstance(n, ast.Name))
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(p for p in _port_sources()
+                                        if p.startswith(PKG)),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_relative_imports_resolve(path):
+    rel = os.path.relpath(path, PKG)[:-3].split(os.sep)
+    pkg = rel[:-1]      # the package a module's relative imports start at
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0:
+            continue
+        up = node.level - 1
+        assert up <= len(pkg), (node.lineno, "import above the package")
+        base = pkg[:len(pkg) - up]
+        mod = base + (node.module.split(".") if node.module else [])
+        f = _module_file(mod)
+        if f is None:
+            bad.append((node.lineno, ".".join(mod)))
+            continue
+        names = None
+        for a in node.names:
+            if a.name == "*" or _module_file(mod + [a.name]) is not None:
+                continue
+            if names is None:
+                names = _defined_names(f)
+            if a.name not in names:
+                bad.append((node.lineno, ".".join(mod) + ":" + a.name))
     assert not bad, bad

@@ -49,7 +49,7 @@ def _batch(n, n_keys=6, tag=b"fleet"):
     for i in range(n):
         sk = sks[i % n_keys]
         m = tag + b"-%04d" % i
-        out.append((sk.public_key, sk.sign(m), m))
+        out.append((sk.public_key.key_bytes, sk.sign(m), m))
     return out
 
 

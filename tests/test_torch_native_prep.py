@@ -54,7 +54,7 @@ def _batch(n=200, seed=5):
     for i in range(n):
         sk = sks[i % 8]
         m = rnd.randbytes(rnd.randrange(0, 300))
-        pubs.append(sk.public_key)
+        pubs.append(sk.public_key.key_bytes)
         sigs.append(sk.sign(m))
         msgs.append(m)
     # adversarial rows

@@ -20,6 +20,7 @@ from stellar_core_tpu_torch.crypto.batch_verifier import (
 )
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.testing.vectors import _vectors
+from stellar_core_tpu_torch.xdr import PublicKey
 
 SMALL_LADDER = (4, 8, 16)
 
@@ -46,7 +47,7 @@ def _triples(n: int, seed: int):
         sig = bytearray(sk.sign(msg))
         if i % 5 == 4:
             sig[int(rng.integers(0, 64))] ^= 0x10
-        out.append((sk.public_key, bytes(sig), msg))
+        out.append((sk.public_key.key_bytes, bytes(sig), msg))
     out[1] = (out[1][0], out[1][1][:63], out[1][2])
     out[2] = (out[2][0][:31], out[2][1], out[2][2])
     return out
@@ -87,7 +88,8 @@ def test_prewarm_many_seeds_the_cache(verifier):
     # all hits now: nothing dispatches, and enqueue completes at once
     assert verifier.prewarm_many(triples) == want
     assert verifier.batches_dispatched == 1
-    futs = [verifier.enqueue(*t) for t in triples]
+    futs = [verifier.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples]
     assert verifier.pending() == 0
     assert [f.result() for f in futs] == want
     assert K.verify_cache_stats()["size"] == len(triples)
@@ -97,7 +99,8 @@ def test_enqueue_flush_resolves_futures(verifier):
     triples = _triples(11, seed=3)
     want = CpuSigVerifier().verify_many(triples)
     seen = []
-    futs = [verifier.enqueue(*t) for t in triples]
+    futs = [verifier.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples]
     futs[0].add_done_callback(seen.append)
     assert verifier.pending() == 11 and not any(f.done() for f in futs)
     with pytest.raises(RuntimeError):
@@ -115,7 +118,8 @@ def test_enqueue_self_flushes_at_max_pending():
     v = CudaSigVerifier(max_pending=6, device="cpu")
     v.BUCKETS = SMALL_LADDER
     triples = _triples(6, seed=4)
-    futs = [v.enqueue(*t) for t in triples]
+    futs = [v.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples]
     assert v.batches_dispatched == 1 and v.pending() == 0
     assert [f.result() for f in futs] == CpuSigVerifier().verify_many(
         triples)
@@ -126,7 +130,8 @@ def test_failed_dispatch_raises_and_keeps_the_batch(verifier, monkeypatch):
     """No CPU fallback on the port: the error reaches the caller and the
     batch stays queued, every future unresolved."""
     triples = _triples(5, seed=5)
-    futs = [verifier.enqueue(*t) for t in triples]
+    futs = [verifier.enqueue(PublicKey.ed25519(k), s, m)
+            for (k, s, m) in triples]
 
     def boom(_triples):
         raise RuntimeError("device lost")
@@ -163,7 +168,7 @@ def test_make_verifier_backends():
 def test_cpu_enqueue_is_cached():
     K.flush_verify_cache()
     t = _triples(3, seed=6)[0]
-    f = CpuSigVerifier().enqueue(*t)
+    f = CpuSigVerifier().enqueue(PublicKey.ed25519(t[0]), t[1], t[2])
     assert f.done() and f.result() == K.raw_verify(*t)
     assert K.verify_cache_stats()["size"] == 1
     K.flush_verify_cache()

@@ -94,14 +94,12 @@ def _signed_triples(n, bad=(), tag=b"msg"):
         sig = sk.sign(msg)
         if i in bad:
             sig = sig[:-1] + bytes([sig[-1] ^ 1])
-        out.append((sk.public_key, sig, msg))
+        out.append((sk.public_key.key_bytes, sig, msg))
     return out
 
 
-def _enqueue(side, v, triples):
-    if side is REF:
-        return [v.enqueue(PublicKey.ed25519(k), s, m) for (k, s, m) in triples]
-    return [v.enqueue(k, s, m) for (k, s, m) in triples]
+def _enqueue(v, triples):
+    return [v.enqueue(PublicKey.ed25519(k), s, m) for (k, s, m) in triples]
 
 
 def _crank_until_done(clock, futs, limit_s=60.0):
@@ -222,16 +220,16 @@ def _trip_during_drain(side):
     v.faults.configure("device.dispatch", count=1)
     triples = _signed_triples(6, bad={2, 4})
     rounds = []
-    futs = _enqueue(side, v, triples)
+    futs = _enqueue(v, triples)
     v.flush()                                   # dispatch fails, trips
     rounds.append(([f.result() for f in futs], v.breaker.to_json()))
     _flush_caches()                             # open: the fallback serves
-    futs = _enqueue(side, v, triples)
+    futs = _enqueue(v, triples)
     v.flush()
     rounds.append(([f.result() for f in futs], v.breaker.to_json()))
     clock.set_virtual_time(6.0)                 # half-open probe re-closes
     _flush_caches()
-    futs = _enqueue(side, v, triples)
+    futs = _enqueue(v, triples)
     v.flush()
     rounds.append(([f.result() for f in futs], v.breaker.to_json()))
     return rounds, _counts(reg), _by_backend(v.stats)
@@ -286,7 +284,7 @@ def test_flush_recompletes_futures_on_dispatch_exception():
 
     ref = RBV.TpuSigVerifier()
     ref.verify_many = boom
-    futs = _enqueue(REF, ref, triples)
+    futs = _enqueue(ref, triples)
     ref.flush()
     want = [f.result() for f in futs]
     assert want == [True, False, True, True]
@@ -296,7 +294,7 @@ def test_flush_recompletes_futures_on_dispatch_exception():
     v = BV.make_verifier("cuda-resilient", device="cpu", metrics=reg)
     v.primary.BUCKETS = (128,)
     v.primary.verify_many = boom
-    futs = _enqueue(PORT, v, triples)
+    futs = _enqueue(v, triples)
     with pytest.raises(RuntimeError, match="device gone"):
         v.flush()
     assert v.pending() == 4 and not any(f.done() for f in futs)
@@ -312,7 +310,7 @@ def test_flush_recompletes_futures_on_dispatch_exception():
     _flush_caches()
     bare = BV.CudaSigVerifier(device="cpu")
     bare.verify_many = boom
-    futs = _enqueue(PORT, bare, triples)
+    futs = _enqueue(bare, triples)
     with pytest.raises(RuntimeError, match="device gone"):
         bare.flush()
     assert bare.pending() == 4 and not any(f.done() for f in futs)
@@ -332,7 +330,7 @@ def test_async_dispatch_exception_requeues_the_batch():
     ref = RBV.make_verifier("tpu-async", rclock,
                             metrics=RefRegistry(now_fn=rclock.now))
     ref._inner.verify_many = boom
-    futs = _enqueue(REF, ref, triples)
+    futs = _enqueue(ref, triples)
     ref.flush()
     want = _crank_until_done(rclock, futs)
     assert want == [True, True, True, False, True]
@@ -344,7 +342,7 @@ def test_async_dispatch_exception_requeues_the_batch():
     fleet = v.inner
     fleet.BUCKETS = (128,)
     fleet.verify_many = boom
-    futs = _enqueue(PORT, v, triples)
+    futs = _enqueue(v, triples)
     v.flush()
     deadline = time.monotonic() + 60.0
     while v.pending() < 5 and time.monotonic() < deadline:
@@ -384,7 +382,7 @@ def test_cuda_resilient_raises_and_refuses_while_open():
     v.faults = FaultInjector(metrics=reg)
     v.faults.configure("device.dispatch", count=2)
     triples = _signed_triples(6, bad={2, 4})
-    futs = _enqueue(PORT, v, triples)
+    futs = _enqueue(v, triples)
     for _ in range(2):
         with pytest.raises(InjectedFault):
             v.flush()
@@ -472,7 +470,7 @@ def _threaded_queue(side):
     depths = []
     futs = []
     for t in _signed_triples(4, tag=b"queue"):
-        futs += _enqueue(side, v, [t])
+        futs += _enqueue(v, [t])
         depths.append(stats.queue["depth"])
     depth_gauge = reg.to_json()["verifier.queue.depth"]["value"]
     clock.set_virtual_time(clock.now() + 2.5)   # queue wait on app clock
@@ -653,7 +651,7 @@ def _stack(side, backend):
     if backend.startswith("cuda"):
         device.BUCKETS = (128,)
     triples = _signed_triples(100, bad=set(range(3, 100, 7)), tag=b"stack")
-    futs = _enqueue(side, v, triples)
+    futs = _enqueue(v, triples)
     v.flush()
     flushed = _crank_until_done(clock, futs)
     _flush_caches()
@@ -708,9 +706,9 @@ def test_async_cuda_stack_serves_bursts_in_turn():
                          metrics=reg)
     v.inner.BUCKETS = (128,)
     triples = _signed_triples(20, bad={4, 11}, tag=b"bursts")
-    first = _enqueue(PORT, v, triples[:10])
+    first = _enqueue(v, triples[:10])
     v.flush()
-    second = _enqueue(PORT, v, triples[10:])
+    second = _enqueue(v, triples[10:])
     v.flush()                                   # in flight: a no-op
     got = _crank_until_done(clock, first + second)
     assert got == [i not in (4, 11) for i in range(20)]
