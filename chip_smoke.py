@@ -7,8 +7,9 @@ one NVIDIA GPU.
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout (one nvcc per source, all started together), then
-drives three paths, the ledger that runs on the hash path, and the
-ledger manager's close that runs on both.
+drives three paths, the ledger that runs on the hash path, the ledger
+manager's close that runs on both, and the catchup that replays published
+checkpoints through that close.
 
 The verify path (`ed25519_verify`):
 
@@ -247,6 +248,65 @@ C5. a cold close: one C3-shaped set validated on the card, the verify
    after trimming, decisions and lcl_hash equal the twin's, and the root
    equals `from_scratch_root`. Prints the close's time beside C3's.
 
+Catchup (the port's work scheduler, history publish and catchup over
+the close path), each phase driven with the counts set to 0 just before
+it and read just after. Every node is a port node wired as the
+reference's Application wires one (sqlite in a file, a bucket directory,
+the persistent state's local HAS, a local-directory archive reached
+through `ProcessManager`); every card node runs `make_verifier` and
+`make_hasher("cuda-resilient")` (no fallback) from an empty verify cache:
+
+R1. a CPU node (the C verifier, `make_hasher("cpu")`) closes the history
+   through `value_externalized`, each set validated by `trim_invalid` as
+   in C2/C3: ledger 2 funds 100 senders in one 100-operation transaction,
+   ledger 3 arms them (19 more signers, a medium threshold of 20), and
+   ledgers 4-131 carry 100 payments to the root, each signed by 20 keys
+   (`replay_bench`'s multisig mix at pubnet's checkpoint frequency, 64).
+   Checkpoints 63 and 127 publish; the archive's layout is checked as
+   `test_catchup.py::test_publish_layout` checks it (the HAS, the four
+   categories, every bucket it names). Prints the closes' p50, the
+   publishes' seconds and the archive's bytes. This node is the oracle of
+   R2-R5;
+R2. a fresh card node catches up complete: SUCCESS at 127; every ledger's
+   hash, the bucket-list hash and the commitment root equal the
+   publisher's; the verify launches per drain equal the count derived
+   from the archive alone (checkpoint 63's master-key drain, its re-drain
+   after ledger 3 adds the signers, checkpoint 127's drain: 1, 14 and 16
+   launches), none inside a replayed close; every distinct triple
+   verified on the card exactly once and none on the CPU; SHA-256
+   launches per close as derived from the bucket list (L3's rule).
+   Prints ledgers/s, transactions/s and signatures/s end to end, each
+   checkpoint's spans (`catchup.load_files`, `catchup.txset_parse`,
+   `catchup.sig_prep`, `crypto.verify_many`, the mean
+   `catchup.apply_ledger`), the drains' sigs/s, the full collections, and
+   the card's busy share over the drains from a profiled replay of them;
+R3. a node restarted over R2's SQL file, bucket directory and persistent
+   state: LCL 127 and a bucket list that hashes to its header's; the
+   commitment's first root, computed on the card, equals the
+   publisher's; it closes value 128 cold (one verify launch a
+   transaction) to the publisher's hash;
+R4. a fresh card node at genesis, configured to catch up the last
+   checkpoint (CATCHUP_RECENT 64: a minimal catchup to a checkpoint tip
+   would apply buckets at 127 and replay nothing), hears values 128-131:
+   it enters LM_CATCHING_UP_STATE with 4 values buffered, applies the
+   buckets at 63, replays 64-127 behind one 16-launch drain, then closes
+   128-131 from the buffer, cold (one launch a transaction), and ends
+   synced at 131 with the publisher's hash. Prints the bucket-apply's
+   seconds and the replay's ledgers/s;
+R5. faults, each on a fresh card node over its own copy of the archive,
+   as R4 catches up: (a) one byte of checkpoint 127's ledger file
+   flipped: VerifyLedgerChainWork fails, nothing is applied or launched;
+   (b) one byte of the first signature of ledger 64's first transaction
+   flipped in the transactions file: the catchup fails at 64 (its value
+   no longer matches the set), LCL 63, and the card's decision on the
+   flipped triple is False, as the C verifier's; (c) `device.dispatch`
+   fires in checkpoint 127's drain: the drain raises, the catchup fails
+   at LCL 63 (a failed checkpoint is not retried), the resilient layer's
+   meter counts it, nothing is verified on the CPU.
+   (`verify.device-lost` would not fail it: on one card the fleet has one
+   member, whose loss the fault point leaves alone, and on more members
+   it degrades the fleet.) Times nothing.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -257,8 +317,9 @@ per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's and C2-C5's, the sha256 entry's the
-hash main path's, L2-L4's and C1-C5's, each split in `launches_by_path`)
+launches are the verify main path's, C2-C5's and R2-R5's, the sha256
+entry's the hash main path's, L2-L4's, C1-C5's and R2-R5's, each split
+in `launches_by_path`, R2-R5 under `catchup`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -393,6 +454,19 @@ CLOSE_MAX_TX_SET_SIZE = 10_000
 CLOSE_SENDERS, CLOSE_TXS, CLOSE_SIGS = 200, 100, 20
 C3_CLOSES, C4_CLOSES = 64, 32
 CLOSE_CORRUPT_EVERY = 7
+# the catchup phases (R1-R5): replay_bench's multisig mix (bench.py:339-470,
+# CLOSE_TXS transactions a ledger with CLOSE_SIGS signatures each) at
+# pubnet's checkpoint frequency of 64 (history/checkpoints.py:11) instead
+# of the bench's 8. Ledger 2 funds CLOSE_TXS senders, ledger 3 arms them,
+# every later ledger up to R_TOP carries their multisig payments; the
+# checkpoints up to R_TIP are published and the values after it kept for
+# R3 and R4. R4 catches up the last checkpoint (R_RECENT ledgers) over
+# the bucket list of the one before it. The network is LEDGER_NETWORK_ID's.
+R_FREQ = 64
+R_TIP = 2 * R_FREQ - 1
+R_TOP = R_TIP + 4
+R_RECENT = R_FREQ
+R_PASSPHRASE = "Test SDF Network ; September 2015"
 
 
 def p99(samples) -> float:
@@ -2577,12 +2651,14 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
 class CloseTraffic:
     """The reference bench's senders (`replay_bench`, bench.py:339-468)
     built with the port's TestAccount against the card side's state:
-    CLOSE_SENDERS senders, the first CLOSE_TXS armed with 19 extra signers
-    and a medium threshold of 20, the rest with one extra signer and a
-    threshold of 2. Every key comes from SecretKey.from_seed; every
-    CLOSE_CORRUPT_EVERY-th payment has one signature corrupted."""
+    `senders` senders (CLOSE_SENDERS), the first CLOSE_TXS armed with 19
+    extra signers and a medium threshold of 20, the rest with one extra
+    signer and a threshold of 2. Every key comes from SecretKey.from_seed;
+    every `corrupt_every`-th payment (CLOSE_CORRUPT_EVERY; 0 for none) has
+    one signature corrupted."""
 
-    def __init__(self, lm, root_sk):
+    def __init__(self, lm, root_sk, senders: int = CLOSE_SENDERS,
+                 corrupt_every: int = CLOSE_CORRUPT_EVERY):
         from stellar_core_tpu_torch import testing as T
         from stellar_core_tpu_torch.crypto.keys import SecretKey
         from stellar_core_tpu_torch.xdr import LedgerKey
@@ -2600,12 +2676,13 @@ class CloseTraffic:
         shim = Shim()
         self.root = T.TestAccount(shim, root_sk)
         self.senders = [T.TestAccount(shim, SecretKey.from_seed(
-            bytes([7, i & 0xFF] + [11] * 30))) for i in range(CLOSE_SENDERS)]
+            bytes([7, i & 0xFF] + [11] * 30))) for i in range(senders)]
         self.extra = [[SecretKey.from_seed(bytes([201 + j, i & 0xFF]
                                                  + [7] * 30))
                        for j in range((CLOSE_SIGS if i < CLOSE_TXS else 2)
                                       - 1)]
-                      for i in range(CLOSE_SENDERS)]
+                      for i in range(senders)]
+        self.corrupt_every = corrupt_every
         self.corrupted = set()
         self.k = 0
 
@@ -2623,7 +2700,7 @@ class CloseTraffic:
     def _signed(self, s, ks, dest, amount):
         f = s.tx([s.op_payment(dest, amount)], extra_signers=ks)
         self.k += 1
-        if self.k % CLOSE_CORRUPT_EVERY == 0:
+        if self.corrupt_every and self.k % self.corrupt_every == 0:
             ds = f.signatures[1 + self.k % len(ks)]
             ds.signature = ds.signature[:9] + bytes(
                 [ds.signature[9] ^ 0x10]) + ds.signature[10:]
@@ -2881,6 +2958,748 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
     return out
 
 
+# --- the catchup phases (R1-R5): publish, catch up on the card, restart --
+
+def r_node(tmp: str, name: str, archive: str, verifier, hasher,
+           writable: bool = False, recent: int = 0, metrics=None,
+           tracer=None, recorder=None, faults=None):
+    """A started port node, wired as the reference's Application wires
+    one (`main/application.py` is not ported): sqlite in `tmp`/`name`.db,
+    buckets in `tmp`/`name`-buckets (so a second node of the same name
+    restarts over the first one's files), the local-directory archive
+    `archive`, and the verifier and hasher it is handed. Like
+    `Application.start`, it restores the last known ledger or starts a
+    new one. `recent` > 0 makes a gap's catchup a recent one of that many
+    ledgers (minimal otherwise)."""
+    from types import SimpleNamespace
+    from stellar_core_tpu_torch.bucket import BucketManager
+    from stellar_core_tpu_torch.catchup.catchup_manager import CatchupManager
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.database.database import Database
+    from stellar_core_tpu_torch.history.archive import HistoryArchive
+    from stellar_core_tpu_torch.history.history_manager import HistoryManager
+    from stellar_core_tpu_torch.ledger import state_commitment as SC
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerManager
+    from stellar_core_tpu_torch.main.config import Config
+    from stellar_core_tpu_torch.main.persistent_state import PersistentState
+    from stellar_core_tpu_torch.process.process_manager import ProcessManager
+    from stellar_core_tpu_torch.util.faults import FaultInjector
+    from stellar_core_tpu_torch.util.status_manager import StatusManager
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    from stellar_core_tpu_torch.work.scheduler import WorkScheduler
+    db_file = os.path.join(tmp, name + ".db")
+    cfg = Config()
+    cfg.NETWORK_PASSPHRASE = R_PASSPHRASE
+    cfg.NODE_SEED = SecretKey.from_seed(sha256(name.encode()))
+    cfg.DATABASE = "sqlite3://" + db_file
+    cfg.CHECKPOINT_FREQUENCY = R_FREQ
+    cfg.CATCHUP_RECENT = recent
+    cfg.TESTING_UPGRADE_MAX_TX_SET_SIZE = CLOSE_MAX_TX_SET_SIZE
+    arch = HistoryArchive.local_dir("r", archive)
+    cfg.HISTORY = {"r": {"get": arch.get_tmpl, "mkdir": arch.mkdir_tmpl}}
+    if writable:
+        cfg.HISTORY["r"]["put"] = arch.put_tmpl
+    clock = VirtualClock(ClockMode.VIRTUAL_TIME)
+    db = Database(db_file, metrics)
+    app = SimpleNamespace(
+        clock=clock, config=cfg, database=db,
+        persistent_state=PersistentState(db), metrics=metrics,
+        tracer=tracer, flight_recorder=recorder,
+        faults=faults or FaultInjector(), sig_verifier=verifier,
+        batch_hasher=hasher,
+        bucket_manager=BucketManager(os.path.join(tmp, name + "-buckets")),
+        status_manager=StatusManager(),
+        network_root_key=lambda: SecretKey.from_seed(
+            sha256(cfg.network_id)))
+    check(cfg.network_id == LEDGER_NETWORK_ID, "R: the network's id")
+    app.state_commitment = SC.StateCommitmentEngine(app)
+    app.ledger_manager = LedgerManager(app)
+    app.work_scheduler = WorkScheduler(clock)
+    app.process_manager = ProcessManager(clock,
+                                         cfg.MAX_CONCURRENT_SUBPROCESSES)
+    app.history_manager = HistoryManager(app)
+    app.catchup_manager = CatchupManager(app)
+
+    def crank() -> int:
+        # Application.crank: flush what the crank's handlers enqueued
+        n = clock.crank(False)
+        verifier.flush()
+        return n
+
+    app.crank = crank
+    if not app.ledger_manager.load_last_known_ledger():
+        app.ledger_manager.start_new_ledger()
+    app.history_manager.publish_queued_history()
+    return app
+
+
+def r_crank_until(app, pred, timeout_s: float) -> bool:
+    """Crank until pred(); an idle crank waits 0.5 ms for the archive's
+    subprocesses to post their exit codes."""
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            return False
+        if not app.crank():
+            time.sleep(0.0005)
+    return True
+
+
+def r_stop(app) -> None:
+    """Stop a node: its subprocesses, merges, temporary files and SQL."""
+    app.process_manager.shutdown()
+    app.bucket_manager.shutdown()
+    app.history_manager.publish_queue_dir.remove()
+    app.database.close()
+
+
+def lcd_from_db(db, seq: int):
+    """The value the publisher externalized for `seq`, rebuilt from its
+    SQL store as consensus would hand it to another node."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    header = X.LedgerHeader.from_xdr(db.execute(
+        "SELECT data FROM ledgerheaders WHERE ledgerseq = ?",
+        (seq,)).fetchone()[0])
+    frames = [TransactionFrame.make_from_wire(
+        LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(r[0]))
+        for r in db.execute("SELECT txbody FROM txhistory WHERE "
+                            "ledgerseq = ? ORDER BY txindex",
+                            (seq,)).fetchall()]
+    return LedgerCloseData(seq, TxSetFrame(
+        LEDGER_NETWORK_ID, header.previousLedgerHash, frames),
+        header.scpValue)
+
+
+def r_hashes(db, lo: int, hi: int) -> dict:
+    return dict(db.execute(
+        "SELECT ledgerseq, ledgerhash FROM ledgerheaders WHERE ledgerseq "
+        "BETWEEN ? AND ? ORDER BY ledgerseq", (lo, hi)).fetchall())
+
+
+def archive_ledgers(archive: str, checkpoint: int) -> dict:
+    """seq -> the signature count of each of its transactions, read from
+    the archive's transactions file of `checkpoint` (gunzipped here)."""
+    import gzip
+    from stellar_core_tpu_torch.history.archive import category_path
+    from stellar_core_tpu_torch.util.xdrstream import XDRInputFileStream
+    from stellar_core_tpu_torch.xdr import TransactionHistoryEntry
+    gz = os.path.join(archive, category_path("transactions", checkpoint,
+                                             ".xdr.gz"))
+    with tempfile.NamedTemporaryFile(suffix=".xdr") as fh:
+        with gzip.open(gz, "rb") as g:
+            fh.write(g.read())
+        fh.flush()
+        with XDRInputFileStream(fh.name) as ins:
+            return {e.ledgerSeq: [len(t.value.signatures)
+                                  for t in e.txSet.txs]
+                    for e in ins.read_all(TransactionHistoryEntry)}
+
+
+def r_drains(archive: str, first: int, chunk: int) -> list:
+    """The catchup's verify drains from ledger `first` to R_TIP, derived
+    from the archive alone: (signatures, launches) per drain. A
+    checkpoint drains every signature whose signer exists when it starts;
+    the senders' extra signers exist from ledger 3 on (its transactions
+    add them), so from genesis checkpoint 63 first drains one master-key
+    signature a transaction, and after ledger 3 re-drains the other
+    signatures of ledgers 4-63. A drain launches once per `chunk` (the
+    verifier's largest bucket) or part of one."""
+    drains = []
+    for c in range(R_FREQ - 1, R_TIP + 1, R_FREQ):
+        if c < first:
+            continue
+        led = archive_ledgers(archive, c)
+        if first <= 3 and 3 in led:
+            drains.append(sum(len(v) for s, v in led.items()))
+            drains.append(sum(n - 1 for s, v in led.items() if s > 3
+                              for n in v))
+        else:
+            drains.append(sum(sum(v) for s, v in led.items()
+                              if s >= first))
+    return [(n, -(-n // chunk)) for n in drains]
+
+
+R_SPANS = ("catchup.load_files", "catchup.txset_parse", "catchup.sig_prep",
+           "crypto.verify_many", "catchup.apply_ledger")
+
+
+def r_spans(tr) -> dict:
+    """checkpoint -> span name -> (ms, count) for R_SPANS, the outermost
+    span of each name only, from the tracer's spans: a span without a
+    checkpoint tag belongs to the checkpoint whose files were loaded last
+    before it started."""
+    spans = sorted((s for s in tr.spans() if s.dur is not None),
+                   key=lambda s: s.t0)
+    by_sid = {s.sid: s for s in spans}
+    out: dict = {}
+    cur = None
+    for s in spans:
+        tags = s.tags or {}
+        if s.name == "catchup.load_files":
+            cur = tags.get("checkpoint")
+        c = tags.get("checkpoint", cur)
+        if s.name not in R_SPANS or c is None:
+            continue
+        p = by_sid.get(s.parent)
+        while p is not None and p.name != s.name:
+            p = by_sid.get(p.parent)
+        if p is not None:
+            continue
+        ms, n = out.setdefault(c, {}).get(s.name, (0.0, 0))
+        out[c][s.name] = (ms + s.dur * 1e3, n + 1)
+    return out
+
+
+def r_span_line(spans: dict) -> str:
+    parts = []
+    for c, d in sorted(spans.items()):
+        ms, n = d.get("catchup.apply_ledger", (0.0, 0))
+        parts.append("checkpoint %d: %s, catchup.apply_ledger mean %.1f ms"
+                     % (c, ", ".join("%s %.1f ms" % (k, d[k][0])
+                                     for k in R_SPANS[:-1] if k in d),
+                        ms / max(n, 1)))
+    return "; ".join(parts)
+
+
+class RProbe:
+    """What a card node's catchup launched, where: every drain through
+    `prewarm_many` (its triples, decisions, launches and seconds), the
+    triples the card's verify_many received, the verify and SHA-256
+    launches inside each close (each close's SHA-256 launches against
+    fresh_slots' derivation), and every call of the C verifier."""
+
+    def __init__(self, S, E, K, SC, app):
+        self.S, self.E, self.K, self.SC, self.app = S, E, K, SC, app
+        # drains: the triples each sent to the card, their decisions,
+        # its launches and seconds
+        self.drains, self.card_triples, self.closes = [], [], {}
+        self.cpu_calls, self.close_errors = [], []
+        self.st = {"hasher": app.batch_hasher, "seen": set(),
+                   "slot_hashes": [SC.ZERO_HASH] * 22}
+        v = app.sig_verifier
+        self._pw, self._vm = v.prewarm_many, v.primary.verify_many
+        self._close = app.ledger_manager.close_ledger
+        self._raw = (K.raw_verify, K.raw_verify_batch)
+
+    def __enter__(self):
+        S, E, K, app = self.S, self.E, self.K, self.app
+        v, lm = app.sig_verifier, app.ledger_manager
+
+        def prewarm(triples):
+            e0, c0, t0 = E.LAUNCHES, len(self.card_triples), \
+                time.perf_counter()
+            got = self._pw(triples)
+            decided = dict(zip(triples, got))
+            new = self.card_triples[c0:]
+            self.drains.append({"triples": new,
+                                "decisions": [decided[t] for t in new],
+                                "launches": E.LAUNCHES - e0,
+                                "s": time.perf_counter() - t0})
+            return got
+
+        def verify_many(triples):
+            self.card_triples.extend(triples)
+            return self._vm(triples)
+
+        def close(lcd):
+            e0, s0, t0 = E.LAUNCHES, S.LAUNCHES, time.perf_counter()
+            try:
+                self._close(lcd)
+            except Exception as e:
+                self.close_errors.append((lcd.ledger_seq, repr(e)))
+                raise
+            want = fresh_slots(S, self.SC, self.st,
+                               app.bucket_manager.bucket_list)
+            self.closes[lcd.ledger_seq] = (
+                E.LAUNCHES - e0, S.LAUNCHES - s0, want,
+                time.perf_counter() - t0, t0)
+
+        raw, raw_batch = self._raw
+        v.prewarm_many, v.primary.verify_many = prewarm, verify_many
+        lm.close_ledger = close
+        K.raw_verify = lambda *a: self.cpu_calls.append(1) or raw(*a)
+        K.raw_verify_batch = lambda t: (self.cpu_calls.append(len(t))
+                                        or raw_batch(t))
+        return self
+
+    def __exit__(self, *exc):
+        v = self.app.sig_verifier
+        v.prewarm_many, v.primary.verify_many = self._pw, self._vm
+        self.app.ledger_manager.close_ledger = self._close
+        self.K.raw_verify, self.K.raw_verify_batch = self._raw
+        return False
+
+    def sha_as_derived(self) -> bool:
+        return all(s == w for _e, s, w, _t, _t0 in self.closes.values())
+
+    def close_launches(self, lo: int, hi: int) -> list:
+        return [self.closes[s][0] for s in range(lo, hi + 1)]
+
+
+def card_stacks(metrics, tracer, recorder, faults=None) -> tuple:
+    """make_verifier and make_hasher("cuda-resilient") with the node's
+    metrics, tracer and flight recorder (no CPU fallback)."""
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    v = make_verifier("cuda-resilient", metrics=metrics, tracer=tracer,
+                      faults=faults, flight_recorder=recorder)
+    h = make_hasher("cuda-resilient", metrics=metrics, tracer=tracer,
+                    flight_recorder=recorder)
+    check(v.fallback is None and h.fallback is None,
+          "R: the card's stacks have no fallback")
+    return v, h
+
+
+def r_close(app, blobs: list) -> float:
+    """One close on the CPU publisher, as C2/C3 build one: the set's
+    TxSetFrame.trim_invalid (nothing is removed: the R history carries no
+    corrupted signature), then value_externalized; returns its ms."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    lm = app.ledger_manager
+    frames = [TransactionFrame.make_from_wire(
+        LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(b)) for b in blobs]
+    ts = TxSetFrame(LEDGER_NETWORK_ID, lm.lcl_hash, frames)
+    check(not ts.trim_invalid(lm.ltx_root(), app.sig_verifier),
+          "R1: a set loses no transaction in validation")
+    header = lm.root.get_header()
+    value = X.StellarValue(
+        txSetHash=ts.get_contents_hash(hasher=app.batch_hasher),
+        closeTime=header.scpValue.closeTime + 1, upgrades=[],
+        ext=X.StellarValueExt(0, None))
+    t0 = time.perf_counter()
+    lm.value_externalized(LedgerCloseData(header.ledgerSeq + 1, ts, value))
+    ms = (time.perf_counter() - t0) * 1e3
+    check(lm.last_closed_ledger_num() == header.ledgerSeq + 1,
+          "R1: close %d" % (header.ledgerSeq + 1))
+    return ms
+
+
+def r1_publish(S, E, K, tmp: str, card: str) -> dict:
+    """R1 of the module docstring; returns the publisher and its archive."""
+    from stellar_core_tpu_torch import testing as T
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from stellar_core_tpu_torch.history.archive import category_path
+    from stellar_core_tpu_torch.history.archive_state import (
+        HistoryArchiveState,
+    )
+    archive = os.path.join(tmp, "archive")
+    os.makedirs(archive)
+    pub = r_node(tmp, "publisher", archive, make_verifier("cpu"),
+                 make_hasher("cpu"), writable=True)
+    traffic = CloseTraffic(pub.ledger_manager,
+                           T.root_secret_key(LEDGER_NETWORK_ID),
+                           senders=CLOSE_TXS, corrupt_every=0)
+    hm = pub.history_manager
+    publish_s = []
+    publish = hm.publish_queued_history
+
+    def timed_publish():
+        t0 = time.perf_counter()
+        try:
+            return publish()
+        finally:
+            publish_s.append(time.perf_counter() - t0)
+
+    hm.publish_queued_history = timed_publish
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    close_ms, roots = [], {}
+    t0 = time.perf_counter()
+    with GcPauses() as gcp:
+        for seq in range(2, R_TOP + 1):
+            blobs = (traffic.fund(0) if seq == 2 else traffic.arm()
+                     if seq == 3 else traffic.multisig(seq))
+            close_ms.append(r_close(pub, blobs))
+            roots[seq] = pub.state_commitment.root
+            pub.crank()       # runs a queued checkpoint's publish
+    wall = time.perf_counter() - t0
+    check(hm.publish_queue() == [] and hm.published_checkpoints == 2,
+          "R1: checkpoints %d and %d published" % (R_FREQ - 1, R_TIP))
+    check(E.LAUNCHES == S.LAUNCHES == 0, "R1: the publisher launched "
+          "nothing")
+    # the archive's layout, as test_catchup.py::test_publish_layout reads it
+    with open(os.path.join(archive, ".well-known",
+                           "stellar-history.json")) as fh:
+        has = HistoryArchiveState.from_json(fh.read())
+    check(has.current_ledger == R_TIP, "R1: the archive's tip is %d" % R_TIP)
+    for c in (R_FREQ - 1, R_TIP):
+        for cat in ("ledger", "transactions", "results", "scp"):
+            check(os.path.exists(os.path.join(
+                archive, category_path(cat, c, ".xdr.gz"))),
+                "R1: %s file of checkpoint %d" % (cat, c))
+    for hh in has.bucket_hashes():
+        check(os.path.exists(os.path.join(
+            archive, "bucket", hh[0:2], hh[2:4], hh[4:6],
+            "bucket-%s.xdr.gz" % hh)), "R1: bucket %s" % hh[:8])
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, fs in os.walk(archive) for f in fs)
+    log("R1 publish (%s): a CPU node closed ledgers 2-%d (%d senders, "
+        "then %d payments of %d signatures a ledger) in %.1f s; close p50 "
+        "%.1f ms, p99 %.1f ms (p99 of %d samples is their maximum); "
+        "publishes of checkpoints %d and %d %s s; the archive %d bytes "
+        "(%d buckets named by its HAS); %s"
+        % (card, R_TOP, CLOSE_TXS, CLOSE_TXS, CLOSE_SIGS, wall,
+           float(np.percentile(close_ms, 50)), p99(close_ms), len(close_ms),
+           R_FREQ - 1, R_TIP,
+           "/".join("%.2f" % x for x in publish_s if x > 1e-3), size,
+           len(has.bucket_hashes()), gcp.line()))
+    header = r_header(pub, R_TIP)
+    return {"pub": pub, "archive": archive, "root": roots[R_TIP],
+            "bucket_list": header.bucketListHash}
+
+
+def r_header(app, seq: int):
+    from stellar_core_tpu_torch import xdr as X
+    return X.LedgerHeader.from_xdr(app.database.execute(
+        "SELECT data FROM ledgerheaders WHERE ledgerseq = ?",
+        (seq,)).fetchone()[0])
+
+
+def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
+                card: str) -> dict:
+    """R2 of the module docstring: a complete catchup on the card."""
+    from stellar_core_tpu_torch.catchup import CatchupConfiguration
+    from stellar_core_tpu_torch.crypto.batch_verifier import CudaSigVerifier
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    from stellar_core_tpu_torch.work.basic_work import State
+    pub, archive = r1["pub"], r1["archive"]
+    reg, tr = MetricsRegistry(), Tracer()
+    rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+    v, h = card_stacks(reg, tr, rec)
+    node = r_node(tmp, "r2", archive, v, h, metrics=reg, tracer=tr,
+                  recorder=rec)
+    want = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1])
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    tr.enable(capacity=1 << 16)
+    t0 = time.perf_counter()
+    with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp:
+        work = node.catchup_manager.start_catchup(
+            CatchupConfiguration.complete())
+        check(r_crank_until(node, work.is_done, 900.0),
+              "R2: the catchup finished")
+    wall = time.perf_counter() - t0
+    tr.disable()
+    lm = node.ledger_manager
+    check(work.state == State.SUCCESS and lm.is_synced()
+          and lm.last_closed_ledger_num() == R_TIP,
+          "R2: SUCCESS at LCL %d" % R_TIP)
+    check(r_hashes(node.database, 1, R_TIP) == r_hashes(pub.database, 1,
+                                                        R_TIP),
+          "R2: every replayed ledger's hash == the publisher's")
+    check(node.bucket_manager.get_hash() == r1["bucket_list"]
+          and node.state_commitment.root == r1["root"],
+          "R2: the bucket-list hash and commitment root == the "
+          "publisher's at %d" % R_TIP)
+    launches = [d["launches"] for d in pr.drains if d["triples"]]
+    check([len(d["triples"]) for d in pr.drains if d["triples"]]
+          == [n for n, _l in want] and launches == [n for _n, n in want]
+          and E.LAUNCHES == sum(launches),
+          "R2: verify launches per drain %s as derived from the archive "
+          "(signatures, launches) %s" % (launches, want))
+    check(len(pr.card_triples) == len(set(pr.card_triples)),
+          "R2: every distinct triple verified on the card exactly once "
+          "(%d)" % len(pr.card_triples))
+    check(not any(pr.close_launches(2, R_TIP)),
+          "R2: no verify launch inside a replayed close")
+    check(pr.cpu_calls == [], "R2: no signature verified on the CPU")
+    check(pr.sha_as_derived(), "R2: SHA-256 launches per close as derived "
+          "from the bucket list (%d in all)" % S.LAUNCHES)
+    ledgers = R_TIP - 1
+    per_tx = [v for c in (R_FREQ - 1, R_TIP)
+              for v in archive_ledgers(archive, c).values()]
+    txs, sigs = sum(len(v) for v in per_tx), sum(sum(v) for v in per_tx)
+    drain_n = len(pr.card_triples)
+    drain_s = sum(d["s"] for d in pr.drains)
+    log("R2 complete catchup (%s): %d ledgers in %.1f s = %.2f ledgers/s, "
+        "%.0f transactions/s, %.0f signatures/s end to end; verify "
+        "launches %d (drains %s), none in the %d replayed closes; SHA-256 "
+        "launches %d; the drains %d triples in %.2f s = %.0f sigs/s; %s"
+        % (card, ledgers, wall, ledgers / wall, txs / wall, sigs / wall,
+           E.LAUNCHES, launches, len(pr.closes), S.LAUNCHES, drain_n,
+           drain_s, drain_n / drain_s, gcp.line()))
+    log("R2 spans: " + r_span_line(r_spans(tr)))
+    out = {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+    # the card's busy share: the drains replayed from an empty cache
+    drains = [d for d in pr.drains if d["triples"]]
+    l0 = E.LAUNCHES
+    prof = profile_drain(
+        lambda: [(K.flush_verify_cache(), v.prewarm_many(d["triples"]))[1]
+                 for d in drains], "ed25519_verify_kernel", cpu=False)
+    check(prof["result"] == [d["decisions"] for d in drains]
+          and E.LAUNCHES - l0 == sum(launches),
+          "R2 replay: the same decisions in %d launches" % sum(launches))
+    log_profile("R2 replay of the %d drains (CUDA activity only)"
+                % len(drains), prof, "ed25519_verify_kernel")
+    if prof["device_events"]:
+        log("R2 card busy %.3f ms over the drains' %.1f ms = %.2f%%, over "
+            "the catchup's %.1f s = %.3f%%"
+            % (prof["busy_ms"], drain_s * 1e3,
+               100.0 * prof["busy_ms"] / (drain_s * 1e3), wall,
+               100.0 * prof["busy_ms"] / (wall * 1e3)))
+    r_stop(node)
+    return out
+
+
+def r3_restart(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
+               card: str) -> dict:
+    """R3 of the module docstring: a node restarted over R2's files."""
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    pub = r1["pub"]
+    reg, tr = MetricsRegistry(), Tracer()
+    rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+    v, h = card_stacks(reg, tr, rec)
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    t0 = time.perf_counter()
+    node = r_node(tmp, "r2", r1["archive"], v, h, metrics=reg, tracer=tr,
+                  recorder=rec)
+    restart_s = time.perf_counter() - t0
+    lm, bm = node.ledger_manager, node.bucket_manager
+    check(lm.last_closed_ledger_num() == R_TIP and lm.is_synced()
+          and bm.get_hash() == lm.lcl_header.bucketListHash
+          == r1["bucket_list"],
+          "R3: load_last_known_ledger gives LCL %d and the bucket list its "
+          "header commits to" % R_TIP)
+    check(E.LAUNCHES == S.LAUNCHES == 0, "R3: the restart launches nothing")
+    with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp:
+        want = fresh_slots(S, SC, pr.st, bm.bucket_list)
+        t0 = time.perf_counter()
+        root = node.state_commitment.update_root(bm.bucket_list)
+        root_ms = (time.perf_counter() - t0) * 1e3
+        check(root == r1["root"] and S.LAUNCHES == want,
+              "R3: the first commitment root, computed on the card in %d "
+              "launches, == the publisher's" % want)
+        lm.value_externalized(lcd_from_db(pub.database, R_TIP + 1))
+    e, s, ws, close_s, _t0 = pr.closes[R_TIP + 1]
+    txs = len(lcd_from_db(pub.database, R_TIP + 1).tx_set.frames)
+    check(lm.lcl_hash.hex() == r_hashes(pub.database, R_TIP + 1,
+                                        R_TIP + 1)[R_TIP + 1],
+          "R3: ledger %d's hash == the publisher's" % (R_TIP + 1))
+    check(e == txs and s == ws and pr.cpu_calls == [],
+          "R3: the cold close launches verify once per transaction (%d of "
+          "%d) and SHA-256 as derived (%d of %d), none on the CPU"
+          % (e, txs, s, ws))
+    log("R3 restart (%s): load_last_known_ledger over the SQL file and "
+        "bucket directory %.2f s; the first commitment root %.1f ms in %d "
+        "launches; ledger %d closed cold in %.1f ms (%d verify launches); "
+        "%s" % (card, restart_s, root_ms, want, R_TIP + 1, close_s * 1e3,
+                e, gcp.line()))
+    r_stop(node)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+def r4_gap(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
+           card: str) -> dict:
+    """R4 of the module docstring: a node at genesis hears the values
+    after the archive's tip."""
+    from stellar_core_tpu_torch.crypto.batch_verifier import CudaSigVerifier
+    from stellar_core_tpu_torch.historywork import apply_works as AW
+    from stellar_core_tpu_torch.ledger.ledger_manager import (
+        LedgerManagerState,
+    )
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    pub, archive = r1["pub"], r1["archive"]
+    reg, tr = MetricsRegistry(), Tracer()
+    rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+    v, h = card_stacks(reg, tr, rec)
+    node = r_node(tmp, "r4", archive, v, h, recent=R_RECENT, metrics=reg,
+                  tracer=tr, recorder=rec)
+    lm, cm = node.ledger_manager, node.catchup_manager
+    first = R_TIP - R_RECENT + 1
+    want = r_drains(archive, first, CudaSigVerifier.BUCKETS[-1])
+    buffered = [lcd_from_db(pub.database, s)
+                for s in range(R_TIP + 1, R_TOP + 1)]
+    apply_s = []
+    run = AW.ApplyBucketsWork.on_run
+
+    def timed_apply(self):
+        t0 = time.perf_counter()
+        try:
+            return run(self)
+        finally:
+            apply_s.append(time.perf_counter() - t0)
+
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    AW.ApplyBucketsWork.on_run = timed_apply
+    t0 = time.perf_counter()
+    try:
+        with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp:
+            for lcd in buffered:
+                lm.value_externalized(lcd)
+            check(lm.state == LedgerManagerState.LM_CATCHING_UP_STATE
+                  and cm.buffered_count() == len(buffered)
+                  and cm.catchup_running(),
+                  "R4: catching up with %d values buffered"
+                  % len(buffered))
+            check(r_crank_until(node, lambda: not cm.catchup_running(),
+                                600.0), "R4: the catchup finished")
+    finally:
+        AW.ApplyBucketsWork.on_run = run
+    wall = time.perf_counter() - t0
+    check(lm.is_synced() and lm.last_closed_ledger_num() == R_TOP
+          and lm.lcl_hash.hex() == r_hashes(pub.database, R_TOP,
+                                            R_TOP)[R_TOP],
+          "R4: synced at %d with the publisher's hash" % R_TOP)
+    check(r_hashes(node.database, first, R_TOP)
+          == r_hashes(pub.database, first, R_TOP),
+          "R4: every ledger from %d == the publisher's" % first)
+    check(sorted(pr.closes) == list(range(first, R_TOP + 1))
+          and len(apply_s) == 1,
+          "R4: buckets applied once at %d, then ledgers %d-%d closed"
+          % (first - 1, first, R_TOP))
+    launches = [d["launches"] for d in pr.drains if d["triples"]]
+    txs = [len(lcd.tx_set.frames) for lcd in buffered]
+    check(launches == [n for _n, n in want]
+          and not any(pr.close_launches(first, R_TIP))
+          and pr.close_launches(R_TIP + 1, R_TOP) == txs
+          and E.LAUNCHES == sum(launches) + sum(txs),
+          "R4: verify launches: drains %s as derived %s, none in the "
+          "replayed closes, one per transaction in the buffered ones %s"
+          % (launches, want, pr.close_launches(R_TIP + 1, R_TOP)))
+    check(pr.cpu_calls == [] and pr.sha_as_derived(),
+          "R4: none on the CPU; SHA-256 per close as derived")
+    replay = [pr.closes[s] for s in range(first, R_TIP + 1)]
+    replay_s = replay[-1][4] + replay[-1][3] - replay[0][4]
+    log("R4 online catchup from a gap (%s): %d values buffered; buckets "
+        "applied at %d in %.2f s; ledgers %d-%d replayed in %.1f s = %.2f "
+        "ledgers/s (drains %s launches); the %d buffered closes cold, %s "
+        "launches, %s ms; %.1f s in all; %s"
+        % (card, len(buffered), first - 1, apply_s[0], first, R_TIP,
+           replay_s, (R_TIP - first + 1) / replay_s, launches,
+           len(buffered), pr.close_launches(R_TIP + 1, R_TOP),
+           "/".join("%.1f" % (pr.closes[s][3] * 1e3)
+                    for s in range(R_TIP + 1, R_TOP + 1)), wall,
+           gcp.line()))
+    r_stop(node)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+def flip_in_gz(path: str, find: bytes = b"", offset: int = 0) -> bytes:
+    """Flip one byte of a gzipped archive file, in its decompressed bytes:
+    at `offset`, or at `offset` into the first occurrence of `find`.
+    Returns the bytes at that place after the flip (64 of them)."""
+    import gzip
+    with gzip.open(path, "rb") as g:
+        raw = bytearray(g.read())
+    at = (raw.find(find) if find else 0)
+    check(at >= 0, "R5: the bytes to corrupt are in %s" % path)
+    raw[at + offset] ^= 0x01
+    with gzip.open(path, "wb") as g:
+        g.write(bytes(raw))
+    return bytes(raw[at:at + 64])
+
+
+def r5_faults(S, E, K, SC, tmp: str, r1: dict, flight_dir: str) -> dict:
+    """R5 of the module docstring: three faults, each on a fresh card node
+    over its own copy of the archive; nothing is timed."""
+    from stellar_core_tpu_torch.history.archive import category_path
+    from stellar_core_tpu_torch.util.faults import FaultInjector
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
+    from stellar_core_tpu_torch.work.basic_work import State
+    pub = r1["pub"]
+    out = {"verify": 0, "sha256": 0}
+    first = R_TIP - R_RECENT + 1
+    victim = lcd_from_db(pub.database, first).tx_set.frames[0]
+    for case in ("a", "b", "c"):
+        archive = os.path.join(tmp, "archive-" + case)
+        shutil.copytree(r1["archive"], archive)
+        reg, tr = MetricsRegistry(), Tracer()
+        rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
+        faults = FaultInjector(metrics=reg)
+        v, h = card_stacks(reg, tr, rec, faults=faults)
+        node = r_node(tmp, "r5" + case, archive, v, h, recent=R_RECENT,
+                      metrics=reg, tracer=tr, recorder=rec, faults=faults)
+        flipped = None
+        if case == "a":
+            flip_in_gz(os.path.join(archive, category_path(
+                "ledger", R_TIP, ".xdr.gz")), offset=40)
+        elif case == "b":
+            sig = victim.signatures[0].signature
+            flipped = flip_in_gz(os.path.join(archive, category_path(
+                "transactions", R_TIP, ".xdr.gz")), find=sig, offset=7)
+        else:
+            faults.configure("device.dispatch")
+        K.flush_verify_cache()
+        E.LAUNCHES = S.LAUNCHES = 0
+        with RProbe(S, E, K, SC, node) as pr:
+            work = node.catchup_manager.start_catchup()
+            check(r_crank_until(node, work.is_done, 600.0),
+                  "R5%s: the catchup finished" % case)
+        lcl = node.ledger_manager.last_closed_ledger_num()
+        check(work.state == State.FAILURE and pr.cpu_calls == [],
+              "R5%s: the catchup fails, nothing verified on the CPU" % case)
+        if case == "a":
+            check(lcl == 1 and not pr.closes and E.LAUNCHES == 0,
+                  "R5a: a flipped byte of checkpoint %d's ledger file fails "
+                  "VerifyLedgerChainWork; nothing applied or launched"
+                  % R_TIP)
+            what = "the ledger chain refused, LCL 1"
+        elif case == "b":
+            triple = (victim.source_account_id().key_bytes, flipped,
+                      victim.contents_hash())
+            decided = {t: d for dr in pr.drains
+                       for t, d in zip(dr["triples"], dr["decisions"])}
+            check(lcl == first - 1 and decided.get(triple) is False
+                  and K.raw_verify_batch([triple]) == [False]
+                  and [s for s, _e in pr.close_errors] == [first],
+                  "R5b: a flipped signature byte in ledger %d fails the "
+                  "catchup there, LCL %d; the card's decision on it False, "
+                  "as the C verifier's" % (first, first - 1))
+            what = "ledger %d failed (%s), LCL %d" % (
+                first, pr.close_errors[0][1][:60], lcl)
+        else:
+            m = {k: d["count"] for k, d in reg.to_json().items()
+                 if k.startswith(("crypto.", "fault."))
+                 and "count" in d}
+            check(lcl == first - 1 and E.LAUNCHES == 0 and not pr.closes
+                  and m.get("crypto.verify.dispatch-failure") == 1
+                  == m.get("fault.injected.device.dispatch"),
+                  "R5c: device.dispatch in checkpoint %d's drain fails the "
+                  "catchup at LCL %d, counted by the resilient layer's "
+                  "meter (%s)" % (R_TIP, first - 1, m))
+            what = "the drain raised, LCL %d; meters %s" % (lcl, m)
+        log("R5%s: %s; %d verify and %d SHA-256 launches"
+            % (case, what, E.LAUNCHES, S.LAUNCHES))
+        out["verify"] += E.LAUNCHES
+        out["sha256"] += S.LAUNCHES
+        r_stop(node)
+    return out
+
+
+def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
+    """R1-R5 of the module docstring; returns the launches by kernel."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_catchup_") as tmp:
+        r1 = r1_publish(S, E, K, tmp, card)
+        out = {"verify": 0, "sha256": 0}
+        for phase in (r2_complete, r3_restart, r4_gap):
+            got = phase(S, E, K, SC, tmp, r1, flight_dir, card)
+            for k in out:
+                out[k] += got[k]
+        got = r5_faults(S, E, K, SC, tmp, r1, flight_dir)
+        for k in out:
+            out[k] += got[k]
+        r_stop(r1["pub"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3124,6 +3943,9 @@ def smoke(torch, args, flight_dir: str) -> int:
     # --- the close: LedgerManager closes of signed multisig ledgers -------
     closes = close_path(S, E, K, rng, flight_dir, card)
 
+    # --- catchup: publish, replay checkpoints on the card, restart ---------
+    catchup = catchup_path(S, E, K, SC, flight_dir, card)
+
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
     main_f = fleet["shard"][DRAIN_CHUNK]
@@ -3131,9 +3953,11 @@ def smoke(torch, args, flight_dir: str) -> int:
         "name": "ed25519_verify", "route": "cuda",
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519.py:328",
-        "launches": launches + sum(closes["verify"].values()),
+        "launches": launches + sum(closes["verify"].values())
+        + catchup["verify"],
         "launches_by_path": {"verify main path": launches,
-                             **closes["verify"]},
+                             **closes["verify"],
+                             "catchup": catchup["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -3145,9 +3969,10 @@ def smoke(torch, args, flight_dir: str) -> int:
         "source": "stellar_core_tpu_torch/csrc/sha256.cu",
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
         "launches": hash_launches + ledger_launches
-        + sum(closes["sha256"].values()),
+        + sum(closes["sha256"].values()) + catchup["sha256"],
         "launches_by_path": {"hash main path": hash_launches,
-                             **ledger["launches"], **closes["sha256"]},
+                             **ledger["launches"], **closes["sha256"],
+                             "catchup": catchup["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

@@ -1,0 +1,213 @@
+"""CatchupWork: the recovery DAG.
+
+Copied from `stellar_core_tpu/catchup/catchup_work.py` at commit
+9a356c0; carry a fix in either copy to the other.
+
+Role parity: reference `src/catchup/CatchupWork.cpp:33-305` —
+  GetHistoryArchiveStateWork (archive tip)
+  → [bucket mode] GetHistoryArchiveStateWork at the apply checkpoint
+  → BatchDownloadWork(ledger headers) + VerifyLedgerChainWork
+  → [bucket mode] DownloadBucketsWork → ApplyBucketsWork
+  → DownloadApplyTxsWork (download ‖ apply pipeline)
+On success the LedgerManager is synced at the target ledger.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from ..history.archive_state import HistoryArchiveState
+from ..history.checkpoints import checkpoint_containing
+from ..historywork.apply_works import (ApplyBucketsWork,
+                                       DownloadApplyTxsWork)
+from ..historywork.works import (BatchDownloadWork, DownloadBucketsWork,
+                                 GetHistoryArchiveStateWork,
+                                 VerifyLedgerChainWork)
+from ..util.log import get_logger
+from ..util.tmpdir import TmpDir
+from ..util.xdrstream import XDRInputFileStream
+from ..work.basic_work import (FAILURE, RETRY_NEVER, RUNNING, SUCCESS,
+                               WAITING, BasicWork, State)
+from ..xdr import LedgerHeaderHistoryEntry
+from .range import CatchupConfiguration, CatchupRange, \
+    calculate_catchup_range
+
+log = get_logger("History")
+
+
+class CatchupWork(BasicWork):
+    """Phased orchestrator; each phase adds child works and waits for
+    them (reference CatchupWork's WorkSequence of the same steps)."""
+
+    GET_HAS, GET_APPLY_HAS, DOWNLOAD_VERIFY, BUCKETS, APPLY_TXS, DONE = \
+        range(6)
+
+    def __init__(self, app, config: Optional[CatchupConfiguration] = None,
+                 archive=None,
+                 trusted_hash: Optional[tuple] = None) -> None:
+        super().__init__(app.clock, "catchup", RETRY_NEVER)
+        self.app = app
+        self.config = config or CatchupConfiguration.complete()
+        # default to the health-scored failover pool over every readable
+        # archive; an explicit single archive (tests, CLI) still works
+        self.archive = archive or app.history_manager.readable_pool()
+        self.trusted_hash = trusted_hash     # optional (seq, hash) pin
+        self.download_dir = TmpDir("catchup")
+        self._phase = self.GET_HAS
+        self._child: Optional[BasicWork] = None
+        self._children: list = []
+        self.remote_has: Optional[HistoryArchiveState] = None
+        self.apply_has: Optional[HistoryArchiveState] = None
+        self.range: Optional[CatchupRange] = None
+
+    # -- child plumbing ------------------------------------------------------
+    def _run_children(self) -> Optional[State]:
+        """Crank children; None while still running, else aggregate."""
+        for c in self._children:
+            if c.state == State.PENDING:
+                c._parent = self
+                c.start()
+        for c in self._children:
+            if c.is_crankable():
+                c.crank_work()
+        if any(c.state in (State.FAILURE, State.ABORTED)
+               for c in self._children):
+            return FAILURE
+        if all(c.is_done() for c in self._children):
+            return SUCCESS
+        return None
+
+    # -- phases --------------------------------------------------------------
+    def on_run(self) -> State:
+        if self.archive is None:
+            log.warning("catchup: no readable history archive")
+            return FAILURE
+        if self._children:
+            st = self._run_children()
+            if st is None:
+                # park when every child is blocked (WAITING on a
+                # subprocess or RETRYING on a backoff timer); the child
+                # wake chain re-arms this work
+                if any(c.is_crankable() for c in self._children):
+                    return RUNNING
+                return WAITING
+            self._children = []
+            if st == FAILURE:
+                return FAILURE
+            return self._advance()
+        return self._enter_phase()
+
+    def _advance(self) -> State:
+        """Called when the current phase's children all succeeded."""
+        if self._phase == self.GET_HAS:
+            self.remote_has = self._get_has.has
+            cfg = self.config.resolve(self.remote_has.current_ledger)
+            lcl = self.app.ledger_manager.last_closed_ledger_num()
+            if cfg.to_ledger <= lcl:
+                log.info("catchup: already at %d >= target %d", lcl,
+                         cfg.to_ledger)
+                self._phase = self.DONE
+                return SUCCESS
+            self.range = calculate_catchup_range(
+                lcl, cfg, self.app.config.CHECKPOINT_FREQUENCY)
+            log.info("catchup plan: %r (lcl %d)", self.range, lcl)
+            self._phase = (self.GET_APPLY_HAS if self.range.apply_buckets
+                           else self.DOWNLOAD_VERIFY)
+        elif self._phase == self.GET_APPLY_HAS:
+            self.apply_has = self._get_apply_has.has
+            self._phase = self.DOWNLOAD_VERIFY
+        elif self._phase == self.DOWNLOAD_VERIFY:
+            self._phase = (self.BUCKETS if self.range.apply_buckets
+                           else self.APPLY_TXS)
+        elif self._phase == self.BUCKETS:
+            self._phase = self.APPLY_TXS
+        elif self._phase == self.APPLY_TXS:
+            self._phase = self.DONE
+            return self._finish_catchup()
+        return self._enter_phase()
+
+    def _enter_phase(self) -> State:
+        ph = self._phase
+        if ph == self.DONE:
+            return self._finish_catchup()
+        if ph == self.GET_HAS:
+            self._get_has = GetHistoryArchiveStateWork(
+                self.app, self.archive, self.download_dir.path)
+            self._children = [self._get_has]
+        elif ph == self.GET_APPLY_HAS:
+            self._get_apply_has = GetHistoryArchiveStateWork(
+                self.app, self.archive, self.download_dir.path,
+                checkpoint=self.range.apply_buckets_at)
+            self._children = [self._get_apply_has]
+        elif ph == self.DOWNLOAD_VERIFY:
+            lm = self.app.ledger_manager
+            # headers from the bucket-apply checkpoint (or LCL+1) to target
+            lo = (self.range.apply_buckets_at if self.range.apply_buckets
+                  else self.range.replay_first)
+            hi = self.range.replay_last
+            dl = BatchDownloadWork(self.app, self.archive, "ledger", lo,
+                                   max(hi, lo), self.download_dir.path)
+            genesis_link = None
+            if not self.range.apply_buckets:
+                genesis_link = (lm.last_closed_ledger_num(), lm.lcl_hash)
+            self._verify = VerifyLedgerChainWork(
+                self.app, self.download_dir.path, lo, max(hi, lo),
+                trusted=self.trusted_hash, local_genesis=genesis_link)
+            # verify strictly after download (chain needs all files)
+            from ..work.work import WorkSequence
+            self._children = [WorkSequence(
+                self.clock, "download+verify-ledgers",
+                [dl, self._verify], max_retries=0)]
+        elif ph == self.BUCKETS:
+            self._children = [self._make_bucket_works()]
+            if self._children == [None]:
+                return FAILURE
+        elif ph == self.APPLY_TXS:
+            if self.range.replay_count() == 0:
+                self._phase = self.DONE
+                return self._finish_catchup()
+            self._children = [DownloadApplyTxsWork(
+                self.app, self.archive, self.download_dir.path,
+                self.range.replay_first, self.range.replay_last)]
+        return RUNNING
+
+    def _make_bucket_works(self):
+        from ..work.work import WorkSequence
+        c = self.range.apply_buckets_at
+        entry = self._header_entry_at(c)
+        if entry is None:
+            log.warning("catchup: no downloaded header for checkpoint %d",
+                        c)
+            return None
+        dl = DownloadBucketsWork(self.app, self.archive,
+                                 self.apply_has.bucket_hashes(),
+                                 self.download_dir.path)
+        ap = ApplyBucketsWork(self.app, self.apply_has, entry)
+        return WorkSequence(self.clock, "download+apply-buckets", [dl, ap],
+                            max_retries=0)
+
+    def _header_entry_at(self, seq: int):
+        path = os.path.join(self.download_dir.path,
+                            "ledger-%08x.xdr"
+                            % checkpoint_containing(
+                                seq, self.app.config.CHECKPOINT_FREQUENCY))
+        if not os.path.exists(path):
+            return None
+        with XDRInputFileStream(path) as ins:
+            for e in ins.read_all(LedgerHeaderHistoryEntry):
+                if e.header.ledgerSeq == seq:
+                    return e
+        return None
+
+    def _finish_catchup(self) -> State:
+        from ..ledger.ledger_manager import LedgerManagerState
+        lm = self.app.ledger_manager
+        lm.state = LedgerManagerState.LM_SYNCED_STATE
+        log.info("catchup complete at ledger %d",
+                 lm.last_closed_ledger_num())
+        return SUCCESS
+
+    def _finish(self, st: State) -> None:
+        self.download_dir.remove()   # no temp-dir leak across attempts
+        super()._finish(st)

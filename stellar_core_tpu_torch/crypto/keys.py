@@ -9,7 +9,9 @@ global verify-result cache that sits in front of every batch backend.
 CPU crypto is the native C library (native/ed25519c.c) where a C compiler
 exists and the pure-Python RFC 8032 code (crypto/fallback.py) elsewhere:
 identical accept/reject decisions either way. The reference's sharding of
-large CPU batches over worker threads is left out.
+large CPU batches over worker threads is left out. Deliberately
+different: the cache holds 2^18 results, not the reference's 0xFFFF (see
+VERIFY_CACHE_SIZE).
 """
 
 from __future__ import annotations
@@ -24,7 +26,14 @@ from ..xdr import PublicKey
 from . import fallback as _fb
 from . import strkey
 
-VERIFY_CACHE_SIZE = 0xFFFF
+# A catchup drains a whole checkpoint's signatures before its closes read
+# them back: at 64 ledgers of 100 transactions with 20 signatures each
+# that is 128,000 results, and a checkpoint whose signer sets change
+# early adds its master-key triples. The reference's 0xFFFF (stellar-core's
+# size) would evict about half of them at random before the closes ran,
+# and each miss would cost a small launch inside a close; 2^18 holds two
+# such drains.
+VERIFY_CACHE_SIZE = 1 << 18
 
 # the one structure every thread that verifies touches
 _cache_lock = threading.Lock()

@@ -7,20 +7,21 @@ close cockpit (`ApplyStats`, `ledger/apply_stats.py`, with the
 entry-cache prefetch its `txset_prefetch_keys` feeds); the native apply
 engine (`native_apply_txset`, `use_native_apply`,
 `_native_covers_prefetch`); BucketDB (`_check_bucket_coverage` and the
-re-attach in `set_last_closed_ledger`); invariants; the close-meta stream
-(`_emit_close_meta`); the slot timeline; history and persistent state
-(`_store_local_has`, `_restore_bucket_list`, `maybe_queue_checkpoint`,
-and with them `load_last_known_ledger`, a restart); catchup
-(`catchup_trigger`, `entries_invalidated` and the buffering of values in
-LM_CATCHING_UP_STATE, which the reference's CatchupManager and
-`historywork/apply_works.py` drive). Deliberately different: a close uses
+re-attach in `set_last_closed_ledger`, and the detach in
+`_restore_bucket_list`'s fallback); invariants; the close-meta stream
+(`_emit_close_meta`); the slot timeline. Kept from the history and
+catchup wiring: `load_last_known_ledger` (a restart over the SQL store
+and the bucket directory), `_store_local_has` and `_restore_bucket_list`
+(the local HAS in the persistent state), `maybe_queue_checkpoint` after
+each close, and `catchup_trigger`, `entries_invalidated` and the
+buffering of values in LM_CATCHING_UP_STATE, which `catchup/` and
+`historywork/apply_works.py` drive. Deliberately different: a close uses
 the app's `sig_verifier` and `batch_hasher` and raises TypeError without
 either (the reference's frames fall back to a CpuSigVerifier and its
-close hashes with hashlib when the app has no hasher), and a value that
-arrives after a gap raises instead of starting catchup.
+close hashes with hashlib when the app has no hasher).
 
 Role parity: reference `src/ledger/LedgerManagerImpl.cpp`:
-- valueExternalized (:410-490): apply in-order values (a gap raises here)
+- valueExternalized (:410-490): apply in-order values, route gaps to catchup
 - closeLedger (:522-728): bump seq → hash checks → sortForApply →
   processFeesSeqNums → applyTransactions → result hash → upgrades →
   ledgerClosed (bucket batch + header hash) → commit → publish queue
@@ -69,6 +70,7 @@ _copy_header_fast = _fastcodec.compile_copy(LedgerHeader)
 class LedgerManagerState:
     LM_BOOTING_STATE = 0
     LM_SYNCED_STATE = 1
+    LM_CATCHING_UP_STATE = 2
 
 
 class LedgerCloseData:
@@ -90,6 +92,10 @@ class LedgerManager:
         else:
             self.root = LedgerTxnRoot(app.database)
         self.lcl_hash: bytes = b"\x00" * 32
+        self.catchup_trigger = None  # set by CatchupManager wiring
+        # True between a bucket-apply's state wipe and its successful LCL
+        # fast-forward: no direct closes may run against half-built state
+        self.entries_invalidated = False
 
     # -- genesis / restart --------------------------------------------------
     def start_new_ledger(self) -> None:
@@ -128,9 +134,27 @@ class LedgerManager:
         if bm is not None:
             bm.add_batch(GENESIS_LEDGER_SEQ, genesis.ledgerVersion,
                          genesis_entries, [], [])
+            self._store_local_has()
         self.state = LedgerManagerState.LM_SYNCED_STATE
         log.info("started new ledger: genesis %s",
                  self.lcl_hash.hex()[:8])
+
+    def load_last_known_ledger(self) -> bool:
+        """Restore LCL from the database; returns False if no state."""
+        db = getattr(self.app, "database", None)
+        if db is None or self.app.config.DATABASE == "in-memory":
+            return False
+        row = db.execute(
+            "SELECT ledgerhash, data FROM ledgerheaders ORDER BY "
+            "ledgerseq DESC LIMIT 1").fetchone()
+        if row is None:
+            return False
+        header = LedgerHeader.from_xdr(row[1])
+        self.root.set_header(header)
+        self.lcl_hash = bytes.fromhex(row[0])
+        self.state = LedgerManagerState.LM_SYNCED_STATE
+        self._restore_bucket_list()
+        return True
 
     def set_last_closed_ledger(self, header: LedgerHeader,
                                ledger_hash: bytes) -> None:
@@ -141,6 +165,7 @@ class LedgerManager:
         self.root.set_header(header)
         self.lcl_hash = ledger_hash
         self._store_header(header)
+        self.entries_invalidated = False
         log.info("LCL set to %d (%s) from catchup", header.ledgerSeq,
                  ledger_hash.hex()[:8])
 
@@ -165,15 +190,23 @@ class LedgerManager:
     @main_thread_only
     def value_externalized(self, lcd: LedgerCloseData) -> None:
         lcl = self.last_closed_ledger_num()
+        if self.state == LedgerManagerState.LM_CATCHING_UP_STATE:
+            # mid-catchup every value is buffered, even in-order ones —
+            # closing under a concurrent bucket apply would corrupt state
+            # (reference LedgerManagerImpl.cpp:410-444)
+            if self.catchup_trigger is not None:
+                self.catchup_trigger(lcd)
+            return
         if lcd.ledger_seq == lcl + 1:
             self.close_ledger(lcd)
         elif lcd.ledger_seq <= lcl:
             log.info("skipping already-applied ledger %d", lcd.ledger_seq)
         else:
-            # the reference hands the value to catchup, which the port
-            # does not have yet: fail loudly rather than stop closing
-            raise RuntimeError("ledger gap: got %d, lcl %d; catchup is not "
-                               "ported" % (lcd.ledger_seq, lcl))
+            log.warning("ledger gap: got %d, lcl %d — catchup needed",
+                        lcd.ledger_seq, lcl)
+            self.state = LedgerManagerState.LM_CATCHING_UP_STATE
+            if self.catchup_trigger is not None:
+                self.catchup_trigger(lcd)
 
     # -- the close ----------------------------------------------------------
     @main_thread_only
@@ -379,11 +412,72 @@ class LedgerManager:
             for up, changes, index in applied_upgrades:
                 self._store_upgrade_history(lcd.ledger_seq, up, changes,
                                             index)
+            self._store_local_has()
+        hm = getattr(self.app, "history_manager", None)
+        if hm is not None:
+            hm.maybe_queue_checkpoint(self)
         log.debug("closed ledger %d (%d txs) hash %s", lcd.ledger_seq,
                   len(frames), self.lcl_hash.hex()[:8])
 
     def _bucket_manager(self):
         return getattr(self.app, "bucket_manager", None)
+
+    def _store_local_has(self) -> None:
+        """Persist the local bucket-list manifest so a restarted node can
+        re-adopt its bucket files (reference keeps kHistoryArchiveState in
+        PersistentState and assumeState()s it at startup)."""
+        ps = getattr(self.app, "persistent_state", None)
+        bm = self._bucket_manager()
+        if ps is None or bm is None:
+            return
+        from ..history.archive_state import HistoryArchiveState
+        has = HistoryArchiveState.from_bucket_list(
+            self.lcl_header.ledgerSeq, bm.bucket_list)
+        ps.set_state(ps.kHistoryArchiveState, has.to_json())
+
+    def _restore_bucket_list(self) -> None:
+        """Re-adopt the persisted bucket-list state after a restart
+        (reference ApplicationImpl loadLastKnownLedger →
+        BucketManagerImpl::assumeState)."""
+        ps = getattr(self.app, "persistent_state", None)
+        bm = self._bucket_manager()
+        if ps is None or bm is None:
+            return
+        s = ps.get_state(ps.kHistoryArchiveState)
+        if not s:
+            return
+        from ..history.archive_state import (
+            HistoryArchiveState, has_level_dicts,
+        )
+        try:
+            has = HistoryArchiveState.from_json(s)
+            header = self.lcl_header
+            bm.assume_state(has_level_dicts(has),
+                            header.ledgerSeq, header.ledgerVersion)
+            # the adopted list must hash to what the LCL header committed
+            # to — a stale HAS (e.g. written before a bucket-apply catchup
+            # fast-forwarded the LCL) silently forks the chain otherwise.
+            # Exception: a node restarted AT genesis — the genesis header
+            # predates the seeded genesis batch by construction (its
+            # bucketListHash is the zero hash), so the seeded list is the
+            # expected state, not a fork.
+            at_genesis = (header.ledgerSeq == GENESIS_LEDGER_SEQ and
+                          header.bucketListHash == b"\x00" * 32)
+            if not at_genesis and bm.get_hash() != header.bucketListHash:
+                raise ValueError(
+                    "restored bucket list hash %s != header %s" %
+                    (bm.get_hash().hex()[:16],
+                     header.bucketListHash.hex()[:16]))
+            log.info("restored bucket list at ledger %d from local HAS",
+                     header.ledgerSeq)
+        except Exception as e:  # corrupt/stale HAS or missing files:
+            # degrade to an empty bucket list rather than failing startup
+            # or running on wrong state (catchup heals)
+            from ..bucket.bucket_list import BucketList
+            bm.bucket_list = BucketList(bm._executor,
+                                        adopt=bm.adopt_bucket)
+            log.warning("bucket-list restore failed: %s — starting from "
+                        "an empty bucket list until catchup heals it", e)
 
     def _store_upgrade_history(self, ledger_seq: int, up, changes,
                                index: int) -> None:

@@ -3,9 +3,10 @@
 Copied (`TrackedLock`, `WORKER_THREAD_REGISTRY`, `spawn_worker`) from
 `stellar_core_tpu/util/threads.py` at commit 02ed56d (the
 `crypto.verify-dispatch` entry at a29fd1b, the `crypto.hash-*` entries
-at abe2377; `main_thread_only`, `assert_main_thread`, `arm`, `disarm` and
-`ThreadDisciplineError` at 89bbd6f); carry a fix in
-either copy to the other. The reference's lock-order checker is armed
+at abe2377; `main_thread_only`, `assert_main_thread`, `arm`, `disarm`
+and `ThreadDisciplineError` at 89bbd6f); carry a fix in either copy to
+the other. `process.reaper` is the port's name for the reference
+ProcessManager's unnamed reaper threads. The reference's lock-order checker is armed
 only by the node stack (its consensus thread), which the port does not
 have yet; here a `TrackedLock` is a `threading.Lock` that carries its
 name, so the lock graph reads the same once the checker arrives.
@@ -56,6 +57,11 @@ WORKER_THREAD_REGISTRY: Dict[str, str] = {
         "CudaBatchHasher warmup: builds the SHA-256 kernel and launches "
         "zeros at every warm shape through the staging and launch path of "
         "live traffic",
+    "process.reaper":
+        "ProcessManager: waits on one subprocess (an archive's get, put or "
+        "mkdir command) and posts its exit code back to the main loop "
+        "through clock.post_to_main (one short-lived thread per running "
+        "subprocess)",
 }
 
 

@@ -530,3 +530,73 @@ def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
     assert closes == 18 and S.LAUNCHES > 0
     for side in (lm, twin):
         side.app.bucket_manager.shutdown()
+
+
+def test_catchup_on_card_matches_cpu_publisher(card, tmp_path):
+    """A port node on the C verifier and `make_hasher("cpu")` closes the
+    ledger-close schedule (checkpoints of 8) and publishes two
+    checkpoints; a fresh node on the card's "cuda-resilient" stacks
+    catches up from that archive, complete: every header it stores
+    equals the publisher's, its bucket list the header's, its commitment
+    root a CPU node's caught up the same way; the
+    checkpoints' drains launch the verify kernel, the replayed closes
+    launch it never, and no signature is verified on the CPU."""
+    from stellar_core_tpu_torch.catchup import CatchupConfiguration
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from stellar_core_tpu_torch.work.basic_work import State
+    from torch_catchup_harness import (
+        crank_until, header_hashes, make_port_app, run_work, stop,
+    )
+    from torch_close_harness import Workload
+    freq = 8
+    root = tmp_path / "archive"
+    root.mkdir()
+    pub = make_port_app(tmp_path / "pub", archives=[("test", root)],
+                        writable=True, freq=freq)
+    w = Workload(pub.ledger_manager)
+    for build, ups in w.schedule():
+        _close_side(pub.ledger_manager,
+                    [f.envelope_bytes() for f in build()], ups)
+    assert crank_until(pub, lambda: pub.history_manager.publish_queue()
+                       == [])
+    assert pub.history_manager.published_checkpoints == 2
+    tip = 2 * freq - 1
+    node = make_port_app(tmp_path / "card", archives=[("test", root)],
+                         freq=freq, verifier=make_verifier("cuda-resilient"),
+                         hasher=make_hasher("cuda-resilient"))
+    in_close = []
+    close = node.ledger_manager.close_ledger
+
+    def counting_close(lcd):
+        e0 = E.LAUNCHES
+        close(lcd)
+        in_close.append(E.LAUNCHES - e0)
+
+    node.ledger_manager.close_ledger = counting_close
+    calls = []
+    real = K.raw_verify_batch
+    K.raw_verify_batch = lambda t: calls.append(len(t)) or real(t)
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    try:
+        work = node.catchup_manager.start_catchup(
+            CatchupConfiguration.complete())
+        assert run_work(node, work) == State.SUCCESS
+    finally:
+        K.raw_verify_batch = real
+    assert node.ledger_manager.last_closed_ledger_num() == tip
+    assert header_hashes(node.database, 1, tip) == \
+        header_hashes(pub.database, 1, tip)
+    assert node.bucket_manager.get_hash() == \
+        node.ledger_manager.lcl_header.bucketListHash
+    twin = make_port_app(tmp_path / "twin", archives=[("test", root)],
+                         freq=freq)
+    work = twin.catchup_manager.start_catchup(
+        CatchupConfiguration.complete())
+    assert run_work(twin, work) == State.SUCCESS
+    assert node.state_commitment.root == twin.state_commitment.root
+    assert E.LAUNCHES > 0 and S.LAUNCHES > 0
+    assert len(in_close) == tip - 1 and not any(in_close)
+    assert calls == []
+    for app in (pub, node, twin):
+        stop(app)

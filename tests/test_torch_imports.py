@@ -1,7 +1,9 @@
 """Import hygiene of the port: no module of `stellar_core_tpu_torch`, and
 not `chip_smoke.py`, imports JAX or anything of the JAX package.
 
-Three checks: every port module imported in a fresh interpreter leaves
+Three checks, over every subpackage (the history and catchup slice's
+`work`, `process`, `main`, `history`, `historywork` and `catchup` among
+them, named in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -54,7 +56,17 @@ def test_port_modules_import_no_jax():
               "xdr.basic", "xdr.ledger_entries", "xdr.transaction",
               "xdr.scp", "xdr.ledger", "xdr.overlay", "bucket",
               "bucket.bucket", "bucket.bucket_list",
-              "bucket.bucket_manager"):
+              "bucket.bucket_manager",
+              # the history and catchup slice
+              "work", "work.basic_work", "work.work", "work.scheduler",
+              "process", "process.process_manager", "main",
+              "main.config", "main.persistent_state", "history",
+              "history.checkpoints", "history.archive",
+              "history.archive_state", "history.snapshot",
+              "history.history_manager", "historywork",
+              "historywork.works", "historywork.apply_works", "catchup",
+              "catchup.range", "catchup.catchup_work",
+              "catchup.catchup_manager", "util.status_manager"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"

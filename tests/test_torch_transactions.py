@@ -12,7 +12,8 @@ JAX package's cases.
 - without a verifier, `SignatureChecker`, both frames' `check_valid` and
   `apply` and `LedgerManager.close_ledger` raise TypeError (the close
   also without a hasher), a verifier whose flush fails fails the apply
-  (no txINTERNAL_ERROR), and a value after a gap raises.
+  (no txINTERNAL_ERROR), and a value after a gap goes to catchup (the
+  manager's `catchup_trigger`) instead of closing.
 """
 
 import inspect
@@ -30,7 +31,7 @@ from stellar_core_tpu_torch.herder.upgrades import (
     UpgradeParameters, Upgrades,
 )
 from stellar_core_tpu_torch.ledger.ledger_manager import (
-    LedgerCloseData, LedgerManager,
+    LedgerCloseData, LedgerManager, LedgerManagerState,
 )
 from stellar_core_tpu_torch.ledger.ledgertxn import LedgerTxn
 from stellar_core_tpu_torch.transactions.signature_checker import (
@@ -235,24 +236,33 @@ def test_close_raises_without_hasher():
 
 
 def test_gapped_value_raises():
-    """A value past lcl + 1 raises (the reference hands it to catchup,
-    which the port lacks) and leaves the manager closing: the next
-    in-order value still closes, and an old one is skipped."""
+    """A value past lcl + 1 no longer raises: as in the reference, the
+    manager enters LM_CATCHING_UP_STATE and hands the value to its
+    `catchup_trigger` (the CatchupManager's `process_ledger`), and while
+    catching up every value, an in-order one too, goes there unclosed.
+    Synced again, the next in-order value closes and an old one is
+    skipped."""
     lm = _manager(CpuSigVerifier())
+    handed = []
+    lm.catchup_trigger = handed.append
     header = lm.root.get_header()
     ts = TxSetFrame(T.TESTING_NETWORK_ID, lm.lcl_hash, [])
     value = StellarValue(txSetHash=ts.get_contents_hash(),
                          closeTime=header.scpValue.closeTime + 5,
                          upgrades=[], ext=StellarValueExt(0, None))
-    with pytest.raises(RuntimeError, match="gap"):
-        lm.value_externalized(LedgerCloseData(header.ledgerSeq + 2, ts,
-                                              value))
+    gapped = LedgerCloseData(header.ledgerSeq + 2, ts, value)
+    in_order = LedgerCloseData(header.ledgerSeq + 1, ts, value)
+    lm.value_externalized(gapped)
+    assert lm.state == LedgerManagerState.LM_CATCHING_UP_STATE
+    lm.value_externalized(in_order)
+    assert handed == [gapped, in_order]
     assert lm.last_closed_ledger_num() == header.ledgerSeq
+    lm.state = LedgerManagerState.LM_SYNCED_STATE
     _close(lm, [])
     assert lm.last_closed_ledger_num() == header.ledgerSeq + 1
     before = lm.lcl_hash
-    lm.value_externalized(LedgerCloseData(header.ledgerSeq + 1, ts, value))
-    assert lm.lcl_hash == before
+    lm.value_externalized(in_order)
+    assert lm.lcl_hash == before and len(handed) == 2
 
 
 def test_failed_drain_fails_and_rolls_back_the_close():
