@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
 sources in the checkout (one nvcc per source, all started together), then
 drives three paths, the ledger that runs on the hash path, the ledger
-manager's close that runs on both, and the catchup that replays published
-checkpoints through that close.
+manager's close that runs on both, the catchup that replays published
+checkpoints through that close, and a network of herder nodes reaching
+consensus on the values that close.
 
 The verify path (`ed25519_verify`):
 
@@ -307,6 +308,63 @@ R5. faults, each on a fresh card node over its own copy of the archive,
    member, whose loss the fault point leaves alone, and on more members
    it degrades the fleet.) Times nothing.
 
+SCP and the herder (after R5), each driven with the counts set to 0 just
+before it and read just after. Nodes are port herder nodes in this
+process (`tests/torch_herder_harness.py`: each its own `LedgerManager`
+over sqlite, `BucketManager`, `StateCommitmentEngine` and slot journal,
+a virtual clock, manual closes triggered slot by slot on every node,
+node 0 forcing SCP) wired by a relay that stands in for overlay: every
+envelope, transaction, txset and quorum set crosses as XDR bytes, and
+the relay's crank flushes each node's verifier after its ready work, as
+`Application.crank` does, and moves the clocks only when no node has
+work and no verify is under way. Traffic is the multisig mix: ledger 2
+funds 100 senders, ledger 3 arms them with 19 extra signers, then each
+loaded slot carries one 20-signature payment from every sender, submitted
+to the nodes in turn and flooded to the rest; every 7th carries a
+corrupted signature, and every node must answer it ADD_STATUS_ERROR.
+
+S1. 21 validators, pubnet's tier-1 shape (7 organisations of 3; each
+   node's quorum 5 of the 7 organisations, each an inner set of 2 of its
+   3), each on `make_verifier("cuda")` and `make_hasher("cuda")`, and a
+   CPU twin (one port `LedgerManager` on the C verifier and
+   `make_hasher("cpu")` closing the value each slot externalized): 12
+   slots, 10 loaded. Checks: all 21 nodes externalize one value a slot;
+   at every height every node's lcl hash, bucket-list hash and
+   commitment root are equal and equal the twin's; the verify launches
+   by call site equal the count derived from the run's data: one per
+   distinct envelope flooded (the first node it reaches misses the
+   process's verify cache and flushes it alone, `herder.py:755`), one per
+   transaction's first admission (its `prewarm_many`), none in the
+   nominations' and closes' `trim_invalid`, the externalize hints or the
+   cranks' flushes; the SHA-256 launches all in the closes, as derived
+   from each node's bucket list; every decision a verifier returned
+   equals the C verifier's; nothing sent to the card is verified on the
+   CPU, whose only triples are the nominated values' signatures (the
+   herder checks those on the host, as the reference does). Prints, per
+   loaded slot, the seconds from the first `trigger_next_ledger` to all
+   21 externalized and to all 21 closed (p50 and max), the admission
+   rounds, envelopes per slot and per node, launches by site, each
+   node's verify demand with cache hits (what 21 machines would each
+   verify), the card's busy share over the loaded slots (profiled, CUDA
+   activity only), and the full collections;
+S2. 4 validators in a 3-of-4 quorum, each on `make_verifier("cuda-async")`
+   (stamping verify latency on the host's clock; completions post to the
+   node's virtual clock), 7 slots, 5 loaded; after slot 5, node 0's last
+   envelope with one signature byte flipped is relayed to nodes 1 and 2.
+   Checks: every slot externalizes and closes to equal hashes on all
+   four; both nodes drop the forged envelope on the card's False
+   decision and consensus goes on; every flooded envelope is verified on
+   the card; the verify launches are at most the bound derived from the
+   data, each receiver once per envelope, the forged one twice and each
+   transaction once (S1's one launch per distinct envelope does not
+   hold here: a node's verify is still in flight when the next node
+   asks, so it has not reached the process's cache; each node verifies
+   for itself, as it would on its own machine, and coalesces what
+   arrives while its own dispatch is in flight); SHA-256 as derived;
+   decisions equal the C verifier's, none sent to the card verified on
+   the CPU. Prints `crypto.verify.latency` p50 and p99 and S1's count
+   beside the launches.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -317,9 +375,10 @@ per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's, C2-C5's and R2-R5's, the sha256
-entry's the hash main path's, L2-L4's, C1-C5's and R2-R5's, each split
-in `launches_by_path`, R2-R5 under `catchup`)
+launches are the verify main path's, C2-C5's, R2-R5's and S1-S2's, the
+sha256 entry's the hash main path's, L2-L4's, C1-C5's, R2-R5's and
+S1-S2's, each split in `launches_by_path`, R2-R5 under `catchup`, S1 and
+S2 under `herder S1` and `herder S2`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -467,6 +526,15 @@ R_TIP = 2 * R_FREQ - 1
 R_TOP = R_TIP + 4
 R_RECENT = R_FREQ
 R_PASSPHRASE = "Test SDF Network ; September 2015"
+# the herder phases (S1, S2): S1 is pubnet's tier-1 shape, S1_ORGS
+# organisations of S1_PER_ORG validators, each node's quorum an inner set
+# of 2 of each organisation's 3 and 5 of the 7 organisations
+# (tests/test_quorum_intersection.py's _pubnet_like), closing S1_LOADED
+# slots of the multisig mix after the two that fund and arm its senders;
+# S2 is S2_NODES validators in a 3-of-4 quorum on the async verify stack,
+# S2_LOADED loaded slots
+S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 10
+S2_NODES, S2_LOADED = 4, 5
 
 
 def p99(samples) -> float:
@@ -2530,8 +2598,8 @@ def fresh_slots(S, SC, st: dict, bl) -> int:
         fresh[bh] = b
     st["slot_hashes"] = [b.get_hash() for b in slots]
     st["seen"].update(st["slot_hashes"])
-    return sum(bucket_launches(S, st["hasher"].inner, b)
-               for b in fresh.values())
+    hasher = getattr(st["hasher"], "inner", st["hasher"])
+    return sum(bucket_launches(S, hasher, b) for b in fresh.values())
 
 
 class GcPauses:
@@ -3700,6 +3768,444 @@ def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ SCP and the herder
+
+def herder_harness():
+    """`tests/torch_herder_harness.py` (the relay that stands in for
+    overlay, the node builder, the traffic), imported from the checkout."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_herder_harness
+    return torch_herder_harness
+
+
+class HerderProbe:
+    """What a network's verifiers and kernels did, where: verify and
+    SHA-256 launches by call site (`Sites`: each herder's envelope intake,
+    externalize-hint intake, trigger, each queue's admission, each ledger
+    manager's close, the relay's per-crank flushes), each node's verify
+    demand (triples asked of `enqueue` and `prewarm_many`, cache hits
+    included), every triple the card was sent, every decision a verifier
+    returned, every triple the C verifier decided (the herder checks a
+    nominated value's signature on the host, `PubKeyUtils.verify_sig`, as
+    the reference does), and per node and close the SHA-256 launches the
+    close owed by its bucket list (`fresh_slots`)."""
+
+    def __init__(self, H, S, E, K, SC, relay):
+        self.S, self.E, self.K, self.SC, self.relay = S, E, K, SC, relay
+        self.vsites = H.Sites(lambda: E.LAUNCHES)
+        self.hsites = H.Sites(lambda: S.LAUNCHES)
+        self.demand = Counter()
+        self.card_triples, self.cpu_triples = [], []
+        self.decisions = {}
+        self.sha_owed = 0
+        self.sha_off = []       # (seq, launched, owed) where they differ
+        self._raw = (K.raw_verify, K.raw_verify_batch)
+
+    def _decided(self, triple, ok) -> None:
+        prev = self.decisions.setdefault(triple, ok)
+        check(prev == ok, "one decision per triple")
+
+    def install(self) -> None:
+        K = self.K
+        # what a crank runs outside the sites above: the verifier flushes
+        # after each node's ready work
+        for sites in (self.vsites, self.hsites):
+            sites.wrap(self.relay, "step", "crank")
+        for node in self.relay.nodes:
+            app = node.app
+            h = app.herder
+            for sites in (self.vsites, self.hsites):
+                sites.wrap(h, "recv_scp_envelope", "envelope")
+                sites.wrap(h, "_note_externalize_hint", "externalize hint")
+                sites.wrap(h, "trigger_next_ledger", "nominate")
+                sites.wrap(h.tx_queue, "try_add", "admission")
+                sites.wrap(app.ledger_manager, "value_externalized",
+                           "close")
+            self._wrap_verifier(node)
+            # the engine commits nothing at genesis: the first close owes
+            # every bucket of the list
+            st = {"hasher": app.batch_hasher, "seen": set(),
+                  "slot_hashes": [self.SC.ZERO_HASH] * 22}
+            self._wrap_close(app, st)
+        raw, raw_batch = self._raw
+        K.raw_verify = lambda *t: self.cpu_triples.append(t) or raw(*t)
+        K.raw_verify_batch = lambda ts: (self.cpu_triples.extend(ts)
+                                         or raw_batch(ts))
+
+    def uninstall(self) -> None:
+        self.K.raw_verify, self.K.raw_verify_batch = self._raw
+
+    def _wrap_verifier(self, node) -> None:
+        v = node.app.sig_verifier
+        name = node.name
+        enqueue, prewarm = v.enqueue, v.prewarm_many
+
+        def enqueue_(key, sig, msg):
+            self.demand[name] += 1
+            fut = enqueue(key, sig, msg)
+            t = (key.key_bytes, sig, msg)
+            fut.add_done_callback(lambda ok: self._decided(t, ok))
+            return fut
+
+        def prewarm_(triples):
+            self.demand[name] += len(triples)
+            got = prewarm(triples)
+            for t, ok in zip(triples, got):
+                self._decided(tuple(t), ok)
+            return got
+
+        v.enqueue, v.prewarm_many = enqueue_, prewarm_
+        fleet = getattr(v, "inner", v)     # the device verifier
+        vm = fleet.verify_many
+
+        def verify_many(triples):
+            self.card_triples.extend(tuple(t) for t in triples)
+            return vm(triples)
+
+        fleet.verify_many = verify_many
+
+    def _wrap_close(self, app, st) -> None:
+        lm = app.ledger_manager
+        orig = lm.close_ledger
+
+        def close_ledger(lcd):
+            s0 = self.S.LAUNCHES
+            orig(lcd)
+            owed = fresh_slots(self.S, self.SC, st,
+                               app.bucket_manager.bucket_list)
+            self.sha_owed += owed
+            if self.S.LAUNCHES - s0 != owed:
+                self.sha_off.append((lcd.ledger_seq,
+                                     self.S.LAUNCHES - s0, owed))
+
+        lm.close_ledger = close_ledger
+
+    def check_decisions(self, what: str) -> int:
+        """Every decision a verifier returned equals the C verifier's;
+        nothing the card was sent was decided on the C verifier before;
+        returns the number of distinct triples."""
+        check(not set(self.card_triples) & set(self.cpu_triples),
+              "%s: nothing sent to the card is verified on the CPU" % what)
+        triples = sorted(self.decisions)
+        ref = self._raw[1](triples)
+        bad = sum(1 for t, r in zip(triples, ref)
+                  if self.decisions[t] != r)
+        check(bad == 0, "%s: every card decision (%d distinct triples) == "
+              "the C verifier's (%d differ)" % (what, len(triples), bad))
+        return len(triples)
+
+
+def twin_close(lm, node, seq: int) -> None:
+    """The value `node` externalized for `seq`, closed by the CPU twin:
+    the txset crosses as XDR bytes."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    sv = X.StellarValue.from_xdr(node.externalized[seq])
+    ts = node.app.herder.pending.get_tx_set(sv.txSetHash)
+    twin_ts = TxSetFrame.from_wire(
+        lm.app.config.network_id,
+        X.TransactionSet.from_xdr(ts.to_wire().to_xdr()))
+    lm.value_externalized(LedgerCloseData(seq, twin_ts, sv))
+    check(lm.last_closed_ledger_num() == seq, "the twin closed %d" % seq)
+
+
+def submit_round(relay, blobs: list, corrupted: set, what: str) -> float:
+    """Each transaction to node k mod n, flooded to every other node:
+    every node answers ADD_STATUS_PENDING, or ADD_STATUS_ERROR for a
+    corrupted one (`corrupted`: full hashes, the SHA-256 of the envelope
+    bytes). Returns the seconds the round took."""
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.herder.tx_queue import TxQueueResult
+    t0 = time.perf_counter()
+    for k, blob in enumerate(blobs):
+        got = relay.submit(k % len(relay.nodes), blob)
+        bad = sha256(blob) in corrupted
+        want = TxQueueResult.ADD_STATUS_ERROR if bad \
+            else TxQueueResult.ADD_STATUS_PENDING
+        check(set(got) == {want}, "%s: every node answers %s to transaction "
+              "%d (got %s)" % (what, "ERROR" if bad else "PENDING", k,
+                               sorted(set(got))))
+    return time.perf_counter() - t0
+
+
+def network_hashes(relay, twin) -> tuple:
+    got = {relay.hashes(n) for n in relay.nodes}
+    check(len(got) == 1, "every node's lcl hash, bucket-list hash and "
+          "commitment root are equal")
+    h = got.pop()
+    if twin is not None:
+        tw = (twin.ledger_manager.lcl_hash, twin.bucket_manager.get_hash(),
+              twin.state_commitment.root)
+        check(h == tw, "the network's hashes == the CPU twin's")
+    return h
+
+
+def s1_network(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+    """S1 of the module docstring; returns the launches by kernel."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
+    n = S1_ORGS * S1_PER_ORG
+    keys = [H.node_seed(i).public_key for i in range(n)]
+    qset = H.tier1_qset(X, keys, S1_ORGS, S1_PER_ORG)
+    t0 = time.perf_counter()
+    relay = None
+    for i in range(n):
+        cfg = H.node_config(i, qset, i == 0, CLOSE_MAX_TX_SET_SIZE)
+        app = H.make_port_node(os.path.join(tmp, "s1-%d" % i), cfg,
+                               BV.make_verifier("cuda"),
+                               BH.make_hasher("cuda"))
+        if relay is None:
+            relay = H.Relay(cfg.network_id)
+        relay.join("v%d" % i, app)
+    twin = H.make_port_app(os.path.join(tmp, "s1-twin"),
+                           config=H.node_config(n, qset, False,
+                                                CLOSE_MAX_TX_SET_SIZE),
+                           verifier=CpuSigVerifier(),
+                           hasher=make_hasher("cpu"))
+    network_hashes(relay, twin)      # genesis
+    log("S1: %d validators (%d organisations of %d, each node's quorum "
+        "%d of %d inner sets of %d of %d) and a CPU twin built in %.1f s "
+        "on %s" % (n, S1_ORGS, S1_PER_ORG, qset.threshold, S1_ORGS,
+                   S1_PER_ORG // 2 + 1, S1_PER_ORG,
+                   time.perf_counter() - t0, card))
+    tr = H.Traffic(relay.nodes[0].app.ledger_manager, relay.network_id,
+                   relay.nodes[0].app.network_root_key(), CLOSE_TXS,
+                   CLOSE_SIGS, corrupt_every=CLOSE_CORRUPT_EVERY)
+    K.flush_verify_cache()
+    probe = HerderProbe(H, S, E, K, SC, relay)
+    probe.install()
+    E.LAUNCHES = S.LAUNCHES = 0
+    n_txs, admit_s = 0, []
+
+    def one_slot(seq: int, blobs: list) -> dict:
+        nonlocal n_txs
+        admit_s.append(submit_round(relay, blobs, tr.corrupted,
+                                    "S1 slot %d" % seq))
+        n_txs += len(blobs)
+        r = relay.close_slot(seq)
+        twin_close(twin.ledger_manager, relay.nodes[0], seq)
+        network_hashes(relay, twin)
+        return r
+
+    try:
+        with GcPauses() as gc_pauses:
+            one_slot(2, tr.fund())
+            one_slot(3, tr.arm())
+            loaded = []
+
+            def run_loaded():
+                for k in range(S1_LOADED):
+                    seq = 4 + k
+                    loaded.append(one_slot(seq, tr.payments(seq)))
+                return loaded
+
+            prof = profile_drain(run_loaded, "ed25519_verify_kernel",
+                                 cpu=False)
+    finally:
+        probe.uninstall()
+    top = 3 + S1_LOADED
+    check(all(n.app.ledger_manager.last_closed_ledger_num() == top
+              for n in relay.nodes), "S1: every node closed %d" % top)
+    n_env = len(relay.envelopes)
+    env_distinct = len({raw for _i, _s, raw in relay.envelopes})
+    check(env_distinct == n_env, "S1: every flooded envelope distinct")
+    v, h = probe.vsites.by_site, probe.hsites.by_site
+    want_v = {"envelope": n_env, "admission": n_txs}
+    got_v = {k: c for k, c in v.items() if c}
+    check(got_v == want_v and E.LAUNCHES == n_env + n_txs,
+          "S1: verify launches by site %s == derived %s (one per distinct "
+          "envelope, one per transaction's first admission, none in the "
+          "nominations' and closes' trim_invalid, the hints or the "
+          "cranks' flushes; %d in all)" % (dict(got_v), want_v, E.LAUNCHES))
+    got_h = {k: c for k, c in h.items() if c}
+    check(got_h == ({"close": probe.sha_owed} if probe.sha_owed else {})
+          and S.LAUNCHES == probe.sha_owed,
+          "S1: SHA-256 launches by site %s == %d derived from each node's "
+          "bucket list, all in its closes (closes that differ: %s)"
+          % (dict(got_h), probe.sha_owed, probe.sha_off[:8]))
+    n_dec = probe.check_decisions("S1")
+    host = set(probe.cpu_triples)
+    check(host <= H.value_sig_triples(relay),
+          "S1: the C verifier decided only nominated values' signatures")
+    ext = [r["externalize_s"] for r in loaded]
+    cls = [r["close_s"] for r in loaded]
+    per_slot = Counter(s for _i, s, _r in relay.envelopes)
+    per_node = Counter(i for i, _s, _r in relay.envelopes)
+    log("S1 (%s): %d slots (2 funds %d senders, 3 arms them, %d loaded of "
+        "%d %d-signature payments, every %dth corrupted and refused by "
+        "every node), every node == the CPU twin at every height; "
+        "trigger -> all %d externalized p50 %.3f s, max %.3f s; -> all "
+        "closed p50 %.3f s, max %.3f s; admission rounds p50 %.3f s "
+        "(%d transactions x %d nodes)"
+        % (card, top - 1, CLOSE_TXS, S1_LOADED, CLOSE_TXS, CLOSE_SIGS,
+           CLOSE_CORRUPT_EVERY, n, float(np.percentile(ext, 50)), max(ext),
+           float(np.percentile(cls, 50)), max(cls),
+           float(np.percentile(admit_s[2:], 50)), CLOSE_TXS, n))
+    log("S1: envelopes flooded %d (per slot %s; per node %s), each "
+        "delivered to %d nodes; timer advances %d"
+        % (n_env, dict(sorted(per_slot.items())),
+           sorted(per_node.values()), n - 1, relay.advances))
+    log("S1: verify launches by site %s (derived: %s), SHA-256 by site %s "
+        "(derived %d); %d distinct triples decided, == the C verifier; %d "
+        "value signatures checked on the host (the reference's "
+        "PubKeyUtils.verify_sig), none of them sent to the card"
+        % (dict(got_v), want_v, dict(got_h), probe.sha_owed, n_dec,
+           len(host)))
+    log("S1: verify demand per node (enqueue + prewarm_many triples, "
+        "cache hits included; what %d separate machines would each "
+        "verify): %s" % (n, sorted(probe.demand.values())))
+    log_profile("S1 loaded slots", prof, "ed25519_verify_kernel")
+    log("S1: %s" % gc_pauses.line())
+    for node in relay.nodes:
+        H.stop(node.app)
+    H.stop(twin)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+
+class RealStamps:
+    """The node's clock for its async verify stack, stamping on the
+    host's clock: completions still post to the node's virtual clock,
+    but `crypto.verify.latency` and the queue waits read real seconds
+    (the virtual clock stands still while a verify runs)."""
+
+    def __init__(self, clock) -> None:
+        self.post_to_main = clock.post_to_main
+
+    @staticmethod
+    def now() -> float:
+        return time.perf_counter()
+
+
+def s2_async(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+    """S2 of the module docstring; returns the launches by kernel."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    keys = [H.node_seed(i).public_key for i in range(S2_NODES)]
+    qset = H.flat_qset(X, keys, S2_NODES - 1)
+    reg = MetricsRegistry(now_fn=time.perf_counter)
+    relay = None
+    for i in range(S2_NODES):
+        cfg = H.node_config(i, qset, i == 0, CLOSE_MAX_TX_SET_SIZE)
+        app = H.make_port_node(
+            os.path.join(tmp, "s2-%d" % i), cfg,
+            lambda app: BV.make_verifier("cuda-async",
+                                         clock=RealStamps(app.clock),
+                                         metrics=reg),
+            BH.make_hasher("cuda"))
+        if relay is None:
+            relay = H.Relay(cfg.network_id)
+        relay.join("a%d" % i, app)
+    tr = H.Traffic(relay.nodes[0].app.ledger_manager, relay.network_id,
+                   relay.nodes[0].app.network_root_key(), CLOSE_TXS,
+                   CLOSE_SIGS, corrupt_every=CLOSE_CORRUPT_EVERY)
+    K.flush_verify_cache()
+    probe = HerderProbe(H, S, E, K, SC, relay)
+    probe.install()
+    E.LAUNCHES = S.LAUNCHES = 0
+    n_txs, forged = 0, None
+    top = 3 + S2_LOADED
+    try:
+        for seq in range(2, top + 1):
+            blobs = tr.fund() if seq == 2 else tr.arm() if seq == 3 \
+                else tr.payments(seq)
+            submit_round(relay, blobs, tr.corrupted, "S2 slot %d" % seq)
+            n_txs += len(blobs)
+            relay.close_slot(seq)
+            network_hashes(relay, None)
+            if seq == 5:
+                # node 0's last envelope with one signature byte flipped,
+                # relayed to nodes 1 and 2
+                raw = [r for i, _s, r in relay.envelopes if i == 0][-1]
+                forged = raw[:-5] + bytes([raw[-5] ^ 0x01]) + raw[-4:]
+                for to in relay.nodes[1:3]:
+                    relay.deliver_envelope(to, relay.nodes[0], forged)
+                relay.settle()
+    finally:
+        probe.uninstall()
+    check(all(n.app.ledger_manager.last_closed_ledger_num() == top
+              for n in relay.nodes), "S2: every node closed %d" % top)
+    env = X.SCPEnvelope.from_xdr(forged)
+    st = env.statement
+    triple = (st.nodeID.key_bytes, env.signature,
+              relay.nodes[1].app.herder.scp_driver._envelope_sign_bytes(st))
+    fh = sha256(forged)
+    check(probe.decisions.get(triple) is False
+          and triple in probe.card_triples
+          and all(fh in n.app.herder.pending.discarded.get(st.slotIndex, ())
+                  for n in relay.nodes[1:3]),
+          "S2: the forged envelope was refused on the card's False "
+          "decision by both nodes it reached, and consensus went on")
+    n_env = len(relay.envelopes)
+    # S1's rule (one launch per distinct envelope, the forged one, one per
+    # transaction) assumes the first node's verify lands in the process's
+    # cache before the next node asks; here it is still in flight then,
+    # so each node that receives an envelope may verify it itself, as a
+    # validator on its own machine does. The bound from the data: each
+    # of the n - 1 receivers at most once per envelope, the two nodes
+    # handed the forged one, each transaction once (admission drains
+    # synchronously, so later nodes hit the cache)
+    s1_rule = n_env + 1 + n_txs
+    bound = (S2_NODES - 1) * n_env + 2 + n_txs
+    envs = set()
+    for _i, _s, raw in relay.envelopes:
+        e = X.SCPEnvelope.from_xdr(raw)
+        envs.add((e.statement.nodeID.key_bytes, e.signature,
+                  relay.nodes[0].app.herder.scp_driver
+                  ._envelope_sign_bytes(e.statement)))
+    check(envs <= set(probe.card_triples),
+          "S2: every flooded envelope was verified on the card")
+    check(0 < E.LAUNCHES <= bound,
+          "S2: %d verify launches <= %d derived from the data (%d receivers "
+          "x %d envelopes, the forged one twice, %d transactions)"
+          % (E.LAUNCHES, bound, S2_NODES - 1, n_env, n_txs))
+    check(S.LAUNCHES == probe.sha_owed, "S2: SHA-256 launches == %d "
+          "derived from the bucket lists" % probe.sha_owed)
+    n_dec = probe.check_decisions("S2")
+    m = reg.to_json()
+    check("crypto.verify.requeued" not in m, "S2: no dispatch requeued")
+    lat = m["crypto.verify.latency"]
+    log("S2 (%s): %d validators on make_verifier('cuda-async'), quorum %d "
+        "of %d, %d slots (%d loaded); every node == every other at every "
+        "height; verify launches %d <= %d derived (%d receivers x %d "
+        "envelopes + the forged one twice + transactions %d; S1's rule "
+        "would give %d); SHA-256 %d as derived; %d distinct "
+        "triples == the C verifier; the forged envelope dropped by both "
+        "nodes on the card's False; crypto.verify.latency p50 %.3f ms, "
+        "p99 %.3f ms (%d verifies, host clock); timer advances %d"
+        % (card, S2_NODES, S2_NODES - 1, S2_NODES, top - 1, S2_LOADED,
+           E.LAUNCHES, bound, S2_NODES - 1, n_env, n_txs, s1_rule,
+           S.LAUNCHES, n_dec,
+           lat["median"] * 1e3, lat["p99"] * 1e3, lat["count"],
+           relay.advances))
+    for node in relay.nodes:
+        H.stop(node.app)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+def herder_path(S, E, K, SC, card: str) -> dict:
+    """S1 and S2 of the module docstring; returns the launches by kernel
+    and phase."""
+    from stellar_core_tpu_torch.crypto import batch_hasher as BH
+    from stellar_core_tpu_torch.crypto import batch_verifier as BV
+    H = herder_harness()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_herder_") as tmp:
+        t0 = time.perf_counter()
+        s1 = s1_network(H, S, E, K, SC, BV, BH, tmp, card)
+        log("S1: %.1f s in all" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        s2 = s2_async(H, S, E, K, SC, BV, BH, tmp, card)
+        log("S2: %.1f s in all" % (time.perf_counter() - t0))
+    return {"verify": {"herder S1": s1["verify"], "herder S2": s2["verify"]},
+            "sha256": {"herder S1": s1["sha256"], "herder S2": s2["sha256"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3946,6 +4452,9 @@ def smoke(torch, args, flight_dir: str) -> int:
     # --- catchup: publish, replay checkpoints on the card, restart ---------
     catchup = catchup_path(S, E, K, SC, flight_dir, card)
 
+    # --- SCP and the herder: a tier-1 quorum reaching consensus ------------
+    herder = herder_path(S, E, K, SC, card)
+
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
     main_f = fleet["shard"][DRAIN_CHUNK]
@@ -3954,10 +4463,11 @@ def smoke(torch, args, flight_dir: str) -> int:
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519.py:328",
         "launches": launches + sum(closes["verify"].values())
-        + catchup["verify"],
+        + catchup["verify"] + sum(herder["verify"].values()),
         "launches_by_path": {"verify main path": launches,
                              **closes["verify"],
-                             "catchup": catchup["verify"]},
+                             "catchup": catchup["verify"],
+                             **herder["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -3969,10 +4479,12 @@ def smoke(torch, args, flight_dir: str) -> int:
         "source": "stellar_core_tpu_torch/csrc/sha256.cu",
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
         "launches": hash_launches + ledger_launches
-        + sum(closes["sha256"].values()) + catchup["sha256"],
+        + sum(closes["sha256"].values()) + catchup["sha256"]
+        + sum(herder["sha256"].values()),
         "launches_by_path": {"hash main path": hash_launches,
                              **ledger["launches"], **closes["sha256"],
-                             "catchup": catchup["sha256"]},
+                             "catchup": catchup["sha256"],
+                             **herder["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

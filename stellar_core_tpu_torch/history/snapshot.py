@@ -1,9 +1,7 @@
 """StateSnapshot: materialize one checkpoint's files from the database.
 
 Copied from `stellar_core_tpu/history/snapshot.py` at commit 17156c3;
-carry a fix in either copy to the other. `statement_qset_hash` is the
-reference herder's (`herder/pending_envelopes.py`), copied here until
-the herder is ported.
+carry a fix in either copy to the other.
 
 Role parity: reference `src/history/StateSnapshot.{h,cpp}` — per
 checkpoint writes four XDR streams (ledger headers, transactions,
@@ -18,11 +16,12 @@ import os
 from typing import List, Optional
 
 from ..crypto.hashing import sha256
+from ..herder.pending_envelopes import statement_qset_hash
 from ..util.log import get_logger
 from ..util.xdrstream import XDROutputFileStream
 from ..xdr import (
     LedgerHeader, LedgerHeaderHistoryEntry, LedgerSCPMessages, SCPEnvelope,
-    SCPHistoryEntry, SCPHistoryEntryV0, SCPQuorumSet, SCPStatementType,
+    SCPHistoryEntry, SCPHistoryEntryV0, SCPQuorumSet,
     TransactionEnvelope, TransactionHistoryEntry,
     TransactionHistoryResultEntry, TransactionSet, TransactionResultPair,
     TransactionResultSet, _Ext,
@@ -31,15 +30,6 @@ from .archive_state import HistoryArchiveState
 from .checkpoints import first_in_checkpoint
 
 log = get_logger("History")
-
-
-def statement_qset_hash(st) -> bytes:
-    """The quorum-set hash an SCP statement names (copied from
-    `stellar_core_tpu/herder/pending_envelopes.py` at commit a09415e)."""
-    t = st.pledges.disc
-    if t == SCPStatementType.SCP_ST_EXTERNALIZE:
-        return st.pledges.value.commitQuorumSetHash
-    return st.pledges.value.quorumSetHash
 
 
 def gzip_file(path: str) -> str:

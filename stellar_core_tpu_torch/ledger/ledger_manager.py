@@ -9,8 +9,9 @@ engine (`native_apply_txset`, `use_native_apply`,
 `_native_covers_prefetch`); BucketDB (`_check_bucket_coverage` and the
 re-attach in `set_last_closed_ledger`, and the detach in
 `_restore_bucket_list`'s fallback); invariants; the close-meta stream
-(`_emit_close_meta`); the slot timeline. Kept from the history and
-catchup wiring: `load_last_known_ledger` (a restart over the SQL store
+(`_emit_close_meta`). Kept: the slot timeline's `ledger.applied`
+record (`util/slot_timeline.py` came with the herder). Kept from the
+history and catchup wiring: `load_last_known_ledger` (a restart over the SQL store
 and the bucket directory), `_store_local_has` and `_restore_bucket_list`
 (the local HAS in the persistent state), `maybe_queue_checkpoint` after
 each close, and `catchup_trigger`, `entries_invalidated` and the
@@ -267,6 +268,13 @@ class LedgerManager:
                     len(lcd.tx_set.frames))
                 metrics.new_counter("ledger.ledger.num").set_count(
                     lcd.ledger_seq)
+            tl = getattr(self.app, "slot_timeline", None)
+            if tl is not None:
+                # closes the slot's journal: externalize → applied is the
+                # local apply cost the fleet view separates from
+                # propagation skew
+                tl.record(lcd.ledger_seq, "ledger.applied",
+                          txs=len(lcd.tx_set.frames))
         except BaseException as e:
             if ltx._open:
                 ltx.rollback()   # drop children too: no dangling state

@@ -2,19 +2,25 @@
 
 Copied from `stellar_core_tpu/main/config.py` at commit 02f8fbd; carry a
 fix in either copy to the other. Kept: the knobs the port's ledger,
-history and catchup layers read (the network passphrase and node seed,
-the database, the genesis and testing-upgrade values, HISTORY,
-CHECKPOINT_FREQUENCY, CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES,
-STATE_CHECKPOINT_INTERVAL), `network_id` and `test_config`. Left out,
-each with the module that reads it: `from_toml`, the node name, the
-bucket and temporary directories (`main/commandline.py` and
-`main/application.py`, which open a node's files); the quorum set, run
-modes, overlay, herder and ingress knobs and `validate` (the herder, SCP
-and overlay); BucketDB (`BUCKETDB_*`); invariants; the native apply
-engine and the pipelined catchup (`NATIVE_PARALLEL_*`,
-`CATCHUP_PIPELINE`); the verify and hash backends, faults, tracing, the
-flight recorder, maintenance and the close-meta stream
-(`main/application.py`, which builds them). Until those are ported, the
+history, catchup, herder and SCP layers read (the network passphrase and
+node seed, NODE_IS_VALIDATOR and QUORUM_SET, the run modes MANUAL_CLOSE
+and FORCE_SCP, the database, the herder's knobs, the transaction queue's
+depths and pool multiplier, the ingress tier's INGRESS_* knobs, the
+genesis and testing-upgrade values,
+ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING, HISTORY, CHECKPOINT_FREQUENCY,
+CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES, STATE_CHECKPOINT_INTERVAL),
+`network_id`, `node_id`, `self_qset` and `test_config`. Left out, each
+with the module that reads it and the ROADMAP Queue 1 item that brings
+it: `from_toml`, `validate` (with UNSAFE_QUORUM and FAILURE_SAFETY), the
+node name and home domain, RUN_STANDALONE, the bucket and temporary
+directories (`main/commandline.py` and `main/application.py`, which
+open a node's files, item 8); the overlay knobs (item 7); BucketDB
+(`BUCKETDB_*`, item 5); invariants (item 6); the native apply engine
+and the pipelined catchup (`NATIVE_PARALLEL_*`, `CATCHUP_PIPELINE`,
+item 2); ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING (the load generator,
+item 9); the verify and hash backends, faults, tracing, the slot
+timeline's size, the flight recorder, maintenance and the close-meta
+stream (`main/application.py`, which builds them, item 8). Until those are ported, the
 caller builds a node's verifier, hasher, tracer and recorder and hands
 them to it.
 
@@ -23,10 +29,11 @@ Role parity: reference `src/main/Config.{h,cpp}`.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..crypto.hashing import sha256
 from ..crypto.keys import SecretKey
+from ..xdr import PublicKey, SCPQuorumSet
 
 
 class Config:
@@ -37,6 +44,12 @@ class Config:
         # identity / network
         self.NETWORK_PASSPHRASE = "(sct) testing network"
         self.NODE_SEED: Optional[SecretKey] = None
+        self.NODE_IS_VALIDATOR = True
+        self.QUORUM_SET: Optional[SCPQuorumSet] = None
+
+        # run modes
+        self.MANUAL_CLOSE = False
+        self.FORCE_SCP = False
 
         # catchup mode of a gap-triggered catchup (CatchupManager)
         self.CATCHUP_COMPLETE = False
@@ -45,11 +58,39 @@ class Config:
         # database
         self.DATABASE = "sqlite3://:memory:"
 
+        # herder
+        self.EXPECTED_LEDGER_CLOSE_TIME = 5.0
+        self.MAX_SLOTS_TO_REMEMBER = 12
+        self.CONSENSUS_STUCK_TIMEOUT_SECONDS = 35.0
+        # how far ahead of the current slot SCP envelopes are accepted;
+        # beyond it only externalize hints are buffered (recovery path)
+        self.LEDGER_VALIDITY_BRACKET = 100
+        self.TRANSACTION_QUEUE_PENDING_DEPTH = 4
+        self.TRANSACTION_QUEUE_BAN_DEPTH = 10
+        self.POOL_LEDGER_MULTIPLIER = 2
+        # ingress admission tier (herder/ingress.py): per-source
+        # token-bucket rate classes in front of the TransactionQueue.
+        # INGRESS_CLASSES maps a class name to {rate, burst,
+        # max_inflight} overrides merged onto ingress.DEFAULT_CLASSES;
+        # the *_ACCOUNTS lists pin strkey account ids to the priority /
+        # untrusted classes. INGRESS_ASYNC_INTAKE parks admitted frames
+        # in a bounded intake (INGRESS_INTAKE_DEPTH) drained
+        # priority-first at each trigger; per-source bucket states are
+        # capped at INGRESS_MAX_SOURCES.
+        self.INGRESS_ENABLED = True
+        self.INGRESS_ASYNC_INTAKE = False
+        self.INGRESS_INTAKE_DEPTH = 512
+        self.INGRESS_MAX_SOURCES = 65536
+        self.INGRESS_CLASSES: Dict[str, dict] = {}
+        self.INGRESS_PRIORITY_ACCOUNTS: List[str] = []
+        self.INGRESS_UNTRUSTED_ACCOUNTS: List[str] = []
+
         # genesis / testing upgrades
         self.GENESIS_TOTAL_COINS = 10**17
         self.TESTING_UPGRADE_DESIRED_FEE = 100
         self.TESTING_UPGRADE_RESERVE = 5_000_000
         self.TESTING_UPGRADE_MAX_TX_SET_SIZE = 100
+        self.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = False
 
         # history
         self.HISTORY: Dict[str, dict] = {}
@@ -68,13 +109,25 @@ class Config:
     def network_id(self) -> bytes:
         return sha256(self.NETWORK_PASSPHRASE.encode())
 
+    def node_id(self) -> PublicKey:
+        assert self.NODE_SEED is not None
+        return self.NODE_SEED.public_key
+
+    def self_qset(self) -> SCPQuorumSet:
+        return SCPQuorumSet(threshold=1, validators=[self.node_id()],
+                            innerSets=[])
+
     @classmethod
     def test_config(cls, n: int = 0) -> "Config":
         """Per-instance deterministic test config (reference getTestConfig,
         src/test/test.cpp:80-131): the reference's node seed for instance
-        `n` and an in-memory ledger."""
+        `n`, a 1-of-1 quorum of itself, manual closes with FORCE_SCP, and
+        an in-memory ledger."""
         cfg = cls()
         cfg.NODE_SEED = SecretKey.from_seed(
             sha256(b"test-node-%d" % n))
+        cfg.MANUAL_CLOSE = True
+        cfg.FORCE_SCP = True
         cfg.DATABASE = "in-memory"
+        cfg.QUORUM_SET = cfg.self_qset()
         return cfg

@@ -3,8 +3,9 @@ per-site schedules.
 
 Copied (`KNOWN_SITES`, `InjectedFault`, `FaultSite`, `FaultInjector`
 without its `SCT_FAULTS` spec parser and its `clear` / `configured`)
-from `stellar_core_tpu/util/faults.py` at commit 02ed56d; carry a fix in
-either copy to the other. Each site
+from `stellar_core_tpu/util/faults.py` at commit 02ed56d, and
+`check_faults` (which the herder's ingress tier calls) at commit
+02f8fbd; carry a fix in either copy to the other. Each site
 draws from its own `random.Random("<seed>:<site>")` in the same order as
 the reference, so one seed and one configuration fire on the same calls
 on both stacks.
@@ -145,3 +146,11 @@ class FaultInjector:
         return {"seed": self.seed,
                 "sites": {n: s.to_json()
                           for n, s in sorted(self._sites.items())}}
+
+
+def check_faults(owner, name: str) -> bool:
+    """`should_fire` against an `owner.faults` that may be absent or None
+    — call sites (verifier, transports, works) must never require an
+    injector, mirroring tracing.app_span's contract."""
+    f = getattr(owner, "faults", None)
+    return f is not None and f.should_fire(name)

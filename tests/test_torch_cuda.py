@@ -600,3 +600,77 @@ def test_catchup_on_card_matches_cpu_publisher(card, tmp_path):
     assert calls == []
     for app in (pub, node, twin):
         stop(app)
+
+
+def test_herder_network_on_card_reaches_consensus(card, tmp_path):
+    """Four port validators in a 3-of-4 quorum, each on
+    `make_verifier("cuda")` and `make_hasher("cuda")`, over the herder
+    harness's relay: three slots (fund four senders, arm them, a slot of
+    4-signature payments with one corrupted, refused by every node). Every
+    node externalizes the same value and closes to the same hashes as a
+    CPU twin closing the same values; the verify kernel launches once per
+    distinct envelope and once per transaction's first admission, and
+    nothing sent to the card is verified on the CPU."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    import torch_herder_harness as H
+    keys = [H.node_seed(i).public_key for i in range(4)]
+    qset = H.flat_qset(X, keys, 3)
+    relay = None
+    for i in range(4):
+        cfg = H.node_config(i, qset, i == 0, 1000)
+        app = H.make_port_node(tmp_path / ("n%d" % i), cfg,
+                               make_verifier("cuda"), make_hasher("cuda"))
+        relay = relay or H.Relay(cfg.network_id)
+        relay.join("n%d" % i, app)
+    twin = H.make_port_app(tmp_path / "twin",
+                           config=H.node_config(4, qset, False, 1000))
+    tr = H.Traffic(relay.nodes[0].app.ledger_manager, relay.network_id,
+                   relay.nodes[0].app.network_root_key(), senders=4, sigs=4,
+                   corrupt_every=3)
+    sites = H.Sites(lambda: E.LAUNCHES)
+    for n in relay.nodes:
+        sites.wrap(n.app.herder, "recv_scp_envelope", "envelope")
+        sites.wrap(n.app.herder.tx_queue, "try_add", "admission")
+    calls = []
+    real = K.raw_verify_batch, K.raw_verify
+    K.raw_verify_batch = lambda t: calls.extend(t) or real[0](t)
+    K.raw_verify = lambda *t: calls.append(t) or real[1](*t)
+    K.flush_verify_cache()
+    E.LAUNCHES = S.LAUNCHES = 0
+    n_txs = 0
+    try:
+        # each slot's transactions are built against the ledger it follows
+        for seq, build in ((2, tr.fund), (3, tr.arm),
+                           (4, lambda: tr.payments(4))):
+            blobs = build()
+            for k, b in enumerate(blobs):
+                got = relay.submit(k % 4, b)
+                bad = hashlib.sha256(b).digest() in tr.corrupted
+                assert set(got) == {2 if bad else 0}
+            n_txs += len(blobs)
+            relay.close_slot(seq)
+            sv = X.StellarValue.from_xdr(relay.nodes[0].externalized[seq])
+            ts = relay.nodes[0].app.herder.pending.get_tx_set(sv.txSetHash)
+            twin.ledger_manager.value_externalized(LedgerCloseData(
+                seq, TxSetFrame.from_wire(relay.network_id, X.TransactionSet
+                                          .from_xdr(ts.to_wire().to_xdr())),
+                sv))
+            want = (twin.ledger_manager.lcl_hash,
+                    twin.bucket_manager.get_hash(),
+                    twin.state_commitment.root)
+            assert {relay.hashes(n) for n in relay.nodes} == {want}
+    finally:
+        K.raw_verify_batch, K.raw_verify = real
+    assert tr.corrupted
+    assert {k: c for k, c in sites.by_site.items() if c} == {
+        "envelope": len(relay.envelopes), "admission": n_txs}
+    assert E.LAUNCHES == len(relay.envelopes) + n_txs and S.LAUNCHES > 0
+    # the herder checks nominated values' signatures on the host, as the
+    # reference does; no envelope or transaction triple reaches the C
+    # verifier
+    assert set(calls) <= H.value_sig_triples(relay)
+    for n in relay.nodes:
+        H.stop(n.app)
+    H.stop(twin)

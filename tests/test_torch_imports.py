@@ -2,8 +2,9 @@
 not `chip_smoke.py`, imports JAX or anything of the JAX package.
 
 Three checks, over every subpackage (the history and catchup slice's
-`work`, `process`, `main`, `history`, `historywork` and `catchup` among
-them, named in the first): every port module imported in a fresh interpreter leaves
+`work`, `process`, `main`, `history`, `historywork` and `catchup`, and
+the SCP and herder slice's `scp` and `herder` modules among them, named
+in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -66,7 +67,13 @@ def test_port_modules_import_no_jax():
               "history.history_manager", "historywork",
               "historywork.works", "historywork.apply_works", "catchup",
               "catchup.range", "catchup.catchup_work",
-              "catchup.catchup_manager", "util.status_manager"):
+              "catchup.catchup_manager", "util.status_manager",
+              # the SCP and herder slice
+              "scp", "scp.local_node", "scp.driver", "scp.nomination",
+              "scp.ballot", "scp.slot", "scp.scp", "scp.scp_stats",
+              "util.slot_timeline", "herder.quorum_intersection",
+              "herder.pending_envelopes", "herder.tx_lifecycle",
+              "herder.ingress", "herder.tx_queue", "herder.herder"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
