@@ -6,11 +6,16 @@ one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA card (Hopper:
 the kernels are built for sm_90a). It builds every kernel from the
-sources in the checkout (one nvcc per source, all started together), then
-drives three paths, the ledger that runs on the hash path, the ledger
-manager's close that runs on both, the catchup that replays published
-checkpoints through that close, and a network of herder nodes reaching
-consensus on the values that close.
+sources in the checkout (one nvcc per source, all started together) and,
+on a thread beside them, the port's two CPython extensions with `cc` and
+the interpreter's headers (the apply engine `native/applyc.c` and the XDR
+codec's C route `native/xdrc.c`, into `stellar_core_tpu_torch/build/`
+under the names `_sctapply_torch` and `_sctxdr_torch`), then drives
+three paths, the ledger that runs on the hash path, the ledger manager's
+close that runs on both (its fee and apply phases in the apply engine,
+which verifies each close's candidate signatures in one `prewarm_many`),
+the catchup that replays published checkpoints through that close, and a
+network of herder nodes reaching consensus on the values that close.
 
 The verify path (`ed25519_verify`):
 
@@ -169,12 +174,21 @@ over the hash path), each phase driven with the counts set to 0 just
 before it and read just after:
 
 L1. builds 2^20 live entries of the testing/entries.py mix as the port's
-   `BucketEntry` objects (decoded by the port's codec), in canonical
-   order without a Python sort, adopts them as the curr buckets of levels
-   4-10 (most in level 10, which never spills) through a `BucketManager`
-   with background merges over a temporary bucket directory, and
-   restores the list with `assume_state` at a ledger that is a multiple
-   of 128, as a node starts after catchup. No launch. Prints the setup s;
+   `BucketEntry` objects (decoded by the port's codec, its C route), in
+   canonical order without a Python sort, adopts them as the curr buckets
+   of levels 4-10 (most in level 10, which never spills) through a
+   `BucketManager` with background merges over a temporary bucket
+   directory, and restores the list with `assume_state` at a ledger that
+   is a multiple of 128, as a node starts after catchup. No launch.
+   Prints the setup s;
+X1. (the codec, first half, after L1) encodes L1's 2^20 LedgerEntry
+   values through the codec's C route (`native.xdr_pack_fn`) and through
+   its Python route (`fastcodec`): the bytes equal; then decodes them by
+   both routes, each decoding re-encoding to the same bytes. Prints each
+   route's encode and decode ms, timed with the cyclic collector off (L1
+   prints the decode with it on). The second half, after R1, does the same
+   with the TransactionHistoryEntry records of R1's checkpoint-127
+   transactions file, whose own bytes both routes must give;
 L2. builds a `StateCommitmentEngine` over `make_hasher("cuda-resilient")`
    with a real `Tracer`, `FlightRecorder`, metrics and faults, a node seed
    and network id and a checkpoint every 8 closes, and a twin engine over
@@ -213,9 +227,18 @@ LedgerManager over both paths), each phase driven with the counts set to
 0 just before it and read just after. The card's LedgerManager closes
 through `make_verifier("cuda-resilient")` and `make_hasher(
 "cuda-resilient")` (no fallback), with a real Tracer, FlightRecorder and
-metrics; a CPU twin (`CpuSigVerifier`, the hashlib hasher, the in-memory
-root) closes the same values. Each side validates from an empty verify
-cache (the process has one), so neither reads the other's decisions:
+metrics, its fee and apply phases in the apply engine; a CPU twin
+(`CpuSigVerifier`, the hashlib hasher, the in-memory root) closes the
+same values through the Python phases (`use_native_apply` False). Each
+side validates from an empty verify cache (the process has one), so
+neither reads the other's decisions. At every close: the card's path is
+"native" and the twin's "python" (no engine bail: these mixes hold no
+residual shape), and the engine's one verify callback gets exactly the
+candidates derived from the state before the close by the engine's rule
+(`tests/torch_close_harness.py::engine_candidates`: hint-matched master
+keys and signers of each transaction's accounts, plus the set's
+set-options signers), launching once per 8,192 of them the verify cache
+does not hold, its decisions equal to the C verifier's:
 
 C1. restores a state of CLOSE_STATE entries of the same mix (every offer
    with an ID of its own) plus the network root account: buckets written
@@ -235,19 +258,32 @@ C3. 64 closes of 100 payments, each signed by 20 keys, every 7th with one
    trimmed set, `LedgerManager.value_externalized`. Checks: the trimmed
    transactions are the corrupted ones on both sides; one verify launch
    per validation (one prewarm of 2,000 triples at the 2,048 bucket) and
-   none in a close; SHA-256 launches per close as derived from the bucket
-   list alone (L3's rule); lcl_hash, every result pair, the bucket-list
-   hash and the commitment root equal to the twin's after every close.
-   Prints validation p50/p99 and sigs/s, `ledger.ledger.close` p50/p99,
-   the close's spans per close, and the card's busy share from a replay
-   of the validations' prewarm drains with only CUDA activity profiled;
+   none in a close (the engine's candidates are all in the cache);
+   SHA-256 launches per close as derived from the bucket list alone (L3's
+   rule); lcl_hash, every result pair, the bucket-list hash and the
+   commitment root equal to the twin's after every close. Prints
+   validation p50/p99 and sigs/s, `ledger.ledger.close` p50/p99,
+   `close.apply` p50 and mean on both sides (the engine against the
+   Python phases), the close's spans per close, and the card's busy share
+   from a replay of the validations' prewarm drains with only CUDA
+   activity profiled;
 C4. 32 closes of 100 two-signature payments between disjoint partner
    pairs (the standard mix's payments), with the same checks and prints;
 C5. a cold close: one C3-shaped set validated on the card, the verify
-   cache flushed, then closed, so each transaction's first signature
-   check launches the kernel: the launches equal the transactions left
-   after trimming, decisions and lcl_hash equal the twin's, and the root
-   equals `from_scratch_root`. Prints the close's time beside C3's.
+   cache flushed, then closed: the engine drains all its candidates in
+   one `prewarm_many`, one launch, decisions and lcl_hash equal the
+   twin's. Prints the close's time beside C3's. C5p: the next C3-shaped
+   set closed cold on the same card node through the Python phases
+   (`use_native_apply` False, the route every engine bail takes): one
+   launch per transaction left after trimming, at its first signature
+   check, every decision equal to the C verifier's, lcl_hash equal to the
+   twin's; prints its measured launches and time beside C5's. The root
+   then equals `from_scratch_root`. Then the fault case: a close of C4-shaped payments with `device.dispatch`
+   armed on a `cuda-resilient` verifier: the fault raises out of the
+   engine's verify callback and the close raises SignatureVerifyError;
+   the LCL, its hash and the entries are unchanged, no transaction is
+   applied by the Python phases instead, nothing launches and nothing is
+   verified on the CPU.
 
 Catchup (the port's work scheduler, history publish and catchup over
 the close path), each phase driven with the counts set to 0 just before
@@ -257,8 +293,9 @@ the persistent state's local HAS, a local-directory archive reached
 through `ProcessManager`); every card node runs `make_verifier` and
 `make_hasher("cuda-resilient")` (no fallback) from an empty verify cache:
 
-R1. a CPU node (the C verifier, `make_hasher("cpu")`) closes the history
-   through `value_externalized`, each set validated by `trim_invalid` as
+R1. a CPU node (the C verifier, `make_hasher("cpu")`, the Python apply
+   phases) closes the history through `value_externalized`, each set
+   validated by `trim_invalid` as
    in C2/C3: ledger 2 funds 100 senders in one 100-operation transaction,
    ledger 3 arms them (19 more signers, a medium threshold of 20), and
    ledgers 4-131 carry 100 payments to the root, each signed by 20 keys
@@ -273,25 +310,32 @@ R2. a fresh card node catches up complete: SUCCESS at 127; every ledger's
    publisher's; the verify launches per drain equal the count derived
    from the archive alone (checkpoint 63's master-key drain, its re-drain
    after ledger 3 adds the signers, checkpoint 127's drain: 1, 14 and 16
-   launches), none inside a replayed close; every distinct triple
-   verified on the card exactly once and none on the CPU; SHA-256
-   launches per close as derived from the bucket list (L3's rule).
-   Prints ledgers/s, transactions/s and signatures/s end to end, each
-   checkpoint's spans (`catchup.load_files`, `catchup.txset_parse`,
+   launches), none inside a replayed close (every close runs in the
+   apply engine, whose candidates the drains left in the cache); every
+   distinct triple verified on the card exactly once and none on the
+   CPU; SHA-256 launches per close as derived from the bucket list (L3's
+   rule). Prints ledgers/s, transactions/s and signatures/s end to end,
+   each checkpoint's spans (`catchup.load_files`, `catchup.txset_parse`,
    `catchup.sig_prep`, `crypto.verify_many`, the mean
    `catchup.apply_ledger`), the drains' sigs/s, the full collections, and
    the card's busy share over the drains from a profiled replay of them;
+R2p. a second fresh card node replays the same archive with its closes in
+   the Python phases (`use_native_apply` False), with R2's checks: the
+   same launches, drain for drain (31), none in a close. Prints both
+   replays' ledgers/s and mean `catchup.apply_ledger`;
 R3. a node restarted over R2's SQL file, bucket directory and persistent
    state: LCL 127 and a bucket list that hashes to its header's; the
    commitment's first root, computed on the card, equals the
-   publisher's; it closes value 128 cold (one verify launch a
-   transaction) to the publisher's hash;
+   publisher's; it closes value 128 cold in the engine (one launch, as
+   its candidates derive; decisions equal the C verifier's) to the
+   publisher's hash;
 R4. a fresh card node at genesis, configured to catch up the last
    checkpoint (CATCHUP_RECENT 64: a minimal catchup to a checkpoint tip
    would apply buckets at 127 and replay nothing), hears values 128-131:
    it enters LM_CATCHING_UP_STATE with 4 values buffered, applies the
    buckets at 63, replays 64-127 behind one 16-launch drain, then closes
-   128-131 from the buffer, cold (one launch a transaction), and ends
+   128-131 from the buffer, cold, in the engine (one launch a close, as
+   the candidates derive, decisions equal the C verifier's), and ends
    synced at 131 with the publisher's hash. Prints the bucket-apply's
    seconds and the replay's ledgers/s;
 R5. faults, each on a fresh card node over its own copy of the archive,
@@ -327,8 +371,10 @@ S1. 21 validators, pubnet's tier-1 shape (7 organisations of 3; each
    node's quorum 5 of the 7 organisations, each an inner set of 2 of its
    3), each on `make_verifier("cuda")` and `make_hasher("cuda")`, and a
    CPU twin (one port `LedgerManager` on the C verifier and
-   `make_hasher("cpu")` closing the value each slot externalized): 12
-   slots, 10 loaded. Checks: all 21 nodes externalize one value a slot;
+   `make_hasher("cpu")`, its closes in the Python phases, closing the
+   value each slot externalized): 12 slots, 10 loaded. Checks: every
+   node's every close runs in the apply engine; all 21 nodes externalize
+   one value a slot;
    at every height every node's lcl hash, bucket-list hash and
    commitment root are equal and equal the twin's; the verify launches
    by call site equal the count derived from the run's data: one per
@@ -352,7 +398,8 @@ S2. 4 validators in a 3-of-4 quorum, each on `make_verifier("cuda-async")`
    node's virtual clock), 7 slots, 5 loaded; after slot 5, node 0's last
    envelope with one signature byte flipped is relayed to nodes 1 and 2.
    Checks: every slot externalizes and closes to equal hashes on all
-   four; both nodes drop the forged envelope on the card's False
+   four, every close in the apply engine; both nodes drop the forged
+   envelope on the card's False
    decision and consensus goes on; every flooded envelope is verified on
    the card; the verify launches are at most the bound derived from the
    data, each receiver once per envelope, the forged one twice and each
@@ -375,10 +422,10 @@ per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's, C2-C5's, R2-R5's and S1-S2's, the
-sha256 entry's the hash main path's, L2-L4's, C1-C5's, R2-R5's and
-S1-S2's, each split in `launches_by_path`, R2-R5 under `catchup`, S1 and
-S2 under `herder S1` and `herder S2`)
+launches are the verify main path's, C2-C5p's, R2-R5's and S1-S2's, the
+sha256 entry's the hash main path's, L2-L4's, C1-C5p's, R2-R5's and
+S1-S2's, each split in `launches_by_path`, R2, R2p and R3-R5 under
+`catchup`, S1 and S2 under `herder S1` and `herder S2`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -2322,6 +2369,7 @@ def ledger_path(S, E, rng, flight_dir: str, card: str) -> dict:
         mgr = st["mgr"]
         bl = mgr.bucket_list
         out["setup_s"] = st["setup_s"]
+        x1_entries(X, st["live"], card)
 
         # --- L2 ------------------------------------------------------------
         reg = MetricsRegistry()
@@ -2632,20 +2680,99 @@ class GcPauses:
                 % (len(self.ms), sum(self.ms), max(self.ms, default=0.0)))
 
 
+class EnqueueCalls:
+    """While entered, records every `enqueue` of `verifier` (the Python
+    phases' SignatureChecker) as (triple, decision), each decision read
+    once the context exits, when every future is complete."""
+
+    def __init__(self, verifier, calls: list):
+        self.v, self.calls, self.futs = verifier, calls, []
+
+    def __enter__(self):
+        v = self.v
+        inner = type(v).enqueue.__get__(v)
+
+        def enqueue(key, sig, msg):
+            f = inner(key, sig, msg)
+            self.futs.append(((key.key_bytes, sig, msg), f))
+            return f
+
+        v.enqueue = enqueue
+        return self
+
+    def __exit__(self, *exc):
+        del self.v.enqueue
+        if exc[0] is None:
+            self.calls.extend((t, f.result()) for t, f in self.futs)
+        return False
+
+
+class EngineCalls:
+    """While entered, records every `prewarm_many` of `verifier` (the
+    apply engine's verify callback inside a close) as (triples, decisions)
+    in `calls`. The calls go to the verifier's own method, past any
+    recorder a phase set on the instance for its validations."""
+
+    def __init__(self, verifier, calls: list):
+        self.v, self.calls = verifier, calls
+
+    def __enter__(self):
+        v = self.v
+        self.had = "prewarm_many" in v.__dict__
+        self.inner = v.prewarm_many
+        inner = type(v).prewarm_many.__get__(v)
+
+        def prewarm(triples):
+            got = inner(triples)
+            self.calls.append((list(triples), list(got)))
+            return got
+
+        v.prewarm_many = prewarm
+        return self
+
+    def __exit__(self, *exc):
+        if self.had:
+            self.v.prewarm_many = self.inner
+        else:
+            del self.v.prewarm_many
+        return False
+
+
+def close_harness():
+    """`tests/torch_close_harness.py` (the apply engine's candidate rule,
+    `engine_candidates` and `engine_launches`), imported from the
+    checkout."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_close_harness
+    return torch_close_harness
+
+
 def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
-                prewarm: bool = True) -> dict:
+                prewarm: bool = True, native: bool = True) -> dict:
     """One ledger on the card's LedgerManager and on its CPU twin, as a
     node runs it: TxSetFrame.trim_invalid through the side's verifier
     (the herder's call), a StellarValue over the trimmed set, then
-    value_externalized. Each side starts from an empty verify cache (they
-    share the process's). Without `prewarm` the cache is flushed again
-    between the card's validation and its close. Checks: the removed
-    transactions are the corrupted ones on both sides; the card's verify
-    launches are as derived from the set (one prewarm batch for two or
-    more transactions, else one per transaction, and none in the close,
-    or one per transaction in a cold close); its SHA-256 launches are as
-    derived from the bucket list; and lcl_hash, each result pair, the
-    bucket-list hash and the commitment root equal the twin's."""
+    value_externalized. The card closes through the apply engine (through
+    the Python phases if not `native`), the twin through the Python
+    phases. Each side starts from an empty verify cache (they share the
+    process's). Without `prewarm` the cache is flushed again between the
+    card's validation and its close. Checks: the removed transactions are
+    the corrupted ones on both sides; the card's verify launches are as
+    derived from the set (one prewarm batch for two or more transactions,
+    else one per transaction) and, in the close, the engine's one
+    `prewarm_many` of the candidates derived from the state
+    (`engine_candidates`), launching once per 8,192 of them the cache
+    does not hold (none after the validation's prewarm, one in a cold
+    close), or, in the Python phases, one `enqueue`s-and-`flush` per
+    transaction left, launching once each in a cold close, none after the
+    prewarm; every decision of the close equal to the C verifier's; the
+    close paths as chosen; the card's SHA-256 launches as derived from
+    the bucket list; and lcl_hash, each result pair, the bucket-list hash
+    and the commitment root equal the twin's."""
+    CH = close_harness()
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.herder.txset import TxSetFrame
     from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
@@ -2673,12 +2800,23 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
             txSetHash=ts.get_contents_hash(hasher=lm.app.batch_hasher),
             closeTime=header.scpValue.closeTime + 1,
             upgrades=[], ext=X.StellarValueExt(0, None))
-        e0, s0 = E.LAUNCHES, S.LAUNCHES
-        t0 = time.perf_counter()
-        lm.value_externalized(LedgerCloseData(seq, ts, value))
-        close_ms = (time.perf_counter() - t0) * 1e3
-        check(lm.last_closed_ledger_num() == seq, "close %d applied" % seq)
         applied = ts.sort_for_apply()
+        cands = CH.engine_candidates(lm.root, applied)
+        want_e = CH.engine_launches(cands)
+        calls, flushed = [], []
+        if side == "card":
+            lm.use_native_apply = native
+        with EngineCalls(lm.app.sig_verifier, calls), \
+                EnqueueCalls(lm.app.sig_verifier, flushed):
+            e0, s0 = E.LAUNCHES, S.LAUNCHES
+            t0 = time.perf_counter()
+            try:
+                lm.value_externalized(LedgerCloseData(seq, ts, value))
+            finally:
+                if side == "card":
+                    lm.use_native_apply = True
+            close_ms = (time.perf_counter() - t0) * 1e3
+        check(lm.last_closed_ledger_num() == seq, "close %d applied" % seq)
         out[side] = {
             "hashes": {f.contents_hash() for f in frames},
             "removed": sorted(f.contents_hash() for f in removed),
@@ -2687,7 +2825,9 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
             "lcl": lm.lcl_hash,
             "results": [f.result_pair_xdr() for f in applied],
             "bucket_list": lm.app.bucket_manager.get_hash(),
-            "root": lm.app.state_commitment.root, "txs": len(applied)}
+            "root": lm.app.state_commitment.root, "txs": len(applied),
+            "path": lm.last_apply_path, "cands": cands, "want_e": want_e,
+            "calls": calls, "flushed": flushed}
         if side == "card":
             want_s = fresh_slots(S, SC, st, lm.app.bucket_manager.bucket_list)
     card, twin = out["card"], out["twin"]
@@ -2697,11 +2837,41 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
           % (seq, len(want_removed)))
     n = len(blobs)
     want_val = 1 if n > 1 else n
-    want_close = 0 if prewarm else n - len(want_removed)
+    want_path = "native" if native else "python"
+    check(card["path"] == want_path and twin["path"] == "python",
+          "close %d: the card closed in the %s, the twin in the Python "
+          "phases (%s, %s)" % (seq, "apply engine" if native else
+                               "Python phases", card["path"], twin["path"]))
+    calls, flushed = card.pop("calls"), card.pop("flushed")
+    if native:
+        # the engine's one verify callback a close, of the derived
+        # candidates
+        want_close = card["want_e"]
+        check([t for t, _g in calls] == ([card["cands"]] if card["cands"]
+                                         else []) and not flushed,
+              "close %d: the engine's verify callback got the %d "
+              "candidates derived from the state, in one call"
+              % (seq, len(card["cands"])))
+        check(want_close == (0 if prewarm else 1),
+              "close %d: %d launches derived from the engine's candidates"
+              % (seq, want_close))
+    else:
+        # the Python phases: each transaction's SignatureChecker enqueues
+        # its hint-matched pairs and flushes once, a launch when the
+        # cache misses
+        want_close = 0 if prewarm else n - len(want_removed)
+        check(not calls and len({m for (_k, _s, m), _g in flushed})
+              == card["txs"], "close %d: the Python phases enqueued the "
+              "pairs of each of the %d transactions, no prewarm_many"
+              % (seq, card["txs"]))
+        calls = [([t for t, _g in flushed], [g for _t, g in flushed])]
     check(card["e_val"] == want_val and card["e_close"] == want_close,
           "close %d: verify launches %d in validation, %d in the close "
           "(got %d, %d)" % (seq, want_val, want_close, card["e_val"],
                             card["e_close"]))
+    for triples, got in calls:
+        check(got == K.raw_verify_batch(triples), "close %d: the close's "
+              "%d decisions == the C verifier's" % (seq, len(triples)))
     check(card["s_close"] == want_s, "close %d: %d SHA-256 launches as "
           "derived from the bucket list (got %d)"
           % (seq, want_s, card["s_close"]))
@@ -2713,6 +2883,7 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
     card["seq"] = seq
     card["twin_val_ms"], card["twin_close_ms"] = twin["val_ms"], \
         twin["close_ms"]
+    card.pop("cands")
     return card
 
 
@@ -2794,7 +2965,7 @@ class CloseTraffic:
 
 
 def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
-    """C1-C5 of the module docstring; returns the launches by phase."""
+    """C1-C5p of the module docstring; returns the launches by phase."""
     from stellar_core_tpu_torch import testing as T
     from stellar_core_tpu_torch.bucket import BucketManager, apply_buckets
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
@@ -2844,8 +3015,14 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
               "C1: the card's stacks have no fallback")
         lm = close_side(mgr, v, h, True, root_sk, node_seed, metrics=reg,
                         tracer=tr, recorder=rec)
+        ttr = Tracer()
         twin = close_side(twin_mgr, make_verifier("cpu"),
-                          make_hasher("cpu"), False, root_sk, node_seed)
+                          make_hasher("cpu"), False, root_sk, node_seed,
+                          tracer=ttr)
+        # the card closes in the apply engine, the twin in the Python
+        # phases: each close is held against the other path
+        check(lm.use_native_apply, "C1: the card's close runs the engine")
+        twin.use_native_apply = False
         # the downloaded header the restore fast-forwards to
         header = ledger_header(X, LEDGER_START, b"\x00" * 32)
         header.maxTxSetSize = CLOSE_MAX_TX_SET_SIZE
@@ -2930,6 +3107,8 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
             n0 = timer.count
             tr.clear()
             tr.enable(capacity=65536)
+            ttr.clear()
+            ttr.enable(capacity=65536)
             recorded.clear()
             v.prewarm_many = recording_prewarm
             E.LAUNCHES = S.LAUNCHES = 0
@@ -2941,6 +3120,13 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
             wall_s = time.perf_counter() - t0
             v.prewarm_many = pw
             tr.disable()
+            ttr.disable()
+            apply_ms = {side: [sp.dur * 1e3 for sp in t.spans()
+                               if sp.name == "close.apply"
+                               and sp.dur is not None]
+                        for side, t in (("card", tr), ("twin", ttr))}
+            check(len(apply_ms["card"]) == len(apply_ms["twin"]) == closes,
+                  "%s: one close.apply span a close on each side" % phase)
             out["verify"][phase], out["sha256"][phase] = \
                 E.LAUNCHES, S.LAUNCHES
             check(timer.count - n0 == closes,
@@ -2976,6 +3162,15 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
             log("%s close spans, exclusive ms per close: %s; every span: %s"
                 % (phase, ", ".join("%s %.2f" % kv for kv in sorted(
                     spans.items(), key=lambda kv: -kv[1])), phases_line(pb)))
+            log("%s close.apply (%s): the card's apply engine p50 %.2f ms, "
+                "mean %.2f ms; the twin's Python phases p50 %.2f ms, mean "
+                "%.2f ms; every close native on the card, python on the "
+                "twin, no engine bail"
+                % (phase, card,
+                   float(np.percentile(apply_ms["card"], 50)),
+                   float(np.mean(apply_ms["card"])),
+                   float(np.percentile(apply_ms["twin"], 50)),
+                   float(np.mean(apply_ms["twin"]))))
             log("%s garbage collector over the %d closes (both sides and "
                 "the transactions' building): %s; validations over 1 s: %s; "
                 "closes over 1 s: %s"
@@ -3002,7 +3197,8 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
                                 100.0 * prof["busy_ms"] / sum(val)))
             out[phase] = {"val_ms": val, "close_ms": [x * 1e3
                                                       for x in close_s],
-                          "sigs_per_s": sigs / (sum(val) / 1e3)}
+                          "sigs_per_s": sigs / (sum(val) / 1e3),
+                          "apply_ms": apply_ms}
 
         # --- C5 ------------------------------------------------------------
         E.LAUNCHES = S.LAUNCHES = 0
@@ -3011,19 +3207,101 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
         out["verify"]["C5"], out["sha256"]["C5"] = E.LAUNCHES, S.LAUNCHES
         log("C5 cold close (%s): %d txs after trimming %d, the verify cache "
             "flushed between validation and close: %d launches in the close "
-            "(one per transaction), close %.1f ms against C3's p50 %.1f ms"
+            "(the apply engine's one drain of its candidates), close %.1f "
+            "ms against C3's p50 %.1f ms"
             % (card, c5["txs"], len(c5["removed"]), c5["e_close"],
-               c5["close_ms"], float(np.percentile(out["C3"]["close_ms"],
-                                                   50))))
+               c5["close_ms"],
+               float(np.percentile(out["C3"]["close_ms"], 50))))
+        # --- C5p: the same cold close through the Python phases ------------
+        E.LAUNCHES = S.LAUNCHES = 0
+        c5p = close_round(S, E, K, SC, st, traffic.multisig(C3_CLOSES + 1),
+                          traffic.corrupted, prewarm=False, native=False)
+        out["verify"]["C5p"], out["sha256"]["C5p"] = E.LAUNCHES, S.LAUNCHES
+        log("C5p cold close in the Python phases (%s): %d txs after "
+            "trimming %d: %d launches in the close (one per transaction, "
+            "at its first signature check), close %.1f ms against C5's "
+            "%.1f ms in the apply engine"
+            % (card, c5p["txs"], len(c5p["removed"]), c5p["e_close"],
+               c5p["close_ms"], c5["close_ms"]))
         sce = lm.app.state_commitment
         t0 = time.perf_counter()
         check(sce.root == sce.from_scratch_root(mgr.bucket_list),
-              "C5: the commitment root == from_scratch_root")
+              "C5, C5p: the commitment root == from_scratch_root")
         log("C5 from_scratch_root over the final list: %.1f s"
             % (time.perf_counter() - t0))
+        c5_fault(E, K, lm, traffic, reg, tr, rec)
         for m in (mgr, twin_mgr):
             m.shutdown()
     return out
+
+
+def c5_fault(E, K, lm, traffic, reg, tr, rec) -> None:
+    """The fault case after C5: the card's close with `device.dispatch`
+    armed on its verifier. The fault raises out of the apply engine's
+    verify callback, and the close raises it as SignatureVerifyError: the
+    LCL, its hash and the root's entries stay as they were, no transaction
+    is applied by the Python phases instead, and nothing launches or is
+    verified on the CPU."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.transactions import transaction_frame as TF
+    from stellar_core_tpu_torch.transactions.signature_checker import (
+        SignatureVerifyError,
+    )
+    from stellar_core_tpu_torch.util.faults import FaultInjector, \
+        InjectedFault
+    faults = FaultInjector(metrics=reg)
+    vf = make_verifier("cuda-resilient", metrics=reg, tracer=tr,
+                       faults=faults, flight_recorder=rec)
+    frames = [TF.TransactionFrame.make_from_wire(
+        LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(b))
+        for b in traffic.standard(C4_CLOSES + 1)]
+    frames = [f for f in frames if f.contents_hash() not in
+              traffic.corrupted]
+    ts = TxSetFrame(LEDGER_NETWORK_ID, lm.lcl_hash, frames)
+    header = lm.root.get_header()
+    seq = header.ledgerSeq
+    value = X.StellarValue(
+        txSetHash=ts.get_contents_hash(hasher=lm.app.batch_hasher),
+        closeTime=header.scpValue.closeTime + 1, upgrades=[],
+        ext=X.StellarValueExt(0, None))
+    lcl, owner = lm.lcl_hash, frames[0].source_account_id()
+    before = lm.root.get_entry(X.LedgerKey.account(owner)).to_xdr()
+    applied, cpu = [], []
+    saved = (lm.app.sig_verifier, TF.TransactionFrame.apply,
+             K.raw_verify, K.raw_verify_batch)
+    lm.app.sig_verifier = vf
+    TF.TransactionFrame.apply = lambda *a, **k: applied.append(1)
+    K.raw_verify = lambda *a: cpu.append(1)
+    K.raw_verify_batch = lambda t: cpu.append(len(t))
+    faults.configure("device.dispatch")
+    K.flush_verify_cache()
+    e0 = E.LAUNCHES
+    raised = None
+    try:
+        lm.close_ledger(LedgerCloseData(seq + 1, ts, value))
+    except SignatureVerifyError as e:
+        raised = e
+    finally:
+        (lm.app.sig_verifier, TF.TransactionFrame.apply, K.raw_verify,
+         K.raw_verify_batch) = saved
+    m = {k: d["count"] for k, d in reg.to_json().items()
+         if k in ("crypto.verify.dispatch-failure",
+                  "fault.injected.device.dispatch") and "count" in d}
+    check(raised is not None and isinstance(raised.__cause__, InjectedFault)
+          and lm.last_closed_ledger_num() == seq
+          and lm.lcl_hash == lcl and not applied and not cpu
+          and E.LAUNCHES == e0
+          and lm.root.get_entry(X.LedgerKey.account(owner)).to_xdr()
+          == before,
+          "C5 fault: device.dispatch in the engine's verify callback fails "
+          "the close of %d transactions; LCL %d and its hash unchanged, "
+          "nothing applied in Python, launched or verified on the CPU"
+          % (len(frames), seq))
+    log("C5 fault: the close raised %r out of the apply engine's verify "
+        "callback; LCL %d unchanged; meters %s" % (raised, seq, m))
 
 
 # --- the catchup phases (R1-R5): publish, catch up on the card, restart --
@@ -3237,10 +3515,13 @@ def r_span_line(spans: dict) -> str:
 
 class RProbe:
     """What a card node's catchup launched, where: every drain through
-    `prewarm_many` (its triples, decisions, launches and seconds), the
+    `prewarm_many` (its triples, decisions, launches and seconds, and the
+    ledger whose close made it, None for a checkpoint's drain), the
     triples the card's verify_many received, the verify and SHA-256
     launches inside each close (each close's SHA-256 launches against
-    fresh_slots' derivation), and every call of the C verifier."""
+    fresh_slots' derivation, its verify launches against the apply
+    engine's candidates, `engine_launches`, derived before it from the
+    state, and the path it took), and every call of the C verifier."""
 
     def __init__(self, S, E, K, SC, app):
         self.S, self.E, self.K, self.SC, self.app = S, E, K, SC, app
@@ -3248,6 +3529,7 @@ class RProbe:
         # its launches and seconds
         self.drains, self.card_triples, self.closes = [], [], {}
         self.cpu_calls, self.close_errors = [], []
+        self.in_close = None
         self.st = {"hasher": app.batch_hasher, "seen": set(),
                    "slot_hashes": [SC.ZERO_HASH] * 22}
         v = app.sig_verifier
@@ -3268,25 +3550,34 @@ class RProbe:
             self.drains.append({"triples": new,
                                 "decisions": [decided[t] for t in new],
                                 "launches": E.LAUNCHES - e0,
-                                "s": time.perf_counter() - t0})
+                                "s": time.perf_counter() - t0,
+                                "in_close": self.in_close})
             return got
 
         def verify_many(triples):
             self.card_triples.extend(triples)
             return self._vm(triples)
 
+        CH = close_harness()
+
         def close(lcd):
+            want_e = CH.engine_launches(CH.engine_candidates(
+                lm.root, lcd.tx_set.sort_for_apply())) \
+                if lm.use_native_apply else None
+            self.in_close = lcd.ledger_seq
             e0, s0, t0 = E.LAUNCHES, S.LAUNCHES, time.perf_counter()
             try:
                 self._close(lcd)
             except Exception as e:
                 self.close_errors.append((lcd.ledger_seq, repr(e)))
                 raise
+            finally:
+                self.in_close = None
             want = fresh_slots(S, self.SC, self.st,
                                app.bucket_manager.bucket_list)
             self.closes[lcd.ledger_seq] = (
                 E.LAUNCHES - e0, S.LAUNCHES - s0, want,
-                time.perf_counter() - t0, t0)
+                time.perf_counter() - t0, t0, want_e, lm.last_apply_path)
 
         raw, raw_batch = self._raw
         v.prewarm_many, v.primary.verify_many = prewarm, verify_many
@@ -3304,10 +3595,28 @@ class RProbe:
         return False
 
     def sha_as_derived(self) -> bool:
-        return all(s == w for _e, s, w, _t, _t0 in self.closes.values())
+        return all(c[1] == c[2] for c in self.closes.values())
 
     def close_launches(self, lo: int, hi: int) -> list:
         return [self.closes[s][0] for s in range(lo, hi + 1)]
+
+    def engine_as_derived(self, lo: int, hi: int) -> bool:
+        """Every close from `lo` to `hi` ran in the apply engine and
+        launched verify as its candidates derive."""
+        return all(self.closes[s][6] == "native"
+                   and self.closes[s][0] == self.closes[s][5]
+                   for s in range(lo, hi + 1))
+
+    def checkpoint_drains(self) -> list:
+        return [d for d in self.drains
+                if d["triples"] and d["in_close"] is None]
+
+    def close_decisions_ok(self, K) -> bool:
+        """The decisions of the drains inside closes == the C verifier's
+        (call after the probe has exited: it counts C verifier calls)."""
+        ds = [d for d in self.drains if d["triples"] and d["in_close"]]
+        return all(K.raw_verify_batch(d["triples"]) == d["decisions"]
+                   for d in ds)
 
 
 def card_stacks(metrics, tracer, recorder, faults=None) -> tuple:
@@ -3366,6 +3675,9 @@ def r1_publish(S, E, K, tmp: str, card: str) -> dict:
     os.makedirs(archive)
     pub = r_node(tmp, "publisher", archive, make_verifier("cpu"),
                  make_hasher("cpu"), writable=True)
+    # the history is applied by the Python phases, so the card's engine
+    # replays (R2) are held against another path's ledgers
+    pub.ledger_manager.use_native_apply = False
     traffic = CloseTraffic(pub.ledger_manager,
                            T.root_secret_key(LEDGER_NETWORK_ID),
                            senders=CLOSE_TXS, corrupt_every=0)
@@ -3428,6 +3740,98 @@ def r1_publish(S, E, K, tmp: str, card: str) -> dict:
             "bucket_list": header.bucketListHash}
 
 
+def x1_routes(what: str, t, values: list, card: str) -> dict:
+    """X1's check of one type: `values` encoded by the codec's C route
+    (`native.xdr_pack_fn`) and by its Python route (`fastcodec`), each
+    route's bytes decoded by both; every encoding byte-equal, every
+    decoding re-encoding to the same bytes, each C decoding ending at its
+    buffer's end. Timed with the cyclic collector off, so the times are
+    the codecs' own (L1's decode runs with it on). Returns the ms of each
+    route's encode and decode."""
+    import gc
+    from stellar_core_tpu_torch import native
+    from stellar_core_tpu_torch.xdr import fastcodec
+    c_pack, c_unpack = native.xdr_pack_fn(t), native.xdr_unpack_fn(t)
+    check(c_pack is not None and c_unpack is not None,
+          "X1: the C route has a program for %s" % t.__name__)
+    f_pack, f_unpack = fastcodec.compile_pack(t), fastcodec.compile_unpack(t)
+
+    def f_bytes(v):
+        out = []
+        f_pack(out.append, v)
+        return b"".join(out)
+
+    ms = {}
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        cb = [c_pack(v) for v in values]
+        ms["c_encode"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        fb = [f_bytes(v) for v in values]
+        ms["fastcodec_encode"] = (time.perf_counter() - t0) * 1e3
+        check(cb == fb, "X1: %s: %d values, the C route's bytes == "
+              "fastcodec's" % (what, len(values)))
+        del fb
+        t0 = time.perf_counter()
+        cv = [c_unpack(b) for b in cb]
+        ms["c_decode"] = (time.perf_counter() - t0) * 1e3
+        check(all(end == len(b) for (_v, end), b in zip(cv, cb)),
+              "X1: %s: each C decoding ends at its buffer's end" % what)
+        t0 = time.perf_counter()
+        fv = [f_unpack(b, 0)[0] for b in cb]
+        ms["fastcodec_decode"] = (time.perf_counter() - t0) * 1e3
+        check([c_pack(v) for v in fv] == cb
+              and [c_pack(v) for v, _e in cv] == cb,
+              "X1: %s: each route's decoding re-encodes to the same bytes"
+              % what)
+        n_bytes = sum(len(b) for b in cb)
+    finally:
+        if gc_was:
+            gc.enable()
+    log("X1 codec, %s (%s): %d values, %d bytes; the collector off, "
+        "encode: C %.1f ms, fastcodec %.1f ms; decode: C %.1f ms, "
+        "fastcodec %.1f ms; bytes equal"
+        % (what, card, len(values), n_bytes, ms["c_encode"],
+                   ms["fastcodec_encode"], ms["c_decode"],
+                   ms["fastcodec_decode"]))
+    return ms
+
+
+def x1_entries(X, live: list, card: str) -> dict:
+    """X1, first half: L1's live entries through both codec routes."""
+    return x1_routes("L1's %d LedgerEntry records" % len(live),
+                     X.LedgerEntry, live, card)
+
+
+def x1_tx_history(r1: dict, card: str) -> dict:
+    """X1, second half: the TransactionHistoryEntry records of R1's
+    checkpoint-127 transactions file (decoded here by fastcodec) through
+    both codec routes, which must also give the file's own bytes."""
+    import gzip
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.history.archive import category_path
+    from stellar_core_tpu_torch.xdr import fastcodec
+    gz = os.path.join(r1["archive"], category_path("transactions", R_TIP,
+                                                   ".xdr.gz"))
+    with gzip.open(gz, "rb") as g:
+        raw = g.read()
+    bodies, pos = [], 0
+    while pos < len(raw):
+        size = int.from_bytes(raw[pos:pos + 4], "big") & 0x7FFFFFFF
+        bodies.append(raw[pos + 4:pos + 4 + size])
+        pos += 4 + size
+    f_unpack = fastcodec.compile_unpack(X.TransactionHistoryEntry)
+    values = [f_unpack(b, 0)[0] for b in bodies]
+    check(len(values) == R_FREQ and all(
+        X.TransactionHistoryEntry.from_xdr(b).to_xdr() == b
+        for b in bodies), "X1: checkpoint %d's file holds %d ledgers, "
+        "each re-encoding to its own bytes" % (R_TIP, R_FREQ))
+    return x1_routes("checkpoint %d's transactions file" % R_TIP,
+                     X.TransactionHistoryEntry, values, card)
+
+
 def r_header(app, seq: int):
     from stellar_core_tpu_torch import xdr as X
     return X.LedgerHeader.from_xdr(app.database.execute(
@@ -3436,8 +3840,11 @@ def r_header(app, seq: int):
 
 
 def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
-                card: str) -> dict:
-    """R2 of the module docstring: a complete catchup on the card."""
+                card: str, native: bool = True) -> dict:
+    """R2 of the module docstring: a complete catchup on the card, its
+    closes in the apply engine; R2p (`native` False) the same on a second
+    fresh node whose closes run the Python phases."""
+    phase, name = ("R2", "r2") if native else ("R2p", "r2p")
     from stellar_core_tpu_torch.catchup import CatchupConfiguration
     from stellar_core_tpu_torch.crypto.batch_verifier import CudaSigVerifier
     from stellar_core_tpu_torch.util.metrics import MetricsRegistry
@@ -3447,8 +3854,9 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     reg, tr = MetricsRegistry(), Tracer()
     rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
     v, h = card_stacks(reg, tr, rec)
-    node = r_node(tmp, "r2", archive, v, h, metrics=reg, tracer=tr,
+    node = r_node(tmp, name, archive, v, h, metrics=reg, tracer=tr,
                   recorder=rec)
+    node.ledger_manager.use_native_apply = native
     want = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1])
     K.flush_verify_cache()
     E.LAUNCHES = S.LAUNCHES = 0
@@ -3458,64 +3866,83 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
         work = node.catchup_manager.start_catchup(
             CatchupConfiguration.complete())
         check(r_crank_until(node, work.is_done, 900.0),
-              "R2: the catchup finished")
+              "%s: the catchup finished" % phase)
     wall = time.perf_counter() - t0
     tr.disable()
     lm = node.ledger_manager
     check(work.state == State.SUCCESS and lm.is_synced()
           and lm.last_closed_ledger_num() == R_TIP,
-          "R2: SUCCESS at LCL %d" % R_TIP)
+          "%s: SUCCESS at LCL %d" % (phase, R_TIP))
     check(r_hashes(node.database, 1, R_TIP) == r_hashes(pub.database, 1,
                                                         R_TIP),
-          "R2: every replayed ledger's hash == the publisher's")
+          "%s: every replayed ledger's hash == the publisher's" % phase)
     check(node.bucket_manager.get_hash() == r1["bucket_list"]
           and node.state_commitment.root == r1["root"],
-          "R2: the bucket-list hash and commitment root == the "
-          "publisher's at %d" % R_TIP)
-    launches = [d["launches"] for d in pr.drains if d["triples"]]
-    check([len(d["triples"]) for d in pr.drains if d["triples"]]
+          "%s: the bucket-list hash and commitment root == the "
+          "publisher's at %d" % (phase, R_TIP))
+    drains = pr.checkpoint_drains()
+    launches = [d["launches"] for d in drains]
+    check([len(d["triples"]) for d in drains]
           == [n for n, _l in want] and launches == [n for _n, n in want]
           and E.LAUNCHES == sum(launches),
-          "R2: verify launches per drain %s as derived from the archive "
-          "(signatures, launches) %s" % (launches, want))
+          "%s: verify launches per drain %s as derived from the archive "
+          "(signatures, launches) %s" % (phase, launches, want))
     check(len(pr.card_triples) == len(set(pr.card_triples)),
-          "R2: every distinct triple verified on the card exactly once "
-          "(%d)" % len(pr.card_triples))
+          "%s: every distinct triple verified on the card exactly once "
+          "(%d)" % (phase, len(pr.card_triples)))
     check(not any(pr.close_launches(2, R_TIP)),
-          "R2: no verify launch inside a replayed close")
-    check(pr.cpu_calls == [], "R2: no signature verified on the CPU")
-    check(pr.sha_as_derived(), "R2: SHA-256 launches per close as derived "
-          "from the bucket list (%d in all)" % S.LAUNCHES)
+          "%s: no verify launch inside a replayed close" % phase)
+    paths = {pr.closes[q][6] for q in range(2, R_TIP + 1)}
+    if native:
+        check(pr.engine_as_derived(2, R_TIP),
+              "R2: every replayed close ran in the apply engine, its "
+              "candidates all in the cache (none derived to launch)")
+    else:
+        check(paths == {"python"}, "R2p: every replayed close ran the "
+              "Python phases")
+    check(pr.cpu_calls == [], "%s: no signature verified on the CPU"
+          % phase)
+    check(pr.sha_as_derived(), "%s: SHA-256 launches per close as derived "
+          "from the bucket list (%d in all)" % (phase, S.LAUNCHES))
     ledgers = R_TIP - 1
     per_tx = [v for c in (R_FREQ - 1, R_TIP)
               for v in archive_ledgers(archive, c).values()]
     txs, sigs = sum(len(v) for v in per_tx), sum(sum(v) for v in per_tx)
     drain_n = len(pr.card_triples)
     drain_s = sum(d["s"] for d in pr.drains)
-    log("R2 complete catchup (%s): %d ledgers in %.1f s = %.2f ledgers/s, "
-        "%.0f transactions/s, %.0f signatures/s end to end; verify "
-        "launches %d (drains %s), none in the %d replayed closes; SHA-256 "
-        "launches %d; the drains %d triples in %.2f s = %.0f sigs/s; %s"
-        % (card, ledgers, wall, ledgers / wall, txs / wall, sigs / wall,
-           E.LAUNCHES, launches, len(pr.closes), S.LAUNCHES, drain_n,
-           drain_s, drain_n / drain_s, gcp.line()))
-    log("R2 spans: " + r_span_line(r_spans(tr)))
-    out = {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+    spans = r_spans(tr)
+    apply_ms = [d["catchup.apply_ledger"] for d in spans.values()
+                if "catchup.apply_ledger" in d]
+    apply_mean = sum(ms for ms, _n in apply_ms) / max(
+        sum(n for _ms, n in apply_ms), 1)
+    log("%s complete catchup (%s), closes in the %s: %d ledgers in %.1f s "
+        "= %.2f ledgers/s, %.0f transactions/s, %.0f signatures/s end to "
+        "end; catchup.apply_ledger mean %.1f ms; verify launches %d "
+        "(drains %s), none in the %d replayed closes; SHA-256 launches %d; "
+        "the drains %d triples in %.2f s = %.0f sigs/s; %s"
+        % (phase, card, "apply engine" if native else "Python phases",
+           ledgers, wall, ledgers / wall, txs / wall, sigs / wall,
+           apply_mean, E.LAUNCHES, launches, len(pr.closes), S.LAUNCHES,
+           drain_n, drain_s, drain_n / drain_s, gcp.line()))
+    log("%s spans: %s" % (phase, r_span_line(spans)))
+    out = {"verify": E.LAUNCHES, "sha256": S.LAUNCHES,
+           "drain_launches": launches, "ledgers_per_s": ledgers / wall,
+           "apply_ms": apply_mean}
     # the card's busy share: the drains replayed from an empty cache
-    drains = [d for d in pr.drains if d["triples"]]
     l0 = E.LAUNCHES
     prof = profile_drain(
         lambda: [(K.flush_verify_cache(), v.prewarm_many(d["triples"]))[1]
                  for d in drains], "ed25519_verify_kernel", cpu=False)
     check(prof["result"] == [d["decisions"] for d in drains]
           and E.LAUNCHES - l0 == sum(launches),
-          "R2 replay: the same decisions in %d launches" % sum(launches))
-    log_profile("R2 replay of the %d drains (CUDA activity only)"
-                % len(drains), prof, "ed25519_verify_kernel")
+          "%s replay: the same decisions in %d launches"
+          % (phase, sum(launches)))
+    log_profile("%s replay of the %d drains (CUDA activity only)"
+                % (phase, len(drains)), prof, "ed25519_verify_kernel")
     if prof["device_events"]:
-        log("R2 card busy %.3f ms over the drains' %.1f ms = %.2f%%, over "
+        log("%s card busy %.3f ms over the drains' %.1f ms = %.2f%%, over "
             "the catchup's %.1f s = %.3f%%"
-            % (prof["busy_ms"], drain_s * 1e3,
+            % (phase, prof["busy_ms"], drain_s * 1e3,
                100.0 * prof["busy_ms"] / (drain_s * 1e3), wall,
                100.0 * prof["busy_ms"] / (wall * 1e3)))
     r_stop(node)
@@ -3553,20 +3980,26 @@ def r3_restart(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
               "R3: the first commitment root, computed on the card in %d "
               "launches, == the publisher's" % want)
         lm.value_externalized(lcd_from_db(pub.database, R_TIP + 1))
-    e, s, ws, close_s, _t0 = pr.closes[R_TIP + 1]
+    e, s, ws, close_s, _t0, want_e, path = pr.closes[R_TIP + 1]
     txs = len(lcd_from_db(pub.database, R_TIP + 1).tx_set.frames)
     check(lm.lcl_hash.hex() == r_hashes(pub.database, R_TIP + 1,
                                         R_TIP + 1)[R_TIP + 1],
           "R3: ledger %d's hash == the publisher's" % (R_TIP + 1))
-    check(e == txs and s == ws and pr.cpu_calls == [],
-          "R3: the cold close launches verify once per transaction (%d of "
-          "%d) and SHA-256 as derived (%d of %d), none on the CPU"
-          % (e, txs, s, ws))
+    check(path == "native" and e == want_e == 1 and s == ws
+          and pr.cpu_calls == [],
+          "R3: the cold close ran in the apply engine and launched verify "
+          "as its candidates derive (%d of %d; the Python phases' one per "
+          "transaction, derived: %d) and SHA-256 as derived (%d of "
+          "%d), none on the CPU" % (e, want_e, txs, s, ws))
+    check(pr.close_decisions_ok(K), "R3: the engine's decisions == the C "
+          "verifier's")
     log("R3 restart (%s): load_last_known_ledger over the SQL file and "
         "bucket directory %.2f s; the first commitment root %.1f ms in %d "
-        "launches; ledger %d closed cold in %.1f ms (%d verify launches); "
-        "%s" % (card, restart_s, root_ms, want, R_TIP + 1, close_s * 1e3,
-                e, gcp.line()))
+        "launches; ledger %d closed cold in the apply engine in %.1f ms "
+        "(%d verify launches; the Python phases' one per transaction, "
+        "derived from the set as C5p measures it: %d); %s"
+        % (card, restart_s, root_ms, want, R_TIP + 1, close_s * 1e3, e,
+           txs, gcp.line()))
     r_stop(node)
     return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
 
@@ -3632,26 +4065,34 @@ def r4_gap(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
           and len(apply_s) == 1,
           "R4: buckets applied once at %d, then ledgers %d-%d closed"
           % (first - 1, first, R_TOP))
-    launches = [d["launches"] for d in pr.drains if d["triples"]]
+    launches = [d["launches"] for d in pr.checkpoint_drains()]
     txs = [len(lcd.tx_set.frames) for lcd in buffered]
+    cold = pr.close_launches(R_TIP + 1, R_TOP)
     check(launches == [n for _n, n in want]
           and not any(pr.close_launches(first, R_TIP))
-          and pr.close_launches(R_TIP + 1, R_TOP) == txs
-          and E.LAUNCHES == sum(launches) + sum(txs),
+          and pr.engine_as_derived(first, R_TOP)
+          and cold == [1] * len(buffered)
+          and E.LAUNCHES == sum(launches) + sum(cold),
           "R4: verify launches: drains %s as derived %s, none in the "
-          "replayed closes, one per transaction in the buffered ones %s"
-          % (launches, want, pr.close_launches(R_TIP + 1, R_TOP)))
+          "replayed closes, in the buffered ones %s as the engine's "
+          "candidates derive (the Python phases: one per transaction, %s)"
+          % (launches, want, cold, txs))
     check(pr.cpu_calls == [] and pr.sha_as_derived(),
           "R4: none on the CPU; SHA-256 per close as derived")
+    check(pr.close_decisions_ok(K), "R4: the engine's decisions in the "
+          "buffered closes == the C verifier's")
     replay = [pr.closes[s] for s in range(first, R_TIP + 1)]
     replay_s = replay[-1][4] + replay[-1][3] - replay[0][4]
     log("R4 online catchup from a gap (%s): %d values buffered; buckets "
         "applied at %d in %.2f s; ledgers %d-%d replayed in %.1f s = %.2f "
-        "ledgers/s (drains %s launches); the %d buffered closes cold, %s "
-        "launches, %s ms; %.1f s in all; %s"
+        "ledgers/s (drains %s launches); the %d buffered closes cold in "
+        "the apply engine, %s launches (the Python phases' one per "
+        "transaction, derived from the sets as C5p measures it: %s), %s "
+        "ms; %.1f s "
+        "in all; %s"
         % (card, len(buffered), first - 1, apply_s[0], first, R_TIP,
            replay_s, (R_TIP - first + 1) / replay_s, launches,
-           len(buffered), pr.close_launches(R_TIP + 1, R_TOP),
+           len(buffered), cold, txs,
            "/".join("%.1f" % (pr.closes[s][3] * 1e3)
                     for s in range(R_TIP + 1, R_TOP + 1)), wall,
            gcp.line()))
@@ -3756,8 +4197,25 @@ def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
     """R1-R5 of the module docstring; returns the launches by kernel."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_catchup_") as tmp:
         r1 = r1_publish(S, E, K, tmp, card)
+        x1_tx_history(r1, card)
         out = {"verify": 0, "sha256": 0}
-        for phase in (r2_complete, r3_restart, r4_gap):
+        r2 = r2_complete(S, E, K, SC, tmp, r1, flight_dir, card)
+        r2p = r2_complete(S, E, K, SC, tmp, r1, flight_dir, card,
+                          native=False)
+        check(r2["drain_launches"] == r2p["drain_launches"]
+              and sum(r2["drain_launches"]) == r2["verify"]
+              == r2p["verify"],
+              "R2p: the same launches as R2 (%s, %d), all in the drains"
+              % (r2p["drain_launches"], r2p["verify"]))
+        log("R2 against R2p (%s): %.2f against %.2f ledgers/s, "
+            "catchup.apply_ledger mean %.1f against %.1f ms (apply engine "
+            "against Python phases), %d launches each"
+            % (card, r2["ledgers_per_s"], r2p["ledgers_per_s"],
+               r2["apply_ms"], r2p["apply_ms"], r2["verify"]))
+        for got in (r2, r2p):
+            for k in out:
+                out[k] += got[k]
+        for phase in (r3_restart, r4_gap):
             got = phase(S, E, K, SC, tmp, r1, flight_dir, card)
             for k in out:
                 out[k] += got[k]
@@ -3802,6 +4260,7 @@ class HerderProbe:
         self.decisions = {}
         self.sha_owed = 0
         self.sha_off = []       # (seq, launched, owed) where they differ
+        self.paths = Counter()  # the close paths the nodes took
         self._raw = (K.raw_verify, K.raw_verify_batch)
 
     def _decided(self, triple, ok) -> None:
@@ -3874,6 +4333,7 @@ class HerderProbe:
         def close_ledger(lcd):
             s0 = self.S.LAUNCHES
             orig(lcd)
+            self.paths[lm.last_apply_path] += 1
             owed = fresh_slots(self.S, self.SC, st,
                                app.bucket_manager.bucket_list)
             self.sha_owed += owed
@@ -3967,6 +4427,8 @@ def s1_network(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
                                                 CLOSE_MAX_TX_SET_SIZE),
                            verifier=CpuSigVerifier(),
                            hasher=make_hasher("cpu"))
+    # the nodes close in the apply engine, the twin in the Python phases
+    twin.ledger_manager.use_native_apply = False
     network_hashes(relay, twin)      # genesis
     log("S1: %d validators (%d organisations of %d, each node's quorum "
         "%d of %d inner sets of %d of %d) and a CPU twin built in %.1f s "
@@ -4011,6 +4473,9 @@ def s1_network(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
     top = 3 + S1_LOADED
     check(all(n.app.ledger_manager.last_closed_ledger_num() == top
               for n in relay.nodes), "S1: every node closed %d" % top)
+    check(probe.paths == Counter({"native": n * (top - 1)}),
+          "S1: every node's every close ran in the apply engine (%s)"
+          % dict(probe.paths))
     n_env = len(relay.envelopes)
     env_distinct = len({raw for _i, _s, raw in relay.envelopes})
     check(env_distinct == n_env, "S1: every flooded envelope distinct")
@@ -4131,6 +4596,9 @@ def s2_async(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
         probe.uninstall()
     check(all(n.app.ledger_manager.last_closed_ledger_num() == top
               for n in relay.nodes), "S2: every node closed %d" % top)
+    check(probe.paths == Counter({"native": len(relay.nodes) * (top - 1)}),
+          "S2: every node's every close ran in the apply engine (%s)"
+          % dict(probe.paths))
     env = X.SCPEnvelope.from_xdr(forged)
     st = env.statement
     triple = (st.nodeID.key_bytes, env.signature,
@@ -4248,11 +4716,41 @@ def smoke(torch, args, flight_dir: str) -> int:
     t0 = time.perf_counter()
     prebuilt = {stem for stem in ("ed25519_verify", "sha256")
                 if _build.cuda_built(stem)}
-    libs = _build.build_cuda()
+    # the apply engine and the codec's C route (CPython extensions, cc)
+    # build on a thread while nvcc builds the kernels
+    exts, ext_err = {}, []
+
+    def build_extensions():
+        try:
+            t1 = time.perf_counter()
+            exts["applyc"] = native.apply_engine()
+            exts["xdrc"] = native.xdr_engine()
+            exts["s"] = time.perf_counter() - t1
+        except BaseException as e:   # re-raised on the main thread
+            ext_err.append(e)
+
+    import threading
+    th = threading.Thread(target=build_extensions)
+    th.start()
+    try:
+        libs = _build.build_cuda()
+    finally:
+        th.join()
+    if ext_err:
+        raise ext_err[0]
+    check(exts["applyc"] is not None and exts["xdrc"] is not None
+          and exts["applyc"].__name__ == "_sctapply_torch"
+          and exts["xdrc"].__name__ == "_sctxdr_torch"
+          and all(os.path.dirname(exts[k].__file__) == _build.BUILD_DIR
+                  for k in ("applyc", "xdrc")),
+          "the apply engine and the codec's C route build into %s"
+          % _build.BUILD_DIR)
     check(ed25519_native() is not None, "the C CPU verifier builds")
     check(native.prep_lib() is not None, "the C host prep builds")
-    log("build: %.1f s (%s)" % (time.perf_counter() - t0,
-                                ", ".join(sorted(libs))))
+    log("build: %.1f s (%s; the extensions %s and %s in %.1f s beside "
+        "them)" % (time.perf_counter() - t0, ", ".join(sorted(libs)),
+                   os.path.basename(exts["applyc"].__file__),
+                   os.path.basename(exts["xdrc"].__file__), exts["s"]))
     check(sorted(libs) == ["ed25519_verify", "sha256"],
           "both kernels built")
     for stem, kernel in (("ed25519_verify", "ed25519_verify_kernel"),

@@ -8,6 +8,11 @@
 - `native/ed25519c.c` (the CPU ed25519 library), `native/prep.c` (the
   verify boundary's batched host prep) and `native/sha256_pad.c` (the
   hasher's chunk padder), each built with `cc` into its own library.
+- `native/applyc.c` (the apply engine) and `native/xdrc.c` (the XDR
+  codec's C route), each built with `cc`, `-pthread` and the interpreter's
+  headers into a CPython extension (`build_extension`), whose file name
+  also carries the interpreter's `cache_tag`: an extension is not ABI-stable
+  across CPython versions.
 
 Every artifact name carries a content hash of its sources and flags, so an
 edit never reuses a stale library, and a finished build is reused by every
@@ -21,6 +26,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 from typing import Dict, List, Optional
 
@@ -165,4 +172,48 @@ def build_native(stem: str) -> Optional[str]:
         os.replace(tmp, so)   # atomic: concurrent builds agree
     finally:
         shutil.rmtree(inc, ignore_errors=True)
+    return so
+
+
+# the CPython extensions of `native/`: source stem -> module name (the
+# reference package's copies are `_sctapply` and `_sctxdr`; distinct names
+# let both load in one process)
+NATIVE_EXTS = {"applyc": "_sctapply_torch", "xdrc": "_sctxdr_torch"}
+# -pthread: the apply engine's parallel close starts worker threads
+EXT_FLAGS = ["-O2", "-shared", "-fPIC", "-pthread"]
+
+
+def build_extension(stem: str) -> Optional[str]:
+    """Build `native/<stem>.c` (a key of NATIVE_EXTS) into a CPython
+    extension and return its path; None only when the host has no C
+    compiler. The name carries the module name, the interpreter's
+    `cache_tag` and a hash of the source, the flags and the include dir. A
+    failed build raises with the compiler's output."""
+    cc = find_cc()
+    if cc is None:
+        return None
+    inc = sysconfig.get_paths()["include"]
+    tag = sys.implementation.cache_tag
+    src = os.path.join(NATIVE_DIR, stem + ".c")
+    digest = _digest([src], " ".join(EXT_FLAGS) + " " + inc + " " + tag)
+    so = os.path.join(BUILD_DIR, "%s-%s-%s.so" % (NATIVE_EXTS[stem], tag,
+                                                   digest))
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp%d" % (so, os.getpid())
+    # the compiler must not inherit a preloaded runtime meant for this
+    # process (a sanitizer's, say)
+    env = {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
+    try:
+        r = subprocess.run([cc] + EXT_FLAGS + ["-I", inc, "-o", tmp, src],
+                           capture_output=True, text=True, timeout=300,
+                           env=env)
+        if r.returncode != 0:
+            raise RuntimeError("cc failed for %s.c (rc %d):\n%s"
+                               % (stem, r.returncode, r.stderr[-8000:]))
+        os.replace(tmp, so)   # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return so

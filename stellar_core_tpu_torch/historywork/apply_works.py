@@ -1,21 +1,25 @@
 """Apply-side history works: bucket-state restore and checkpoint replay.
 
 Copied from `stellar_core_tpu/historywork/apply_works.py` at commit
-89bbd6f; carry a fix in either copy to the other. Left out, each with
-the module that brings it back: the per-ledger prewarm pipeline
-(`_PrewarmPipeline`, `_pipeline_enabled`, `_pipeline_submit`,
-`_range_triples`, the `apply.pipeline-stall` fault and
-`_prewarm_redundant`), which exists only for the CPU backend with the C
-apply engine (the reference's pipeline also swallows a failed drain);
-the entry-cache prefetch and its summary (`_prefetch_checkpoint`,
-`_log_checkpoint_summary`), which return with the close cockpit
-(`ledger/apply_stats.py` and the root's `prefetch`). So every
-checkpoint drains its signatures through the app's verifier in one
-`prewarm_many` (and once more after a signer-set change), whatever the
-backend; a drain that raises (a card fault, or a breaker that refuses
-it) fails the checkpoint's work, and the drain is never re-run on the
-CPU. Deliberately different: a checkpoint that fails to apply fails the
-catchup at once. `DownloadApplyTxsWork` and each checkpoint's
+89bbd6f; carry a fix in either copy to the other. Kept: the per-ledger
+prewarm pipeline (`_PrewarmPipeline`, `_pipeline_enabled`,
+`_pipeline_submit`, `_range_triples`, the `apply.pipeline-stall` fault and
+`_prewarm_redundant`), which runs only on the C verifier (name "cpu") with
+the apply engine: there the checkpoint drain is redundant (the engine
+verifies each close's candidates in one call of its own), and the
+pipeline verifies ledger N+1's on a worker while ledger N applies. A
+pipelined drain that fails is logged and dropped, as in the reference:
+it only warmed the cache, and the close verifies the same pairs again
+through the engine, where a failure fails the close. Left out, with the
+close cockpit that brings them back (`ledger/apply_stats.py` and the
+root's `prefetch`, ROADMAP Queue 1 item 4): the entry-cache prefetch and
+its summary (`_prefetch_checkpoint`, `_log_checkpoint_summary`). On every
+other verifier (the card's stacks among them) each checkpoint drains its
+signatures through the app's verifier in one `prewarm_many` (and once
+more after a signer-set change); a drain that raises (a card fault, or a
+breaker that refuses it) fails the checkpoint's work, and the drain is
+never re-run on the CPU. Deliberately different: a checkpoint that fails
+to apply fails the catchup at once. `DownloadApplyTxsWork` and each checkpoint's
 download-and-apply sequence are RETRY_NEVER, as stellar-core builds them
 (`DownloadApplyTxsWork.cpp`); the reference's take the default of 5
 retries each, so a diverged replay or a refused drain is attempted 36
@@ -145,11 +149,53 @@ def checkpoint_verify_triples(frames, ltx) -> List[Tuple]:
     return frames_sig_triples(ltx, frames)
 
 
+class _PrewarmPipeline:
+    """Pipelined catchup: ledger N+1's signature verification
+    overlaps ledger N's apply. The MAIN thread collects the candidate
+    triples (ledger reads stay single-threaded); the worker only runs
+    `verifier.prewarm_many` — pure crypto whose native batch call drops
+    the GIL, so it genuinely runs underneath the (also GIL-free) native
+    apply. A prewarm is cache-warming only: stale or extra triples can
+    never change an accept/reject decision, the apply path re-derives
+    candidates against live state."""
+
+    def __init__(self, verifier) -> None:
+        import queue
+        from ..util.threads import spawn_worker
+        self._verifier = verifier
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._thread = spawn_worker("catchup.prewarm-pipeline", self._run)
+
+    def submit(self, seq: int, triples) -> None:
+        del seq
+        self._q.put(triples)
+
+    def close(self) -> None:
+        # cancel flag first: queued-but-unstarted batches are stale
+        # work the worker must skip (a reset/abort mid-checkpoint would
+        # otherwise leave it verifying a whole checkpoint for nothing)
+        self._closed = True
+        self._q.put(None)
+
+    def _run(self) -> None:
+        while True:
+            triples = self._q.get()
+            if triples is None or self._closed:
+                return
+            try:
+                self._verifier.prewarm_many(triples)
+            except Exception:  # cache warm only: the close verifies again
+                log.warning("pipelined prewarm failed", exc_info=True)
+
+
 class ApplyCheckpointWork(BasicWork):
     """Replay one checkpoint's ledgers through LedgerManager.close_ledger,
     one ledger per crank (reference ApplyCheckpointWork.cpp:244 →
     ApplyLedgerWork.cpp:22-24). First crank drains the checkpoint's
-    signatures through the batch verifier."""
+    signatures through the batch verifier; on the cpu+native path the
+    checkpoint-wide drain is replaced by the per-ledger prewarm
+    pipeline (ledger N+1 verifies while N applies)."""
 
     def __init__(self, app, download_dir: str, checkpoint: int,
                  first_seq: int, last_seq: int) -> None:
@@ -166,6 +212,7 @@ class ApplyCheckpointWork(BasicWork):
         self._frames: Dict[int, object] = {}   # seq -> TxSetFrame
         self._next: int = first_seq
         self._sig_state_dirty = False   # a signer set changed mid-checkpoint
+        self._pipeline: Optional[_PrewarmPipeline] = None
 
     def on_reset(self) -> None:
         self._loaded = False
@@ -174,6 +221,67 @@ class ApplyCheckpointWork(BasicWork):
         self._frames.clear()
         self._next = self.first_seq
         self._sig_state_dirty = False
+        self._close_pipeline()
+
+    def _close_pipeline(self) -> None:
+        if self._pipeline is not None:
+            self._pipeline.close()
+            self._pipeline = None
+
+    def _finish(self, st: State) -> None:
+        self._close_pipeline()
+        super()._finish(st)
+
+    # -- pipelined per-ledger prewarm ---------------------------------------
+    def _pipeline_enabled(self) -> bool:
+        """Per-ledger pipelining replaces the checkpoint-wide drain
+        exactly when that drain is redundant (sync CPU backend + native
+        engine): there the verify cost sits INSIDE each close, and the
+        only way to take it off the replay clock is to overlap it with
+        the previous ledger's apply."""
+        return self._prewarm_redundant()
+
+    def _range_triples(self, first: int, last: int):
+        """Candidate triples for a ledger range, collected on the MAIN
+        thread against current state (one ltx + one signer cache for
+        the whole batch)."""
+        frames = []
+        for seq in range(first, last + 1):
+            fr = self._frames.get(seq)
+            if fr is not None:
+                frames.extend(fr.frames)
+        if not frames:
+            return []
+        from ..ledger.ledgertxn import LedgerTxn
+        ltx = LedgerTxn(self.app.ledger_manager.ltx_root())
+        try:
+            return checkpoint_verify_triples(frames, ltx)
+        finally:
+            ltx.rollback()
+
+    def _pipeline_submit(self, first: int, last: int) -> None:
+        """Hand the range's signature verification to the pipeline
+        worker; the closes that follow overlap it. A prewarm is
+        opportunistic — whatever the worker hasn't finished when a
+        close needs it, the engine verifies synchronously (sharded),
+        so there is no join barrier anywhere. The
+        `apply.pipeline-stall` fault degrades to sequential: the
+        collection still happens, the verify runs inline right here."""
+        from ..util.faults import check_faults
+        metrics = getattr(self.app, "metrics", None)
+        triples = self._range_triples(first, last)
+        if not triples:
+            return
+        if check_faults(self.app, "apply.pipeline-stall"):
+            if metrics is not None:
+                metrics.new_meter("catchup.pipeline.stall").mark()
+            self.app.sig_verifier.prewarm_many(triples)
+            return
+        if self._pipeline is None:
+            self._pipeline = _PrewarmPipeline(self.app.sig_verifier)
+        if metrics is not None:
+            metrics.new_meter("catchup.pipeline.prewarm").mark()
+        self._pipeline.submit(first, triples)
 
     def _load(self) -> bool:
         lpath = os.path.join(self.download_dir,
@@ -191,12 +299,28 @@ class ApplyCheckpointWork(BasicWork):
                     self._txsets[t.ledgerSeq] = t.txSet
         return True
 
+    def _prewarm_redundant(self) -> bool:
+        """The checkpoint prewarm exists to batch crypto into one device
+        dispatch AND to pre-resolve signer sets in Python. With the
+        native apply engine active it resolves signer sets in C and
+        feeds the verifier per tx, and on the synchronous CPU backend
+        batching buys nothing — the whole Python collection pass is then
+        pure overhead on the replay clock."""
+        verifier = getattr(self.app, "sig_verifier", None)
+        if getattr(verifier, "name", "") != "cpu":
+            return False
+        lm = self.app.ledger_manager
+        if not getattr(lm, "use_native_apply", True):
+            return False
+        from ..native import apply_engine
+        return apply_engine() is not None
+
     def _prewarm_frames(self, frames) -> None:
         """Collect candidate triples against CURRENT ledger state and
         drain them through the batch verifier (cached triples are skipped
         inside prewarm_many — a fully-covered call dispatches nothing)."""
         verifier = getattr(self.app, "sig_verifier", None)
-        if verifier is None or not frames:
+        if verifier is None or not frames or self._prewarm_redundant():
             return
         from ..ledger.ledgertxn import LedgerTxn
         # sig-batch prep (triple collection + signer-set resolution) and
@@ -230,6 +354,10 @@ class ApplyCheckpointWork(BasicWork):
                 frames.extend(fr.frames)
             psp.set_tag("txs", len(frames))
         self._prewarm_frames(frames)
+        if self._pipeline_enabled():
+            # cpu+native: the whole checkpoint's signature verification
+            # rides the pipeline worker underneath the apply loop
+            self._pipeline_submit(self.first_seq, self.last_seq)
         log.debug("prewarmed checkpoint %08x (%d txs)",
                   self.checkpoint, len(frames))
 
@@ -261,6 +389,10 @@ class ApplyCheckpointWork(BasicWork):
         if not self._sig_state_dirty:
             return
         self._sig_state_dirty = False
+        if self._pipeline_enabled():
+            # re-collect the remaining range against post-mutation state
+            self._pipeline_submit(self._next, self.last_seq)
+            return
         frames = []
         for seq in range(self._next, self.last_seq + 1):
             fr = self._frames.get(seq)

@@ -1,16 +1,20 @@
 """LedgerManager: orders externalized values and closes ledgers.
 
 Copied from `stellar_core_tpu/ledger/ledger_manager.py` at commit bb973b8;
-carry a fix in either copy to the other. The close runs the Python fee
-and apply phases. Left out, each with the module that drives it: the
-close cockpit (`ApplyStats`, `ledger/apply_stats.py`, with the
-entry-cache prefetch its `txset_prefetch_keys` feeds); the native apply
-engine (`native_apply_txset`, `use_native_apply`,
-`_native_covers_prefetch`); BucketDB (`_check_bucket_coverage` and the
-re-attach in `set_last_closed_ledger`, and the detach in
-`_restore_bucket_list`'s fallback); invariants; the close-meta stream
-(`_emit_close_meta`). Kept: the slot timeline's `ledger.applied`
-record (`util/slot_timeline.py` came with the herder). Kept from the
+carry a fix in either copy to the other. The close runs the fee and apply
+phases in the apply engine (`ledger/native_apply.py`, `native/applyc.c`)
+unless `use_native_apply` is False (True by default, as in the
+reference) or the engine bails on the set, and the Python phases
+otherwise; `last_apply_path` names the path of the last close ("native" or
+"python", the `close.apply` span's `apply_path` tag). Left out, each with
+the module that drives it: the close cockpit (`ApplyStats`,
+`ledger/apply_stats.py`, with the entry-cache prefetch its
+`txset_prefetch_keys` feeds, and `_native_covers_prefetch` with the
+deferred bulk prefetch; ROADMAP Queue 1 item 4); BucketDB
+(`_check_bucket_coverage` and the re-attach in `set_last_closed_ledger`,
+and the detach in `_restore_bucket_list`'s fallback; item 5); invariants;
+the close-meta stream (`_emit_close_meta`). Kept: the slot timeline's
+`ledger.applied` record (`util/slot_timeline.py` came with the herder). Kept from the
 history and catchup wiring: `load_last_known_ledger` (a restart over the SQL store
 and the bucket directory), `_store_local_has` and `_restore_bucket_list`
 (the local HAS in the persistent state), `maybe_queue_checkpoint` after
@@ -19,7 +23,9 @@ buffering of values in LM_CATCHING_UP_STATE, which `catchup/` and
 `historywork/apply_works.py` drive. Deliberately different: a close uses
 the app's `sig_verifier` and `batch_hasher` and raises TypeError without
 either (the reference's frames fall back to a CpuSigVerifier and its
-close hashes with hashlib when the app has no hasher).
+close hashes with hashlib when the app has no hasher); a verifier that
+raises inside the engine fails the close with SignatureVerifyError, and
+no Python apply runs in its place.
 
 Role parity: reference `src/ledger/LedgerManagerImpl.cpp`:
 - valueExternalized (:410-490): apply in-order values, route gaps to catchup
@@ -37,6 +43,7 @@ device batch, so the per-tx checks here become cache hits.
 from __future__ import annotations
 
 from itertools import chain
+from typing import Optional
 
 from ..bucket.bucket_manager import calculate_skip_values
 from ..crypto.hashing import sha256
@@ -44,6 +51,7 @@ from ..herder.upgrades import Upgrades, UpgradeValidity
 from ..ledger.ledgertxn import (
     InMemoryLedgerTxnRoot, LedgerTxn, LedgerTxnRoot, delta_to_changes,
 )
+from ..ledger.native_apply import native_apply_txset
 from ..transactions.account_helpers import make_account_entry
 from ..util.log import get_logger
 from ..util.slow_execution import LogSlowExecution
@@ -94,6 +102,10 @@ class LedgerManager:
             self.root = LedgerTxnRoot(app.database)
         self.lcl_hash: bytes = b"\x00" * 32
         self.catchup_trigger = None  # set by CatchupManager wiring
+        # the apply engine runs each close's fee and apply phases unless
+        # this is False (ledger/native_apply.py)
+        self.use_native_apply = True
+        self.last_apply_path: Optional[str] = None
         # True between a bucket-apply's state wipe and its successful LCL
         # fast-forward: no direct closes may run against half-built state
         self.entries_invalidated = False
@@ -300,24 +312,32 @@ class LedgerManager:
 
         with app_span(self.app, "close.apply", cat="ledger",
                       txs=len(frames)) as apply_sp:
-            # phase 1: fees + seq nums for every tx, each in a nested
-            # txn so the per-tx fee-processing changes become
-            # txfeehistory meta (reference saves these
-            # LedgerEntryChanges per tx)
-            for f in frames:
-                fee_ltx = LedgerTxn(ltx)
-                try:
-                    f.process_fee_seq_num(fee_ltx, base_fee)
-                    f.fee_meta = delta_to_changes(fee_ltx.get_delta())
-                    fee_ltx.commit()
-                except BaseException:
-                    if fee_ltx._open:
-                        fee_ltx.rollback()
-                    raise
-            # phase 2: apply, collecting results
-            for f in frames:
-                f.apply(ltx, verifier)
-            apply_sp.set_tag("apply_path", "python")
+            # the engine runs BOTH phases in one C call and installs
+            # per-frame results/meta + the close-level delta; a bail
+            # falls through to the Python phases with no state mutated
+            if native_apply_txset(self, ltx, frames, base_fee, verifier):
+                apply_path = "native"
+            else:
+                apply_path = "python"
+                # phase 1: fees + seq nums for every tx, each in a nested
+                # txn so the per-tx fee-processing changes become
+                # txfeehistory meta (reference saves these
+                # LedgerEntryChanges per tx)
+                for f in frames:
+                    fee_ltx = LedgerTxn(ltx)
+                    try:
+                        f.process_fee_seq_num(fee_ltx, base_fee)
+                        f.fee_meta = delta_to_changes(fee_ltx.get_delta())
+                        fee_ltx.commit()
+                    except BaseException:
+                        if fee_ltx._open:
+                            fee_ltx.rollback()
+                        raise
+                # phase 2: apply, collecting results
+                for f in frames:
+                    f.apply(ltx, verifier)
+            apply_sp.set_tag("apply_path", apply_path)
+            self.last_apply_path = apply_path
         # result hash in apply order, assembled from wire bytes:
         # TransactionResultSet XDR is count ‖ pairs, streamed through the
         # hash boundary so peak memory stays flat in the txset's size
@@ -360,10 +380,13 @@ class LedgerManager:
 
         # bucket-list hash over the close's delta (content-addressed chain;
         # stands in the header exactly where the reference's
-        # BucketList::getHash result goes). raw_keys=True: only DEAD
-        # entries need a parsed LedgerKey (bucket dead keys)
+        # BucketList::getHash result goes). need_prev=False: the
+        # init/live/dead split below only tests pre-image EXISTENCE, so
+        # engine-injected deltas skip parsing every pre-image entry;
+        # raw_keys=True: only DEAD entries need a parsed LedgerKey (bucket
+        # dead keys)
         with app_span(self.app, "close.bucket_add", cat="ledger") as bsp:
-            delta = ltx.get_delta(raw_keys=True)
+            delta = ltx.get_delta(need_prev=False, raw_keys=True)
             bl = self._bucket_manager()
             bsp.set_tag("entries", len(delta))
             if bl is not None:

@@ -1,15 +1,16 @@
 """LedgerTxn: nested in-memory copy-on-write ledger state transactions.
 
 Copied from `stellar_core_tpu/ledger/ledgertxn.py` at commit bb973b8; carry
-a fix in either copy to the other. Left out, with the modules that drive
-them: the native apply engine's hooks (`inject_native_changes`, the root's
-`get_entry_blob` / `offers_for_book_blobs` / `offers_by_account_blobs`
-callbacks, and the serialized-entry cache `_cur_blobs` and `blobs`
-argument of `commit_child` that only its injected deltas fill); BucketDB
-(`attach_bucketdb`, `detach_bucketdb`, `bucket_backed` and the bucket
-routing of point reads); the close cockpit's `stats` hooks
+a fix in either copy to the other. Kept: the apply engine's hooks
+(`inject_native_changes`, the serialized-entry cache `_cur_blobs` and the
+`blobs` argument of `commit_child` that its injected deltas fill,
+`get_delta`'s `need_prev`, and the roots' `get_entry_blob` /
+`offers_for_book_blobs` / `offers_by_account_blobs` callbacks). Left out,
+with the modules that drive them: BucketDB (`attach_bucketdb`,
+`detach_bucketdb`, `bucket_backed` and the bucket routing of point reads,
+ROADMAP Queue 1 item 5); the close cockpit's `stats` hooks
 (`ledger/apply_stats.py`) with the root's `prefetch`, which only its
-`txset_prefetch_keys` drives.
+`txset_prefetch_keys` drives (item 4).
 
 Role parity: reference `src/ledger/LedgerTxn*` (LedgerTxn.h:18-165): a tree
 of transactions over (LedgerKey → LedgerEntry), root backed by SQL with an
@@ -113,7 +114,11 @@ class AbstractLedgerTxnParent:
         raise NotImplementedError
 
     def commit_child(self, changes: Dict[bytes, Optional[LedgerEntry]],
-                     header: LedgerHeader) -> None:
+                     header: LedgerHeader,
+                     blobs: Optional[Dict[bytes, bytes]] = None) -> None:
+        """`blobs` optionally carries known-serialized forms of entries in
+        `changes` (native-injected deltas) so roots can skip
+        re-serializing them."""
         raise NotImplementedError
 
 
@@ -129,6 +134,12 @@ class LedgerTxn(AbstractLedgerTxnParent):
         # record time is ~4x cheaper than LedgerEntry.from_xdr at delta
         # time, and the close path takes a delta per fee/op txn
         self._prev_objs: Dict[bytes, LedgerEntry] = {}
+        # serialized forms of UNTOUCHED _changes values (native-injected
+        # deltas): valid only while the parsed object has never been
+        # handed to a mutator — every path that exposes a mutable entry
+        # pops the key. get_delta/commit reuse these instead of
+        # re-serializing
+        self._cur_blobs: Dict[bytes, bytes] = {}
         self._header = _copy_header(parent.get_header())
         self._open = True
         self._child: Optional["LedgerTxn"] = None
@@ -152,7 +163,12 @@ class LedgerTxn(AbstractLedgerTxnParent):
     def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
         kb = _kb(key)
         if kb in self._changes:
-            return self._changes[kb]
+            cur = self._changes[kb]
+            if cur is not None:
+                # the caller holds an aliased reference from here on; a
+                # mutation through it must not leave a stale blob behind
+                self._cur_blobs.pop(kb, None)
+            return cur
         return self._parent.get_entry(key)
 
     def load(self, key: LedgerKey) -> Optional[LedgerEntry]:
@@ -161,7 +177,10 @@ class LedgerTxn(AbstractLedgerTxnParent):
         self._assert_open()
         kb = _kb(key)
         if kb in self._changes:
-            return self._changes[kb]
+            cur = self._changes[kb]
+            if cur is not None:
+                self._cur_blobs.pop(kb, None)   # handing out a mutable ref
+            return cur
         base = self._parent.get_entry(key)
         if base is None:
             return None
@@ -178,6 +197,22 @@ class LedgerTxn(AbstractLedgerTxnParent):
         e = self.get_entry(key)
         return _copy_entry(e) if e is not None else None
 
+    def inject_native_changes(self, changes) -> None:
+        """Install the apply engine's close-level delta
+        (ledger/native_apply.py): `changes` is [(key_xdr, prev_xdr|None,
+        cur_xdr|None)] in first-touch order, exactly what this txn's
+        _previous/_changes would hold after the Python fee+apply phases.
+        Entries parse once per close here instead of once per tx there."""
+        self._assert_open()
+        assert not self._changes, "native delta injected over live changes"
+        for kb, prev_b, cur_b in changes:
+            self._previous[kb] = prev_b
+            if cur_b is None:
+                self._changes[kb] = None
+            else:
+                self._changes[kb] = LedgerEntry.from_xdr(cur_b)
+                self._cur_blobs[kb] = cur_b
+
     def create(self, entry: LedgerEntry) -> LedgerEntry:
         self._assert_open()
         key = ledger_entry_key(entry)
@@ -186,6 +221,7 @@ class LedgerTxn(AbstractLedgerTxnParent):
         mine = _copy_entry(entry)
         self._previous.setdefault(kb, None)
         self._changes[kb] = mine
+        self._cur_blobs.pop(kb, None)
         return mine
 
     def _record_previous(self, kb: bytes) -> None:
@@ -208,6 +244,7 @@ class LedgerTxn(AbstractLedgerTxnParent):
         kb = _kb(key)
         self._record_previous(kb)
         self._changes[kb] = _copy_entry(entry)
+        self._cur_blobs.pop(kb, None)
 
     def erase(self, key: LedgerKey) -> None:
         self._assert_open()
@@ -220,6 +257,7 @@ class LedgerTxn(AbstractLedgerTxnParent):
             self._previous[kb] = existing.to_xdr()
             self._prev_objs[kb] = _copy_entry(existing)
         self._changes[kb] = None
+        self._cur_blobs.pop(kb, None)
 
     def erase_without_loading(self, key: LedgerKey) -> None:
         """Delete with no existence check (reference eraseWithoutLoading):
@@ -228,6 +266,7 @@ class LedgerTxn(AbstractLedgerTxnParent):
         kb = _kb(key)
         self._record_previous(kb)
         self._changes[kb] = None
+        self._cur_blobs.pop(kb, None)
 
     # -- order book ---------------------------------------------------------
     def _all_offers_for_book(self, selling: Asset,
@@ -360,7 +399,8 @@ class LedgerTxn(AbstractLedgerTxnParent):
         # (e.g. sqlite "database is locked" at the root) must leave this
         # txn open and registered so the caller can roll back — otherwise
         # the parent's child slot is bricked for every future txn
-        self._parent.commit_child(self._changes, self._header)
+        self._parent.commit_child(self._changes, self._header,
+                                  self._cur_blobs or None)
         self._open = False
         self._parent._clear_child(self)
 
@@ -371,12 +411,19 @@ class LedgerTxn(AbstractLedgerTxnParent):
         self._open = False
         self._changes.clear()
         self._prev_objs.clear()
+        self._cur_blobs.clear()
         self._parent._clear_child(self)
 
     def commit_child(self, changes: Dict[bytes, Optional[LedgerEntry]],
-                     header: LedgerHeader) -> None:
+                     header: LedgerHeader,
+                     blobs: Optional[Dict[bytes, bytes]] = None) -> None:
         for kb, e in changes.items():
             self._record_previous(kb)
+            b = blobs.get(kb) if (blobs and e is not None) else None
+            if b is not None:
+                self._cur_blobs[kb] = b
+            else:
+                self._cur_blobs.pop(kb, None)
             self._changes[kb] = e
         # adopt the child's header VALUES in place: callers hold references
         # from load_header(), and replacing the object would silently orphan
@@ -387,10 +434,17 @@ class LedgerTxn(AbstractLedgerTxnParent):
             setattr(self._header, n, getattr(new, n))
 
     # -- delta (meta + invariants) ------------------------------------------
-    def get_delta(self, raw_keys: bool = False
+    def get_delta(self, need_prev: bool = True, raw_keys: bool = False
                   ) -> List[Tuple[LedgerKey, Optional[LedgerEntry],
                                   Optional[LedgerEntry]]]:
         """[(key, previous, current)] for every touched-and-changed entry.
+
+        need_prev=False skips materializing the parsed pre-image for
+        native-injected deltas (blob-only): `previous` is then the raw
+        pre-image XDR for those entries — callers that only test
+        `prev is None` (the close's init/live/dead split) must not read
+        into it. Parsed pre-images recorded by load() are returned parsed
+        either way.
 
         raw_keys=True returns the raw LedgerKey XDR instead of a parsed
         LedgerKey — the close path only needs key OBJECTS for deleted
@@ -398,14 +452,28 @@ class LedgerTxn(AbstractLedgerTxnParent):
         paying ~one parse per touched account per close.
 
         The returned `current` entries are the LIVE _changes objects and
-        must be treated READ-ONLY."""
+        must be treated READ-ONLY: unlike get_entry/load, this path does
+        not invalidate _cur_blobs, so a caller mutating an entry through
+        the delta would desynchronize the cached serialized form the
+        commit path reuses."""
         out = []
         for kb, cur in self._changes.items():
             prev_b = self._previous.get(kb)
-            cur_b = None if cur is None else cur.to_xdr()
+            if cur is None:
+                cur_b = None
+            else:
+                cur_b = self._cur_blobs.get(kb)
+                if cur_b is None:
+                    cur_b = cur.to_xdr()
             if prev_b == cur_b:
                 continue  # touched but unchanged
-            prev = self._prev_objs[kb] if prev_b else None
+            if prev_b:
+                prev = self._prev_objs.get(kb)
+                if prev is None:   # injected native delta: blob only
+                    prev = prev_b if not need_prev \
+                        else LedgerEntry.from_xdr(prev_b)
+            else:
+                prev = None
             key = kb if raw_keys else LedgerKey.from_xdr(kb)
             out.append((key, prev, cur))
         return out
@@ -467,6 +535,65 @@ class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
                 out[kb] = e
         return out
 
+    def get_entry_blob(self, kb: bytes) -> Optional[bytes]:
+        """Raw LedgerEntry XDR by key XDR — the native apply engine's
+        lookup callback (no parse, no copy)."""
+        return self._entries.get(kb)
+
+    def offers_for_book_blobs(self, selling_xdr: bytes,
+                              buying_xdr: bytes) -> List[bytes]:
+        """Raw offer-entry blobs for one (selling, buying) book — the
+        native engine's `book` callback. The engine merges its own
+        overlay (created/modified/erased offers) on top; this returns
+        only close-start root state."""
+        out: List[bytes] = []
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            o = e.data.value
+            if o.selling.to_xdr() == selling_xdr and \
+                    o.buying.to_xdr() == buying_xdr:
+                out.append(eb)
+        return out
+
+    def offers_by_account_blobs(self, account_key: bytes) -> List[bytes]:
+        """Raw offer-entry blobs of one seller (ed25519 key bytes) —
+        the native engine's `acct_offers` callback (allow-trust
+        revokes). Root order matches `_offers_by_account`, so the
+        engine's merged iteration order equals the Python path's."""
+        out: List[bytes] = []
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            if e.data.value.sellerID.key_bytes == account_key:
+                out.append(eb)
+        return out
+
+    def _all_offers_for_book(self, selling, buying):
+        out: Dict[bytes, LedgerEntry] = {}
+        sb = (selling.to_xdr(), buying.to_xdr())
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            o = e.data.value
+            if (o.selling.to_xdr(), o.buying.to_xdr()) == sb:
+                out[kb] = e
+        return out
+
+    def _offers_by_account(self, account_id):
+        out: Dict[bytes, LedgerEntry] = {}
+        acc = account_id.to_xdr()
+        for kb, eb in self._entries.items():
+            if LedgerKey.from_xdr(kb).disc != LedgerEntryType.OFFER:
+                continue
+            e = LedgerEntry.from_xdr(eb)
+            if e.data.value.sellerID.to_xdr() == acc:
+                out[kb] = e
+        return out
+
     def _all_offers(self):
         out: Dict[bytes, LedgerEntry] = {}
         for kb, eb in self._entries.items():
@@ -481,12 +608,13 @@ class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
                 out[kb] = LedgerEntry.from_xdr(eb)
         return out
 
-    def commit_child(self, changes, header) -> None:
+    def commit_child(self, changes, header, blobs=None) -> None:
         for kb, e in changes.items():
             if e is None:
                 self._entries.pop(kb, None)
             else:
-                self._entries[kb] = e.to_xdr()
+                b = blobs.get(kb) if blobs else None
+                self._entries[kb] = b if b is not None else e.to_xdr()
         self._header = header
 
     def count_entries(self) -> int:
@@ -532,6 +660,39 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         if not blob:
             return None
         return LedgerEntry.from_xdr(blob)
+
+    def get_entry_blob(self, kb: bytes) -> Optional[bytes]:
+        """Raw LedgerEntry XDR by key XDR, through the entry cache — the
+        apply engine's lookup callback."""
+        hit = self._cache.maybe_get(kb)
+        if hit is not None:
+            return hit or None
+        blob = self._select_blob(LedgerKey.from_xdr(kb))
+        self._cache.put(kb, blob if blob is not None else b"")
+        return blob
+
+    def offers_for_book_blobs(self, selling_xdr: bytes,
+                              buying_xdr: bytes) -> List[bytes]:
+        """Raw offer blobs for one book (the apply engine's `book`
+        callback); the same SQL the Python path's `_all_offers_for_book`
+        runs."""
+        import base64
+        cur = self._db.execute(
+            "SELECT entry FROM offers WHERE selling=? AND buying=?",
+            (base64.b64encode(selling_xdr).decode(),
+             base64.b64encode(buying_xdr).decode()))
+        return [blob for (blob,) in cur.fetchall()]
+
+    def offers_by_account_blobs(self, account_key: bytes) -> List[bytes]:
+        """Raw offer blobs of one seller (ed25519 key bytes) — the apply
+        engine's `acct_offers` callback. Row order (the seller index →
+        offerid) matches `_offers_by_account`, so the engine's merged
+        iteration order equals the Python path's."""
+        from ..xdr import PublicKey
+        cur = self._db.execute(
+            "SELECT entry FROM offers WHERE sellerid=?",
+            (_acc_str(PublicKey.ed25519(account_key)),))
+        return [blob for (blob,) in cur.fetchall()]
 
     def _select_blob(self, key: LedgerKey) -> Optional[bytes]:
         t = key.disc
@@ -602,7 +763,7 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         self._cache.clear()
 
     # -- commit -------------------------------------------------------------
-    def commit_child(self, changes, header) -> None:
+    def commit_child(self, changes, header, blobs=None) -> None:
         with self._db.transaction():
             for kb, e in changes.items():
                 key = LedgerKey.from_xdr(kb)
@@ -610,7 +771,9 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
                     self._delete(key)
                     self._cache.put(kb, b"")
                 else:
-                    b = e.to_xdr()
+                    b = blobs.get(kb) if blobs else None
+                    if b is None:
+                        b = e.to_xdr()
                     self._upsert(key, e, b)
                     self._cache.put(kb, b)
             self._header = header

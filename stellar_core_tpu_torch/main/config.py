@@ -8,16 +8,16 @@ and FORCE_SCP, the database, the herder's knobs, the transaction queue's
 depths and pool multiplier, the ingress tier's INGRESS_* knobs, the
 genesis and testing-upgrade values,
 ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING, HISTORY, CHECKPOINT_FREQUENCY,
-CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES, STATE_CHECKPOINT_INTERVAL),
+CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES, STATE_CHECKPOINT_INTERVAL and the
+apply engine's NATIVE_PARALLEL_WORKERS),
 `network_id`, `node_id`, `self_qset` and `test_config`. Left out, each
 with the module that reads it and the ROADMAP Queue 1 item that brings
 it: `from_toml`, `validate` (with UNSAFE_QUORUM and FAILURE_SAFETY), the
 node name and home domain, RUN_STANDALONE, the bucket and temporary
 directories (`main/commandline.py` and `main/application.py`, which
 open a node's files, item 8); the overlay knobs (item 7); BucketDB
-(`BUCKETDB_*`, item 5); invariants (item 6); the native apply engine
-and the pipelined catchup (`NATIVE_PARALLEL_*`, `CATCHUP_PIPELINE`,
-item 2); ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING (the load generator,
+(`BUCKETDB_*`, item 5); invariants (item 6);
+ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING (the load generator,
 item 9); the verify and hash backends, faults, tracing, the slot
 timeline's size, the flight recorder, maintenance and the close-meta
 stream (`main/application.py`, which builds them, item 8). Until those are ported, the
@@ -98,6 +98,11 @@ class Config:
 
         # workers / process
         self.MAX_CONCURRENT_SUBPROCESSES = 16
+        # apply engine (ledger/native_apply.py): conflict-graph parallel
+        # close — disjoint tx clusters apply on worker threads inside the C
+        # engine. Workers 0 = auto (min(16, cpu_count)); 1 pins the
+        # serial engine.
+        self.NATIVE_PARALLEL_WORKERS = 0
 
         # signed state-checkpoint cadence (ledger/state_commitment.py):
         # a StateCheckpoint {seq, header hash, Merkle root, node sig} is

@@ -12,6 +12,12 @@
   `sha256_pad_native`): FIPS 180-4 padding of a chunk's messages into the
   kernel's big-endian words, written straight into the staging buffer, one
   C call per chunk (ops/sha256.pad_chunk).
+- `applyc.c`: the apply engine, a CPython extension (`apply_engine`): the
+  fee and apply phases of a whole close in one C call, which verifies
+  through one `prewarm_many` callback per close (ledger/native_apply.py).
+- `xdrc.c`: the XDR codec's C route, a CPython extension: codec type trees
+  flattened into programs (`_build_xdr_spec`) that C packs and unpacks
+  (`xdr_pack_fn`, `xdr_unpack_fn`; xdr/codec.py's `_native_of`).
 
 `ed25519c.c`, `prep.c` and `gen_constants.py` are copies of the reference
 package's files (see their headers); `_build.build_native` builds each C
@@ -20,7 +26,11 @@ file into its own library. The loaders here copy
 `cache_keys_native` checks each triple's lengths, not their sums (the
 reference's sum check passes a 31-byte key beside a 33-byte one and hashes
 the wrong byte ranges). ctypes releases the interpreter lock for the
-length of each C call.
+length of each C call. `applyc.c` and `xdrc.c` are copies too; the loaders
+of their extensions follow the same file's at commit c67d465, except that
+a failed build or load raises (the reference returns None and its callers
+fall back to Python), and no environment variable turns them off (the
+apply engine has `LedgerManager.use_native_apply`).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ _PREP_LIB = None
 _PREP_TRIED = False
 _PAD_LIB = None
 _PAD_TRIED = False
+_EXTS: dict = {}     # source stem -> loaded module, or None (no compiler)
 
 # prepare_batch_native calls that reached the C library (chip_smoke.py
 # reads it to show the drain prepared every chunk there)
@@ -279,3 +290,143 @@ def sha256_pad_native(blob: bytes, off: np.ndarray, lens: np.ndarray,
     with _CALLS_LOCK:
         PAD_CALLS += 1
     return True
+
+
+def _extension(stem: str):
+    """Build (at first use) and import the CPython extension of
+    `native/<stem>.c` under its own module name; None only when the host
+    has no C compiler. A failed build or load raises."""
+    with _LOCK:
+        if stem in _EXTS:
+            return _EXTS[stem]
+        import importlib.util
+        from .._build import NATIVE_EXTS, build_extension
+        so = build_extension(stem)
+        mod = None
+        if so is not None:
+            spec = importlib.util.spec_from_file_location(NATIVE_EXTS[stem],
+                                                          so)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        _EXTS[stem] = mod
+        return mod
+
+
+def apply_engine():
+    """The apply engine's module (`_sctapply_torch`, from applyc.c), or
+    None only when the host has no C compiler."""
+    return _extension("applyc")
+
+
+def xdr_engine():
+    """The XDR codec's C module (`_sctxdr_torch`, from xdrc.c), or None
+    only when the host has no C compiler."""
+    return _extension("xdrc")
+
+
+def _build_xdr_spec(t, nodes, memo):
+    """Flatten a codec type combinator into the C program's node list;
+    returns the node index. `memo` breaks recursion (SCPQuorumSet nests
+    itself) by reserving an index before children compile. TypeError for
+    a combinator the program cannot express."""
+    from ..xdr import codec as C
+
+    key = id(t)
+    if key in memo:
+        return memo[key]
+    idx = len(nodes)
+    memo[key] = idx
+    nodes.append(None)  # reserve
+
+    if isinstance(t, C._Int):
+        size = t._s.size
+        signed = 1 if t._lo < 0 else 0
+        nodes[idx] = (0, size, signed)
+    elif isinstance(t, C._Bool):
+        nodes[idx] = (1, 0, 0)
+    elif isinstance(t, C.Opaque):
+        nodes[idx] = (2, t.n, 0)
+    elif isinstance(t, C.VarOpaque):
+        nodes[idx] = (3, t.maxn, 0)
+    elif isinstance(t, C.XdrString):
+        nodes[idx] = (4, t._o.maxn, 0)
+    elif isinstance(t, C.FixedArray):
+        c = _build_xdr_spec(t.elem, nodes, memo)
+        nodes[idx] = (5, t.n, c)
+    elif isinstance(t, C.VarArray):
+        c = _build_xdr_spec(t.elem, nodes, memo)
+        nodes[idx] = (6, t.maxn, c)
+    elif isinstance(t, C.OptionalT):
+        c = _build_xdr_spec(t.elem, nodes, memo)
+        nodes[idx] = (7, 0, c)
+    elif isinstance(t, C.EnumT):
+        nodes[idx] = (8, 0, 0, tuple(sorted(t.values)))
+    elif isinstance(t, type) and issubclass(t, C.XdrStruct):
+        fields = tuple(
+            (n, _build_xdr_spec(ft, nodes, memo)) for n, ft in t.xdr_fields)
+        nodes[idx] = (9, 0, 0, fields, t)
+    elif isinstance(t, type) and issubclass(t, C.XdrUnion):
+        sw = _build_xdr_spec(t.xdr_switch_type, nodes, memo)
+        arms = tuple(
+            (d, -1 if at is None else _build_xdr_spec(at, nodes, memo))
+            for d, (an, at) in t.xdr_arms.items())
+        if t.xdr_default is None:
+            default = -2
+        elif t.xdr_default[1] is None:
+            default = -1
+        else:
+            default = _build_xdr_spec(t.xdr_default[1], nodes, memo)
+        nodes[idx] = (10, sw, 0, (arms, default), t)
+    else:
+        raise TypeError("no native program for %r" % (t,))
+    return idx
+
+
+def _xdr_program(t):
+    """The compiled program of a codec type, memoized on it (pack and
+    unpack share one), or None when the host has no C compiler or the
+    type has a combinator the program cannot express."""
+    mod = xdr_engine()
+    if mod is None:
+        return None
+    cached = t.__dict__.get("_native_prog") if isinstance(t, type) \
+        else getattr(t, "_native_prog", None)
+    if cached is not None:
+        return cached or None
+    try:
+        nodes = []
+        _build_xdr_spec(t, nodes, {})
+        prog = mod.compile(tuple(nodes))
+    except TypeError:
+        prog = None
+    try:
+        t._native_prog = prog if prog is not None else False
+    except (AttributeError, TypeError):
+        pass
+    return prog
+
+
+def xdr_pack_fn(t):
+    """The C route's pack function of a codec type, f(value) -> bytes, or
+    None where `_xdr_program` gives none (callers use fastcodec)."""
+    prog = _xdr_program(t)
+    if prog is None:
+        return None
+    pack = xdr_engine().pack
+
+    def f(v, prog=prog, pack=pack):
+        return pack(prog, v)
+    return f
+
+
+def xdr_unpack_fn(t):
+    """The C route's unpack function, f(buf, pos=0) -> (value, end), or
+    None where `_xdr_program` gives none (callers use fastcodec)."""
+    prog = _xdr_program(t)
+    if prog is None:
+        return None
+    unpack = xdr_engine().unpack
+
+    def f(buf, pos=0, prog=prog, unpack=unpack):
+        return unpack(prog, buf, pos)
+    return f

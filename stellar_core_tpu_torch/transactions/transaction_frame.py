@@ -1,10 +1,12 @@
 """TransactionFrame: validity checking, fee/sequence processing, apply.
 
 Copied from `stellar_core_tpu/transactions/transaction_frame.py` at commit
-89bbd6f; carry a fix in either copy to the other. Left out: the native
-apply engine's hooks (`set_native_apply_output` and the `_native_*_b`
-fields that it fills) and the close cockpit's `stats` argument of
-`apply` (`ledger/apply_stats.py`). Deliberately different: `check_valid`
+89bbd6f; carry a fix in either copy to the other. Kept: the apply
+engine's output on both frames (`set_native_apply_output`, the
+`_native_result_b` / `_native_fee_b` / `_native_meta_b` fields it fills and
+the lazy parses and byte accessors that read them). Left out: the close
+cockpit's `stats` argument of `apply` (`ledger/apply_stats.py`, ROADMAP
+Queue 1 item 4). Deliberately different: `check_valid`
 and `apply`, of both frames, use the verifier they are given and raise
 TypeError without one (the reference falls back to a CpuSigVerifier), and
 `apply` lets a `SignatureVerifyError` (a verifier that failed, not a
@@ -140,17 +142,20 @@ class TransactionFrame:
         self.signatures = envelope.value.signatures
         self.op_frames = [make_operation_frame(op, self)
                           for op in self.tx.operations]
-        self.result: TransactionResult = _make_result(
+        self._result: Optional[TransactionResult] = _make_result(
             0, TransactionResultCode.txSUCCESS,
             [None] * len(self.op_frames))
+        self._native_result_b: Optional[bytes] = None
         self._contents_hash: Optional[bytes] = None
         self._env_bytes: Optional[bytes] = None
         self._full_hash: Optional[bytes] = None
         self._env_sig_fp: tuple = ()
         self._sig_frozen = False
         self.op_metas: List[list] = []     # per-op LedgerEntryChanges
-        self.fee_meta: list = []           # fee/seq processing changes
+        self._fee_meta: list = []          # fee/seq processing changes
         self.tx_changes: list = []         # apply-time seq/signer changes
+        self._native_meta_b: Optional[bytes] = None  # TransactionMeta XDR
+        self._native_fee_b: Optional[bytes] = None   # LedgerEntryChanges
 
     # -- identity -----------------------------------------------------------
     @classmethod
@@ -255,22 +260,77 @@ class TransactionFrame:
         """TransactionMeta v1 for the last apply (reference txmeta column;
         downstream-consumer form — not part of any consensus hash)."""
         from ..xdr import OperationMeta, TransactionMeta, TransactionMetaV1
+        if self._native_meta_b is not None:
+            return TransactionMeta.from_xdr(self._native_meta_b)
         return TransactionMeta(1, TransactionMetaV1(
             txChanges=list(self.tx_changes),
             operations=[OperationMeta(changes=ch) for ch in self.op_metas]))
 
+    def set_native_apply_output(self, result_b: bytes, fee_changes_b: bytes,
+                                meta_b: bytes) -> None:
+        """Install the apply engine's per-tx outputs (all XDR
+        bytes): the TransactionResult, the fee-phase LedgerEntryChanges,
+        and the TransactionMeta. Downstream consumers (result_pair,
+        fee_meta rows, tx_meta) then behave exactly as after a Python
+        apply — both meta parses are deferred until someone reads the
+        object form, and the history writers take the bytes directly
+        (fee_meta_xdr / tx_meta_xdr / result_pair_xdr), so the hot
+        replay path never parses them at all."""
+        self._result = None     # parsed lazily from _native_result_b
+        self._native_result_b = result_b
+        self._fee_meta = None
+        self._native_fee_b = fee_changes_b
+        self._native_meta_b = meta_b
+
+    @property
+    def result(self) -> TransactionResult:
+        if self._result is None and self._native_result_b is not None:
+            self._result = TransactionResult.from_xdr(
+                self._native_result_b)
+        return self._result
+
+    @result.setter
+    def result(self, r: TransactionResult) -> None:
+        self._result = r
+        self._native_result_b = None
+
     def result_pair_xdr(self) -> bytes:
-        """TransactionResultPair wire bytes (transactionHash ‖ result)."""
-        return self.contents_hash() + self.result.to_xdr()
+        """TransactionResultPair wire bytes (transactionHash ‖ result) —
+        the native engine's result bytes verbatim when it applied this
+        tx, so the close's result-set hash and the txhistory row never
+        parse or re-serialize the result on the replay fast path."""
+        rb = self._native_result_b
+        if rb is None:
+            rb = self.result.to_xdr()
+        return self.contents_hash() + rb
+
+    @property
+    def fee_meta(self) -> list:
+        if self._fee_meta is None and self._native_fee_b is not None:
+            from ..xdr import LedgerEntryChanges
+            from ..xdr.codec import xdr_from
+            self._fee_meta = xdr_from(LedgerEntryChanges,
+                                      self._native_fee_b)
+        return self._fee_meta
+
+    @fee_meta.setter
+    def fee_meta(self, changes: list) -> None:
+        self._fee_meta = changes
+        self._native_fee_b = None
 
     def fee_meta_xdr(self) -> bytes:
-        """LedgerEntryChanges wire bytes of the fee phase."""
+        """LedgerEntryChanges wire bytes of the fee phase — the native
+        engine's output verbatim when it applied this tx."""
+        if self._native_fee_b is not None:
+            return self._native_fee_b
         from ..xdr import LedgerEntryChanges
         from ..xdr.codec import xdr_bytes
-        return xdr_bytes(LedgerEntryChanges, self.fee_meta)
+        return xdr_bytes(LedgerEntryChanges, self._fee_meta)
 
     def tx_meta_xdr(self) -> bytes:
         """TransactionMeta wire bytes of the last apply."""
+        if self._native_meta_b is not None:
+            return self._native_meta_b
         return self.tx_meta().to_xdr()
 
     def candidate_sig_triples(self, ltx, signer_cache: Optional[dict] = None
@@ -483,6 +543,7 @@ class TransactionFrame:
         from ..ledger.ledgertxn import LedgerTxn
         checker = SignatureChecker(self.contents_hash(), self.signatures,
                                    verifier)
+        self._native_meta_b = None   # this apply owns the meta again
         fee = self.result.feeCharged
         # phase 1 — tx-level txn: apply-time commonValid re-check (state
         # may have changed since nomination) against the SAME checker as
@@ -611,26 +672,74 @@ class FeeBumpTransactionFrame:
         inner_env = TransactionEnvelope(
             EnvelopeType.ENVELOPE_TYPE_TX, fb.innerTx.value)
         self.inner = TransactionFrame(network_id, inner_env)
-        self.result: TransactionResult = _make_result(
+        self._result: Optional[TransactionResult] = _make_result(
             0, TransactionResultCode.txFEE_BUMP_INNER_SUCCESS)
         self._contents_hash: Optional[bytes] = None
         self._env_bytes: Optional[bytes] = None
         self._full_hash: Optional[bytes] = None
         self._env_sig_fp: tuple = ()
         self._sig_frozen = False
-        self.fee_meta: list = []
+        self._fee_meta: list = []
+        self._native_result_b: Optional[bytes] = None
+        self._native_fee_b: Optional[bytes] = None
+        self._native_meta_b: Optional[bytes] = None
+
+    def set_native_apply_output(self, result_b: bytes, fee_changes_b: bytes,
+                                meta_b: bytes) -> None:
+        """Install the apply engine's per-tx outputs (all XDR
+        bytes) — the fee-bump twin of TransactionFrame's installer. The
+        result wraps the inner pair; the meta is the INNER tx's apply
+        meta (tx_meta delegates to it on the Python path too)."""
+        self._result = None
+        self._native_result_b = result_b
+        self._fee_meta = None
+        self._native_fee_b = fee_changes_b
+        self._native_meta_b = meta_b
+
+    @property
+    def result(self) -> TransactionResult:
+        if self._result is None and self._native_result_b is not None:
+            self._result = TransactionResult.from_xdr(
+                self._native_result_b)
+        return self._result
+
+    @result.setter
+    def result(self, r: TransactionResult) -> None:
+        self._result = r
+        self._native_result_b = None
+
+    @property
+    def fee_meta(self) -> list:
+        if self._fee_meta is None and self._native_fee_b is not None:
+            from ..xdr import LedgerEntryChanges
+            from ..xdr.codec import xdr_from
+            self._fee_meta = xdr_from(LedgerEntryChanges,
+                                      self._native_fee_b)
+        return self._fee_meta
+
+    @fee_meta.setter
+    def fee_meta(self, changes: list) -> None:
+        self._fee_meta = changes
+        self._native_fee_b = None
 
     @property
     def op_metas(self):
         return self.inner.op_metas
 
     def tx_meta(self):
+        from ..xdr import TransactionMeta
+        if self._native_meta_b is not None:
+            return TransactionMeta.from_xdr(self._native_meta_b)
         return self.inner.tx_meta()
 
     def tx_meta_xdr(self) -> bytes:
+        if self._native_meta_b is not None:
+            return self._native_meta_b
         return self.inner.tx_meta_xdr()
 
     def fee_meta_xdr(self) -> bytes:
+        if self._native_fee_b is not None:
+            return self._native_fee_b
         from ..xdr import LedgerEntryChanges
         from ..xdr.codec import xdr_bytes
         return xdr_bytes(LedgerEntryChanges, self.fee_meta)
@@ -680,7 +789,10 @@ class FeeBumpTransactionFrame:
         self._sig_frozen = True
 
     def result_pair_xdr(self) -> bytes:
-        return self.contents_hash() + self.result.to_xdr()
+        rb = self._native_result_b
+        if rb is None:
+            rb = self.result.to_xdr()
+        return self.contents_hash() + rb
 
     def envelope_bytes(self) -> bytes:
         if self._sig_frozen and self._env_bytes is not None:
@@ -819,6 +931,7 @@ class FeeBumpTransactionFrame:
         from ..ledger.ledgertxn import LedgerTxn
         checker = SignatureChecker(self.contents_hash(), self.signatures,
                                    verifier)
+        self._native_meta_b = None   # this apply owns the meta again
         ltx = LedgerTxn(ltx_parent)
         try:
             code = self._common_valid(checker, ltx, True)

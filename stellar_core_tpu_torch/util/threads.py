@@ -3,11 +3,12 @@
 Copied (`TrackedLock`, `WORKER_THREAD_REGISTRY`, `spawn_worker`) from
 `stellar_core_tpu/util/threads.py` at commit 02ed56d (the
 `crypto.verify-dispatch` entry at a29fd1b, the `crypto.hash-*` entries
-at abe2377; `main_thread_only`, `assert_main_thread`, `arm`, `disarm`
-and `ThreadDisciplineError` at 89bbd6f); carry a fix in either copy to
-the other. `process.reaper` is the port's name for the reference
-ProcessManager's unnamed reaper threads. The reference's lock-order checker is armed
-only by the node stack (its consensus thread), which the port does not
+at abe2377, `catchup.prewarm-pipeline` at 89bbd6f; `main_thread_only`,
+`assert_main_thread`, `arm`, `disarm` and `ThreadDisciplineError` at
+89bbd6f); carry a fix in either copy to the other. `process.reaper` is
+the port's name for the reference ProcessManager's unnamed reaper
+threads. The reference's lock-order checker is armed only by the node
+stack (its consensus thread), which the port does not
 have yet; here a `TrackedLock` is a `threading.Lock` that carries its
 name, so the lock graph reads the same once the checker arrives.
 
@@ -57,6 +58,12 @@ WORKER_THREAD_REGISTRY: Dict[str, str] = {
         "CudaBatchHasher warmup: builds the SHA-256 kernel and launches "
         "zeros at every warm shape through the staging and launch path of "
         "live traffic",
+    "catchup.prewarm-pipeline":
+        "Pipelined catchup (C verifier with the apply engine only): "
+        "verifies ledger N+1's signature triples (verifier.prewarm_many, "
+        "which releases the interpreter lock in C) while the main thread "
+        "applies ledger N; triples are collected on the main thread (no "
+        "cross-thread ledger reads)",
     "process.reaper":
         "ProcessManager: waits on one subprocess (an archive's get, put or "
         "mkdir command) and posts its exit code back to the main loop "

@@ -1,13 +1,13 @@
 """XDR (RFC 4506) codec — the canonical wire and hash format.
 
 Copied from `stellar_core_tpu/xdr/codec.py` at commit efc2328; carry a fix
-in either copy to the other. The copy has no native route: the reference's
-`_native_of` asks its C extension (`native/xdrc.c`) for a per-type packer
-and unpacker, and the port has no such extension yet (ROADMAP Queue 1 item
-5 lists it), so `xdr_bytes` and `xdr_from` take the compiled Python
-`fastcodec` route for every type, on purpose. The bytes are the same
-either way: the reference's `tests/test_native_xdr.py` holds its two routes
-to identical bytes.
+in either copy to the other. `xdr_bytes` and `xdr_from` take the C route
+(`native/xdrc.c`, through `native.xdr_pack_fn` / `xdr_unpack_fn`) for every
+type its program builder can express, and the compiled Python `fastcodec`
+route for the rest, or for every type on a host without a C compiler; the
+bytes are the same either way (tests/test_torch_native_xdr.py).
+Deliberately different: a failed build of the C route raises (the
+reference falls back to `fastcodec` quietly).
 
 Role parity: reference `src/xdr/*.x` compiled by xdrc via xdrpp
 (reference `src/Makefile.am:26-29`); XDR bytes are the canonical hashed
@@ -355,14 +355,42 @@ def _fast():
     return _fastcodec
 
 
+def _native_of(t: Any, attr: str):
+    """The C route's per-type pack or unpack function (`attr`), cached on
+    the type (`_native_pack` / `_native_unpack`; False marks a type the
+    program builder cannot express), or None."""
+    slot = "_native_" + attr
+    cached = t.__dict__.get(slot) if isinstance(t, type) \
+        else getattr(t, slot, None)
+    if cached is None:
+        from .. import native
+        cached = getattr(native, "xdr_%s_fn" % attr)(t) or False
+        try:
+            setattr(t, slot, cached)
+        except (AttributeError, TypeError):
+            return cached or None
+    return cached or None
+
+
+def _native_pack_of(t: Any):
+    return _native_of(t, "pack")
+
+
 def xdr_bytes(t: Any, v: Any) -> bytes:
+    nf = _native_pack_of(t)
+    if nf is not None:
+        return nf(v)
     out: list[bytes] = []
     _fast().compile_pack(t)(out.append, v)
     return b"".join(out)
 
 
 def xdr_from(t: Any, b: bytes) -> Any:
-    v, pos = _fast().compile_unpack(t)(b, 0)
+    nf = _native_of(t, "unpack")
+    if nf is not None:
+        v, pos = nf(b)
+    else:
+        v, pos = _fast().compile_unpack(t)(b, 0)
     if pos != len(b):
         raise XdrError("XDR trailing bytes: %d left" % (len(b) - pos))
     return v

@@ -373,6 +373,10 @@ def test_checkpoint_drain_verifies_each_triple_once(publisher, tmp_path,
     if side == "port":
         v, keys = PortCounting(), K
         node = port_node(tmp_path, "port", archive_root, verifier=v)
+        # the port's C verifier with its apply engine skips the
+        # checkpoint drain too (`_prewarm_redundant`): pin the Python
+        # apply path the drain feeds, as on the reference side
+        node.ledger_manager.use_native_apply = False
     else:
         v, keys = RefCounting(), RK
         node = ref_node(tmp_path, 5, archive_root)
@@ -421,6 +425,9 @@ def test_failed_drain_fails_catchup_without_cpu_verify(publisher, tmp_path,
     K.flush_verify_cache()
     v = RaisingVerifier()
     b = port_node(tmp_path, "port", archive_root, verifier=v)
+    # the drain under test is the checkpoint's, which the C verifier with
+    # the apply engine skips (`_prewarm_redundant`): pin the Python apply
+    b.ledger_manager.use_native_apply = False
     work = b.catchup_manager.start_catchup(CatchupConfiguration.complete())
     assert run_work(b, work) == State.FAILURE
     assert b.ledger_manager.last_closed_ledger_num() == 1
@@ -430,3 +437,48 @@ def test_failed_drain_fails_catchup_without_cpu_verify(publisher, tmp_path,
     assert v.drains == 1
     assert b.catchup_manager.catchups_failed == 1
     stop(b)
+
+
+def test_port_engine_catchup_through_pipeline(publisher, tmp_path):
+    """A complete catchup on the C verifier with the port's apply engine:
+    the checkpoint drains are skipped (`_prewarm_redundant`), each
+    checkpoint's signatures go through the prewarm pipeline's worker,
+    every replayed close with transactions runs in the engine, and the
+    node ends equal to the publisher, as does a second node pinned to
+    the Python apply."""
+    ref_pub, archive_root = publisher
+    want = header_hashes(ref_pub.database, 1, TIP)
+    nodes = {}
+    for native in (True, False):
+        b = port_node(tmp_path, "port-%s" % native, archive_root)
+        b.ledger_manager.use_native_apply = native
+        paths = []
+        close = b.ledger_manager.close_ledger
+
+        def recording_close(lcd, close=close, b=b, paths=paths):
+            close(lcd)
+            if lcd.tx_set.frames:
+                paths.append(b.ledger_manager.last_apply_path)
+
+        b.ledger_manager.close_ledger = recording_close
+        work = b.catchup_manager.start_catchup(
+            CatchupConfiguration.complete())
+        assert run_work(b, work) == State.SUCCESS
+        lm = b.ledger_manager
+        assert lm.last_closed_ledger_num() == TIP
+        assert lm.lcl_hash.hex() == want[TIP]
+        assert_chain(b, ref_pub.database, 1, TIP)
+        assert paths and set(paths) == {"native" if native else "python"}
+        pipelined = b.metrics.to_json().get("catchup.pipeline.prewarm")
+        if native:
+            # one submission per checkpoint, at least
+            assert pipelined and pipelined["count"] >= 2
+        else:
+            assert pipelined is None
+        nodes[native] = b
+    assert account_rows(nodes[True].database) == \
+        account_rows(nodes[False].database)
+    assert nodes[True].bucket_manager.get_hash() == \
+        nodes[False].bucket_manager.get_hash()
+    for b in nodes.values():
+        stop(b)

@@ -33,7 +33,10 @@ launches the kernel. The state commitment engine over the card's hasher
 must give the `hashlib` twin's root on every close of a churned bucket
 list (40 closes of entries in the testing/entries.py mix, with updates
 and tombstones), `from_scratch_root` on the last, and the twin's proofs.
-Tolerance: none.
+The ledger-close schedule closes in the apply engine on the card's stacks
+against a twin in the Python phases, and a cold close in the engine
+launches the verify kernel once, as the engine's candidates derive, with
+the C verifier's decisions. Tolerance: none.
 """
 
 import numpy as np
@@ -505,7 +508,8 @@ def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
     hashlib hasher: the same trimmed sets and every observed byte equal
     after every close; each validation launches the verify kernel once
     (one prewarm batch, or a lone transaction's check) and its close not
-    at all."""
+    at all. The card's closes run in the apply engine, the twin's in the
+    Python phases."""
     from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
     from torch_close_harness import Workload, make_port_side, observe
     v = make_verifier("cuda-resilient")
@@ -513,6 +517,7 @@ def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
     lm = make_port_side(str(tmp_path / "card"), "sqlite3://:memory:",
                         verifier=v, hasher=h)
     twin = make_port_side(str(tmp_path / "twin"), "sqlite3://:memory:")
+    twin.use_native_apply = False
     w = Workload(lm)
     E.LAUNCHES = S.LAUNCHES = 0
     closes = 0
@@ -521,6 +526,8 @@ def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
         e0 = E.LAUNCHES
         removed, frames = _close_side(lm, blobs, ups)
         assert E.LAUNCHES - e0 == 1, closes
+        assert (lm.last_apply_path, twin.use_native_apply) == \
+            ("native", False)
         t_removed, t_frames = _close_side(twin, blobs, ups)
         assert removed == t_removed
         got, want = observe(lm, frames), observe(twin, t_frames)
@@ -528,6 +535,74 @@ def test_ledger_closes_on_card_match_cpu_twin(card, tmp_path):
             assert got[k] == want[k], (closes, k)
         closes += 1
     assert closes == 18 and S.LAUNCHES > 0
+    for side in (lm, twin):
+        side.app.bucket_manager.shutdown()
+
+
+def test_engine_cold_close_on_card_launches_as_derived(card, tmp_path):
+    """A cold close in the apply engine on the card: the set validated,
+    the verify cache flushed, then closed. The engine's one verify
+    callback gets the candidates derived from the state
+    (`engine_candidates`) and launches the kernel once per 8,192 of them
+    (here once, where the Python phases launch once per transaction); its
+    decisions equal the C verifier's, and the close equals a twin's
+    closing through the Python phases."""
+    from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
+    from torch_close_harness import (
+        PORT, Workload, close_one, engine_candidates, engine_launches,
+        make_port_side, observe,
+    )
+    v = make_verifier("cuda-resilient")
+    lm = make_port_side(str(tmp_path / "card"), "sqlite3://:memory:",
+                        verifier=v, hasher=make_hasher("cuda-resilient"))
+    twin = make_port_side(str(tmp_path / "twin"), "sqlite3://:memory:")
+    twin.use_native_apply = False
+    w = Workload(lm)
+    sched = list(w.schedule())
+    for build, ups in sched[:6]:        # senders, signers, trust lines
+        blobs = [f.envelope_bytes() for f in build()]
+        assert _close_side(lm, blobs, ups)[0] == \
+            _close_side(twin, blobs, ups)[0]
+    build, ups = sched[6]
+    blobs = [f.envelope_bytes() for f in build()]
+    net = lm.app.config.network_id
+    frames = [PORT.TransactionFrame.make_from_wire(
+        net, PORT.X.TransactionEnvelope.from_xdr(b)) for b in blobs]
+    ts = PORT.TxSetFrame(net, lm.lcl_hash, frames)
+    K.flush_verify_cache()
+    removed = ts.trim_invalid(lm.ltx_root(), v)
+    K.flush_verify_cache()
+    applied = ts.sort_for_apply()
+    cands = engine_candidates(lm.root, applied)
+    want = engine_launches(cands)
+    calls = []
+    inner = v.prewarm_many
+
+    def recording(triples):
+        got = inner(triples)
+        calls.append((list(triples), list(got)))
+        return got
+
+    v.prewarm_many = recording
+    header = lm.root.get_header()
+    value = PORT.X.StellarValue(
+        txSetHash=ts.get_contents_hash(), closeTime=header.scpValue
+        .closeTime + 5, upgrades=list(ups),
+        ext=PORT.X.StellarValueExt(0, None))
+    e0 = E.LAUNCHES
+    lm.value_externalized(PORT.LedgerCloseData(header.ledgerSeq + 1, ts,
+                                               value))
+    del v.prewarm_many
+    assert lm.last_apply_path == "native"
+    assert want == 1 < len(applied)
+    assert E.LAUNCHES - e0 == want
+    assert [t for t, _g in calls] == [cands]
+    assert calls[0][1] == K.raw_verify_batch(cands)
+    t_removed, t_frames = _close_side(twin, blobs, ups)
+    assert sorted(f.contents_hash() for f in removed) == t_removed
+    got, want_o = observe(lm, applied), observe(twin, t_frames)
+    for k in got:
+        assert got[k] == want_o[k], k
     for side in (lm, twin):
         side.app.bucket_manager.shutdown()
 

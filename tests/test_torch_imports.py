@@ -10,7 +10,11 @@ statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
 import in the port's sources, inside functions too, resolves to a module
 of `stellar_core_tpu_torch/` (a lazy import of a module the port lacks
-fails only when its function first runs).
+fails only when its function first runs). The first also loads the port's
+two CPython extensions, the apply engine and the codec's C route: each
+comes from `stellar_core_tpu_torch/build/` under the port's own module
+name (`_sctapply_torch`, `_sctxdr_torch`), and loading them pulls in
+nothing of JAX or the JAX package.
 """
 
 import ast
@@ -73,12 +77,23 @@ def test_port_modules_import_no_jax():
               "scp.ballot", "scp.slot", "scp.scp", "scp.scp_stats",
               "util.slot_timeline", "herder.quorum_intersection",
               "herder.pending_envelopes", "herder.tx_lifecycle",
-              "herder.ingress", "herder.tx_queue", "herder.herder"):
+              "herder.ingress", "herder.tx_queue", "herder.herder",
+              # the apply engine and codec slice
+              "ledger.native_apply"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
-        "import importlib, sys\n"
+        "import importlib, os, sys\n"
         "for m in %r:\n"
         "    importlib.import_module(m)\n"
+        "from stellar_core_tpu_torch import _build, native\n"
+        "for mod, name in ((native.apply_engine(), '_sctapply_torch'),\n"
+        "                  (native.xdr_engine(), '_sctxdr_torch')):\n"
+        "    if _build.find_cc() is None:\n"
+        "        assert mod is None\n"
+        "        continue\n"
+        "    assert mod.__name__ == name, mod\n"
+        "    assert os.path.dirname(mod.__file__) == _build.BUILD_DIR\n"
+        "    assert os.path.basename(mod.__file__).startswith(name + '-')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'stellar_core_tpu'))\n"
         "assert not bad, bad\n"

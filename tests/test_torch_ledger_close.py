@@ -5,8 +5,11 @@ the in-memory root) with a BucketManager on a directory of its own and a
 StateCommitmentEngine (a checkpoint every 4 closes), start from the same
 genesis and close the same values. The reference closes through its
 Python fee and apply phases, and, in the `native` cases, through its C
-apply engine. Every transaction is built and signed once, by the port's
-`TestAccount`; each side parses the wire bytes into its own frames, runs
+apply engine; the port closes through its Python phases, and, in the
+`port-native` cases, through its copy of that engine (`native/applyc.c`),
+held at every close against the reference's engine and, by a third
+manager, the reference's Python phases. Every transaction is built and
+signed once, by the port's `TestAccount`; each side parses the wire bytes into its own frames, runs
 the herder's `TxSetFrame.trim_invalid` with its own verifier and closes a
 `StellarValue` over the trimmed set through `value_externalized`.
 
@@ -58,7 +61,8 @@ from stellar_core_tpu_torch.transactions.transaction_frame import (
 
 from torch_close_harness import (
     CORRUPT_EVERY, MULTISIG, NET, PORT, Shim, Workload, close_one, config,
-    make_port_side, observe, one_torch_thread,
+    engine_candidates, engine_launches, make_port_side, observe,
+    one_torch_thread,
 )
 
 REF = SimpleNamespace(X=RX, TransactionFrame=RTransactionFrame,
@@ -83,8 +87,9 @@ def make_ref_side(bucket_dir: str, database: str, native: bool = False):
     return lm
 
 
-def run_closes(port_lm, ref_lm, on_close=None) -> dict:
-    """Close the schedule on both sides, comparing every close."""
+def run_closes(port_lm, ref_lm, on_close=None, third=None) -> dict:
+    """Close the schedule on both sides (and on `third`, a reference
+    manager, where given), comparing every close."""
     w = Workload(port_lm)
     n = trimmed = applied = 0
     codes = set()
@@ -101,6 +106,13 @@ def run_closes(port_lm, ref_lm, on_close=None) -> dict:
         po, ro = observe(port_lm, p_frames), observe(ref_lm, r_frames)
         for k in po:
             assert po[k] == ro[k], (n, k)
+        if third is not None:
+            t_removed, t_frames = close_one(third, REF, blobs,
+                                            [u for u in ups])
+            assert t_removed == want_removed, n
+            to = observe(third, t_frames)
+            for k in po:
+                assert po[k] == to[k], (n, k)
         if on_close is not None:
             on_close(n, port_lm, p_frames)
         trimmed += len(p_removed)
@@ -117,13 +129,26 @@ def run_closes(port_lm, ref_lm, on_close=None) -> dict:
     pytest.param("native", marks=pytest.mark.skipif(
         apply_engine() is None, reason="the reference's C apply engine "
         "did not build here")),
+    pytest.param("port-native", marks=pytest.mark.skipif(
+        apply_engine() is None, reason="the reference's C apply engine "
+        "did not build here")),
 ])
 def test_closes_match_reference(tmp_path, engine, database):
     port = make_port_side(str(tmp_path / "port"), database)
+    port.use_native_apply = engine == "port-native"
     ref = make_ref_side(str(tmp_path / "ref"), database,
-                        native=engine == "native")
+                        native=engine != "python")
+    third = None
+    if engine == "port-native":
+        third = make_ref_side(str(tmp_path / "ref-py"), database)
     assert port.lcl_hash == ref.lcl_hash
-    got = run_closes(port, ref)
+    paths = []
+    got = run_closes(port, ref, third=third,
+                     on_close=lambda n, lm, fr: paths.append(
+                         lm.last_apply_path))
+    # the engine ran every close of the schedule (none bails on it)
+    assert set(paths) == {"native" if engine == "port-native"
+                          else "python"}
     assert got["closes"] == 18
     # 13 one-signature txs and every 3rd of the 52 multisig payments
     assert got["trimmed"] == 13 + 13 * MULTISIG // CORRUPT_EVERY
@@ -145,7 +170,7 @@ def test_closes_match_reference(tmp_path, engine, database):
         assert rows == got["applied"]
         assert port.app.database.execute(
             "SELECT COUNT(*) FROM upgradehistory").fetchone()[0] == 2
-    for lm in (port, ref):
+    for lm in (port, ref) + ((third,) if third is not None else ()):
         lm.app.bucket_manager.shutdown()
 
 
@@ -155,8 +180,10 @@ def derived_checks(lm, twin, verifier, blobs, prewarm: bool) -> dict:
     validation dispatches one prewarm batch when the set holds two or more
     transactions, and the close after it none; without the prewarm (the
     verify cache flushed between validation and close) the close
-    dispatches once per transaction, at its first signature check.
-    Expected counts come from the transactions alone."""
+    dispatches once per transaction, at its first signature check, on the
+    Python path, and, through the apply engine, once per 8,192 of the
+    engine's candidates the cache does not hold (`engine_launches`).
+    Expected counts come from the transactions and the state alone."""
     from stellar_core_tpu_torch.crypto import keys as K
     X = PX
     frames = [TransactionFrame.make_from_wire(
@@ -174,11 +201,19 @@ def derived_checks(lm, twin, verifier, blobs, prewarm: bool) -> dict:
     value = X.StellarValue(txSetHash=ts.get_contents_hash(),
                            closeTime=header.scpValue.closeTime + 5,
                            upgrades=[], ext=X.StellarValueExt(0, None))
+    if lm.use_native_apply:
+        want = engine_launches(engine_candidates(lm.root,
+                                                 ts.sort_for_apply()))
+        assert want == (0 if prewarm else 1)
+    else:
+        want = 0 if prewarm else len(frames)
     d0 = verifier.batches_dispatched
     lm.value_externalized(PLM.LedgerCloseData(header.ledgerSeq + 1, ts,
                                               value))
     closing = verifier.batches_dispatched - d0
-    assert closing == (0 if prewarm else len(frames))
+    assert closing == want
+    assert lm.last_apply_path == ("native" if lm.use_native_apply
+                                  else "python")
     r_removed, r_frames = close_one(twin, REF, blobs)
     assert not r_removed
     po = observe(lm, ts.sort_for_apply())
@@ -189,8 +224,22 @@ def derived_checks(lm, twin, verifier, blobs, prewarm: bool) -> dict:
 
 
 def test_prewarmed_and_cold_closes_dispatch_as_derived(tmp_path):
+    """The Python path's counts: the port's close pinned to its Python
+    phases."""
+    cold_close_dispatches(tmp_path, native=False, want_cold=2)
+
+
+def test_engine_cold_close_dispatches_once(tmp_path):
+    """Through the apply engine a cold close of two multisig payments
+    dispatches once (the engine's one `prewarm_many` per close), not once
+    per transaction."""
+    cold_close_dispatches(tmp_path, native=True, want_cold=1)
+
+
+def cold_close_dispatches(tmp_path, native: bool, want_cold: int) -> None:
     from stellar_core_tpu_torch.crypto.batch_verifier import CudaSigVerifier
     port = make_port_side(str(tmp_path / "port"), "sqlite3://:memory:")
+    port.use_native_apply = native
     ref = make_ref_side(str(tmp_path / "ref"), "sqlite3://:memory:")
     shim = Shim(port)
     root = T.TestAccount(shim, T.root_secret_key())
@@ -220,7 +269,7 @@ def test_prewarmed_and_cold_closes_dispatch_as_derived(tmp_path):
         assert derived_checks(port, ref, v, pay(5), True) == {
             "validate": 1, "close": 0}
         assert derived_checks(port, ref, v, pay(6), False) == {
-            "validate": 1, "close": 2}
+            "validate": 1, "close": want_cold}
     for lm in (port, ref):
         lm.app.bucket_manager.shutdown()
 

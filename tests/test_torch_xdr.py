@@ -203,10 +203,17 @@ def test_compile_copy_matches_roundtrip_on_header():
 
 
 def test_no_native_route():
-    assert not hasattr(C, "_native_of")
+    """Where the host has a C compiler, `xdr_bytes` / `xdr_from` take the
+    C route, and it gives the bytes and values of the fastcodec route."""
+    from stellar_core_tpu_torch.native import xdr_engine
     e = _sample_account_entry()
-    assert C.xdr_bytes(X.LedgerEntry, e) == e.to_xdr()
-    assert C.xdr_from(X.LedgerEntry, e.to_xdr()) == e
+    assert (C._native_of(X.LedgerEntry, "pack") is not None) == \
+        (xdr_engine() is not None)
+    fast = []
+    fastcodec.compile_pack(X.LedgerEntry)(fast.append, e)
+    assert C.xdr_bytes(X.LedgerEntry, e) == e.to_xdr() == b"".join(fast)
+    assert C.xdr_from(X.LedgerEntry, e.to_xdr()) == e == \
+        fastcodec.compile_unpack(X.LedgerEntry)(e.to_xdr(), 0)[0]
 
 
 def test_exports_equal_the_reference():

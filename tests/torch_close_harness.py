@@ -294,6 +294,71 @@ class Workload:
             yield (lambda k=k: self.payments() + self.mixed(k)), ups
 
 
+def engine_candidates(root, frames) -> list:
+    """The (key, signature, contents hash) triples the apply engine hands
+    its verify callback in one close of `frames` (apply order), derived
+    from `root`'s state at the close's start by the engine's rule
+    (`collect_tx_candidates`, `vset_collect` and `preverify_all` in
+    `native/applyc.c`): per signature, in each of a transaction's accounts
+    (its source, then each operation's source), the account's master key
+    (also when the account does not exist), its signers, and every signer
+    that a SET_OPTIONS of the set adds to it, where the key's last four
+    bytes are the signature's hint; pairs of one transaction counted
+    once. A fee bump gives its outer pairs (fee source, outer signatures,
+    outer hash) and then its inner transaction's."""
+    X = PX
+    adds = []                      # (account key, signer key)
+    for f in frames:
+        t = getattr(f, "inner", f)
+        for opf in t.op_frames:
+            body = opf.op.body
+            if body.disc == X.OperationType.SET_OPTIONS and \
+                    body.value.signer is not None:
+                adds.append((opf.source_account_id().key_bytes,
+                             body.value.signer.key.value))
+
+    def signers_of(acc: bytes) -> list:
+        e = root.get_entry(X.LedgerKey.account(X.PublicKey.ed25519(acc)))
+        keys = [acc]
+        if e is not None:
+            keys += [s.key.value for s in e.data.value.signers]
+        return keys + [k for a, k in adds if a == acc]
+
+    def pairs(accounts, signatures, msg) -> list:
+        seen, out = set(), []
+        for acc in accounts:
+            keys = signers_of(acc)
+            for i, ds in enumerate(signatures):
+                for k in keys:
+                    if k[28:] == ds.hint and (k, i) not in seen:
+                        seen.add((k, i))
+                        out.append((k, ds.signature, msg))
+        return out
+
+    out = []
+    for f in frames:
+        t = getattr(f, "inner", f)
+        if t is not f:
+            out += pairs([f.source_account_id().key_bytes], f.signatures,
+                         f.contents_hash())
+        accounts = [t.source_account_id().key_bytes] + [
+            opf.source_account_id().key_bytes for opf in t.op_frames]
+        out += pairs(accounts, t.signatures, t.contents_hash())
+    return out
+
+
+def engine_launches(candidates, bucket: int = 8192) -> int:
+    """Verify kernel launches of the engine's one `prewarm_many` over
+    `candidates`: one per `bucket` triples the verify cache does not hold
+    (the card's verifier's largest bucket; `prewarm_many` sends every
+    miss, a repeated one too)."""
+    from stellar_core_tpu_torch.crypto import keys as K
+    with K._cache_lock:
+        misses = sum(1 for t in candidates
+                     if K._cache_key(*t) not in K._verify_cache)
+    return -(-misses // bucket)
+
+
 @contextlib.contextmanager
 def one_torch_thread():
     """Run the verify kernel's plain version on one intra-op thread: the
