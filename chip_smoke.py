@@ -16,6 +16,10 @@ close that runs on both (its fee and apply phases in the apply engine,
 which verifies each close's candidate signatures in one `prewarm_many`),
 the catchup that replays published checkpoints through that close, and a
 network of herder nodes reaching consensus on the values that close.
+Every close node runs as the reference's default node: its SQL root's
+point reads served from the bucket list by BucketDB, the close cockpit
+(`ledger/apply_stats.py`) on, the apply engine; the CPU twins and the
+publisher read SQL and apply in the Python phases.
 
 The verify path (`ed25519_verify`):
 
@@ -179,8 +183,12 @@ L1. builds 2^20 live entries of the testing/entries.py mix as the port's
    of levels 4-10 (most in level 10, which never spills) through a
    `BucketManager` with background merges over a temporary bucket
    directory, and restores the list with `assume_state` at a ledger that
-   is a multiple of 128, as a node starts after catchup. No launch.
-   Prints the setup s;
+   is a multiple of 128, as a node starts after catchup. The manager
+   indexes every adopted bucket for BucketDB (`bucket/bucket_index.py`:
+   a sorted key index and a bloom filter of 10 bits a key, the sidecar
+   `bucket-<hex>.xdr.idx` written beside the bucket; key fingerprints are
+   `hashlib` SHA-256 on the host). No launch. Prints the setup s, the
+   index build s, the sidecars' bytes and the bloom filters' bit density;
 X1. (the codec, first half, after L1) encodes L1's 2^20 LedgerEntry
    values through the codec's C route (`native.xdr_pack_fn`) and through
    its Python route (`fastcodec`): the bytes equal; then decodes them by
@@ -224,12 +232,18 @@ L5. fires `commitment.sign-fail` once over 16 more closes: that
 
 The close (the port's LedgerTxn, transactions layer, TxSetFrame and
 LedgerManager over both paths), each phase driven with the counts set to
-0 just before it and read just after. The card's LedgerManager closes
+0 just before it and read just after. Both nodes are wired as the
+reference's default node (`tests/torch_catchup_harness.py::wire_node`:
+the BucketManager on the close cockpit `apply_stats`, BucketDB, no
+invariant, no close-meta stream). The card's LedgerManager closes
 through `make_verifier("cuda-resilient")` and `make_hasher(
 "cuda-resilient")` (no fallback), with a real Tracer, FlightRecorder and
-metrics, its fee and apply phases in the apply engine; a CPU twin
-(`CpuSigVerifier`, the hashlib hasher, the in-memory root) closes the
-same values through the Python phases (`use_native_apply` False). Each
+metrics, its fee and apply phases in the apply engine, its SQL root's
+point reads served by BucketDB (BUCKETDB_READS, the reference's
+default); a CPU twin (`CpuSigVerifier`, the hashlib hasher, a SQL root
+that reads SQL) closes the same values through the Python phases
+(`use_native_apply` False), so every close is also a differential of the
+two read paths. Each
 side validates from an empty verify cache (the process has one), so
 neither reads the other's decisions. At every close: the card's path is
 "native" and the twin's "python" (no engine bail: these mixes hold no
@@ -244,16 +258,21 @@ C1. restores a state of CLOSE_STATE entries of the same mix (every offer
    with an ID of its own) plus the network root account: buckets written
    and adopted as in L1, `assume_state` at LEDGER_START, then
    `apply_buckets` into a `LedgerTxnRoot` over sqlite `:memory:` (the
-   twin: its own list over the same buckets, the in-memory root) and
-   `set_last_closed_ledger` on a header that commits to the list. The
+   twin: its own list over the same buckets, its own SQL root) and
+   `set_last_closed_ledger` on a header that commits to the list, after
+   which the card's root reads through BucketDB and the twin's SQL. The
    commitment's first root follows, one launch per planned chunk. Prints
-   the restore's seconds split into generation, buckets and apply;
+   the restore's seconds split into generation, buckets (the BucketDB
+   index build among them) and apply, and the card's indexes;
 C2. three closes build the senders as `replay_bench` does: the root
    creates 200 in two 100-operation transactions, then one close arms
    them (senders 0-99: 19 more signers and a medium threshold of 20;
    100-199: one more signer and 2);
 C3. 64 closes of 100 payments, each signed by 20 keys, every 7th with one
-   signature corrupted, each run as a node runs it:
+   signature corrupted, every 5th paying an account restored in C1 and
+   not paid before (one each of levels 4-9, the rest of level 10, so
+   that the close reads the deep levels) and the rest the root, each run
+   as a node runs it:
    `TxSetFrame.trim_invalid` (the herder's call), a StellarValue over the
    trimmed set, `LedgerManager.value_externalized`. Checks: the trimmed
    transactions are the corrupted ones on both sides; one verify launch
@@ -266,9 +285,29 @@ C3. 64 closes of 100 payments, each signed by 20 keys, every 7th with one
    `close.apply` p50 and mean on both sides (the engine against the
    Python phases), the close's spans per close, and the card's busy share
    from a replay of the validations' prewarm drains with only CUDA
-   activity profiled;
+   activity profiled. C3 runs both read paths on the card's node in one
+   call: its odd closes with BucketDB detached (SQL point reads; the
+   bulk prefetch then defers to the engine, which loads its keys itself),
+   its even closes attached (one batched BucketDB pass a close in
+   `close.prefetch`), the entry cache emptied before each close so that
+   the close's reads reach the path; every BucketDB close makes no SQL
+   point lookup, every SQL close no bucket read; the BucketDB half hits
+   each of levels 4-10, the SQL half probes no level. Prints each half's p50 of `close.prefetch`, `close.apply` and
+   `ledger.ledger.close` and its levels probed,
+   BucketDbStats (reads by outcome, levels probed, the bloom filters'
+   false-positive rate, bytes read, prefetch batches), the cockpit's
+   `apply_breakdown()` (per-op ms, bails, state reads; its parts add up
+   to the apply wall within the reference test's `_breakdown_sums` bound)
+   and the engine's clusters;
 C4. 32 closes of 100 two-signature payments between disjoint partner
-   pairs (the standard mix's payments), with the same checks and prints;
+   pairs (the standard mix's payments; every 5th to a restored account
+   as in C3, BucketDB hitting each of levels 4-10),
+   with the same checks and prints,
+   both nodes with INVARIANT_CHECKS [".*"] (all six invariants on every
+   close) and METADATA_OUTPUT_STREAM set to a file each: the two streams,
+   read back through `read_close_meta_stream`, are equal record for
+   record and byte for byte, one record a close. Prints the ms per close
+   of the tx-phase delta snapshot and of `check_on_ledger_close` on both;
 C5. a cold close: one C3-shaped set validated on the card, the verify
    cache flushed, then closed: the engine drains all its candidates in
    one `prewarm_many`, one launch, decisions and lcl_hash equal the
@@ -283,15 +322,22 @@ C5. a cold close: one C3-shaped set validated on the card, the verify
    engine's verify callback and the close raises SignatureVerifyError;
    the LCL, its hash and the entries are unchanged, no transaction is
    applied by the Python phases instead, nothing launches and nothing is
-   verified on the CPU.
+   verified on the CPU. Last, the invariant case (a tripped invariant
+   stops a node, so it ends the card's node): all invariants and a
+   stream again, one C4-shaped close on the Python phases whose payment
+   mints lumens (as `tests/test_invariants.py::
+   test_corrupted_op_aborts_real_close`): InvariantDoesNotHold, the LCL
+   and its hash unchanged, no record in the stream.
 
 Catchup (the port's work scheduler, history publish and catchup over
 the close path), each phase driven with the counts set to 0 just before
 it and read just after. Every node is a port node wired as the
-reference's Application wires one (sqlite in a file, a bucket directory,
-the persistent state's local HAS, a local-directory archive reached
-through `ProcessManager`); every card node runs `make_verifier` and
-`make_hasher("cuda-resilient")` (no fallback) from an empty verify cache:
+reference's Application wires one (sqlite in a file, a bucket directory
+with BucketDB through `wire_node`, the persistent state's local HAS, a
+local-directory archive reached through `ProcessManager`); every card
+node runs `make_verifier` and `make_hasher("cuda-resilient")` (no
+fallback) from an empty verify cache, and its root reads through
+BucketDB; the publisher's reads SQL:
 
 R1. a CPU node (the C verifier, `make_hasher("cpu")`, the Python apply
    phases) closes the history through `value_externalized`, each set
@@ -317,8 +363,10 @@ R2. a fresh card node catches up complete: SUCCESS at 127; every ledger's
    rule). Prints ledgers/s, transactions/s and signatures/s end to end,
    each checkpoint's spans (`catchup.load_files`, `catchup.txset_parse`,
    `catchup.sig_prep`, `crypto.verify_many`, the mean
-   `catchup.apply_ledger`), the drains' sigs/s, the full collections, and
-   the card's busy share over the drains from a profiled replay of them;
+   `catchup.apply_ledger`), the drains' sigs/s, the full collections, the
+   card's busy share over the drains from a profiled replay of them, and
+   each checkpoint's prefetch summary line (`_log_checkpoint_summary`:
+   the checkpoint's keys covered by its one batched BucketDB pass);
 R2p. a second fresh card node replays the same archive with its closes in
    the Python phases (`use_native_apply` False), with R2's checks: the
    same launches, drain for drain (31), none in a close. Prints both
@@ -328,7 +376,9 @@ R3. a node restarted over R2's SQL file, bucket directory and persistent
    commitment's first root, computed on the card, equals the
    publisher's; it closes value 128 cold in the engine (one launch, as
    its candidates derive; decisions equal the C verifier's) to the
-   publisher's hash;
+   publisher's hash. The restart loads every persisted sidecar with no
+   rebuild (the index loads equal the indexes, no build) and passes
+   `_check_bucket_coverage` (the root still reads through BucketDB);
 R4. a fresh card node at genesis, configured to catch up the last
    checkpoint (CATCHUP_RECENT 64: a minimal catchup to a checkpoint tip
    would apply buckets at 127 and replay nothing), hears values 128-131:
@@ -336,8 +386,9 @@ R4. a fresh card node at genesis, configured to catch up the last
    buckets at 63, replays 64-127 behind one 16-launch drain, then closes
    128-131 from the buffer, cold, in the engine (one launch a close, as
    the candidates derive, decisions equal the C verifier's), and ends
-   synced at 131 with the publisher's hash. Prints the bucket-apply's
-   seconds and the replay's ledgers/s;
+   synced at 131 with the publisher's hash; the bucket-apply's
+   `set_last_closed_ledger` re-attaches BucketDB at 63. Prints the
+   bucket-apply's seconds and the replay's ledgers/s;
 R5. faults, each on a fresh card node over its own copy of the archive,
    as R4 catches up: (a) one byte of checkpoint 127's ledger file
    flipped: VerifyLedgerChainWork fails, nothing is applied or launched;
@@ -371,9 +422,10 @@ S1. 21 validators, pubnet's tier-1 shape (7 organisations of 3; each
    node's quorum 5 of the 7 organisations, each an inner set of 2 of its
    3), each on `make_verifier("cuda")` and `make_hasher("cuda")`, and a
    CPU twin (one port `LedgerManager` on the C verifier and
-   `make_hasher("cpu")`, its closes in the Python phases, closing the
-   value each slot externalized): 12 slots, 10 loaded. Checks: every
-   node's every close runs in the apply engine; all 21 nodes externalize
+   `make_hasher("cpu")`, its closes in the Python phases, its root
+   reading SQL, closing the value each slot externalized): 8 slots, 6
+   loaded. Checks: every node's root reads through BucketDB and its
+   every close runs in the apply engine; all 21 nodes externalize
    one value a slot;
    at every height every node's lcl hash, bucket-list hash and
    commitment root are equal and equal the twin's; the verify launches
@@ -553,13 +605,17 @@ LEDGER_NETWORK_ID = hashlib.sha256(
 # txs_per_ledger=100, sigs_per_tx=20, bench.py:339-341), the rest with 2;
 # C3_CLOSES closes of the multisig mix, C4_CLOSES of the standard mix's
 # payments; every CLOSE_CORRUPT_EVERY-th payment carries a corrupted
-# signature.
+# signature. Every CLOSE_DEEP_EVERY-th payment of a close goes instead to
+# an account restored in C1 and not yet paid, drawn so that each close
+# pays one account of each of levels 4-9 and the rest from level 10: the
+# close's reads of those accounts reach the deep levels' buckets.
 CLOSE_STATE = 1 << 18
 GENESIS_TOTAL_COINS = 10 ** 17
 CLOSE_MAX_TX_SET_SIZE = 10_000
 CLOSE_SENDERS, CLOSE_TXS, CLOSE_SIGS = 200, 100, 20
 C3_CLOSES, C4_CLOSES = 64, 32
 CLOSE_CORRUPT_EVERY = 7
+CLOSE_DEEP_EVERY = 5
 # the catchup phases (R1-R5): replay_bench's multisig mix (bench.py:339-470,
 # CLOSE_TXS transactions a ledger with CLOSE_SIGS signatures each) at
 # pubnet's checkpoint frequency of 64 (history/checkpoints.py:11) instead
@@ -579,8 +635,10 @@ R_PASSPHRASE = "Test SDF Network ; September 2015"
 # (tests/test_quorum_intersection.py's _pubnet_like), closing S1_LOADED
 # slots of the multisig mix after the two that fund and arm its senders;
 # S2 is S2_NODES validators in a 3-of-4 quorum on the async verify stack,
-# S2_LOADED loaded slots
-S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 10
+# S2_LOADED loaded slots. S1 had 10 loaded slots until the close phases'
+# payments reached the deep levels; on a slow host the whole run then
+# took about 1,110 s, so S1 gave up 4 of them.
+S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 6
 S2_NODES, S2_LOADED = 4, 5
 
 
@@ -2150,15 +2208,18 @@ def slots_view(slots: list):
 
 
 def ledger_state(rng, bucket_dir: str, card: str, n: int = LEDGER_STATE,
-                 extra=(), phase: str = "L1") -> dict:
+                 extra=(), phase: str = "L1", mgr=None) -> dict:
     """L1 (and C1): `n` live entries of the testing/entries.py mix as the
     port's BucketEntry objects, in canonical order (one numpy sort of the
     bodies' identity prefixes), split into the deep levels' curr buckets
-    (DEEP_LEVEL_ENTRIES, the rest in level 10), adopted through a
-    BucketManager with background merges over `bucket_dir`, then restored
-    with assume_state at LEDGER_START. Every offer has an ID of its own
-    (C1's SQL root keys offers by ID alone); the LedgerEntry objects of
-    `extra` join level 4's bucket."""
+    (DEEP_LEVEL_ENTRIES, the rest in level 10), adopted through `mgr` (a
+    BucketManager with background merges over `bucket_dir` for None),
+    which indexes each for BucketDB at adoption and writes its sidecar,
+    then restored with assume_state at LEDGER_START. Every offer has an
+    ID of its own (C1's SQL root keys offers by ID alone); the LedgerEntry
+    objects of `extra` join level 4's bucket. Returns, beside the timings,
+    the account IDs of each level's restored accounts (`accounts`, those
+    of `extra` left out)."""
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.bucket import BucketManager, K_NUM_LEVELS
     from stellar_core_tpu_torch.bucket.bucket import (
@@ -2176,8 +2237,9 @@ def ledger_state(rng, bucket_dir: str, card: str, n: int = LEDGER_STATE,
         level[pick[k:k + m]] = lv
         k += m
     t_gen = time.perf_counter()
-    mgr = BucketManager(bucket_dir, background_merges=True)
-    hashes, live, by_level = [], [], {}
+    if mgr is None:
+        mgr = BucketManager(bucket_dir, background_merges=True)
+    hashes, live, by_level, accounts = [], [], {}, {}
     t_decode = t_hash = 0.0
     for lv in range(K_NUM_LEVELS):
         idx = order[level[order] == lv]
@@ -2186,6 +2248,8 @@ def ledger_state(rng, bucket_dir: str, card: str, n: int = LEDGER_STATE,
             continue
         t1 = time.perf_counter()
         ents = TE.bucket_entries([records[i] for i in idx.tolist()])
+        accounts[lv] = [e.value.data.value.accountID for e in ents
+                        if e.value.data.disc == X.LedgerEntryType.ACCOUNT]
         if lv == 4 and extra:
             ents = sorted(ents + [X.BucketEntry.live(e) for e in extra],
                           key=bucket_entry_sort_key)
@@ -2215,17 +2279,24 @@ def ledger_state(rng, bucket_dir: str, card: str, n: int = LEDGER_STATE,
     for i in rng.integers(1, len(deep) - 1, 2000).tolist():
         check(bucket_entry_sort_key(deep[i]) < bucket_entry_sort_key(
             deep[i + 1]), "%s: the deep bucket is in canonical order" % phase)
+    index_s = mgr.bucketdb.stats.index["build_seconds"]
+    check(mgr.bucketdb.stats.index["builds"] == len(by_level),
+          "%s: every adopted bucket indexed for BucketDB" % phase)
     log("%s state (%s): %d live entries at ledger %d in %.1f s (generate + "
-        "sort %.1f s, decode %.1f s, bucket hash + file %.1f s); levels "
-        "%s; level 10 holds %d; bucket-list hash %s"
+        "sort %.1f s, decode %.1f s, bucket hash + file + index %.1f s, "
+        "of it the BucketDB index build %.2f s); levels "
+        "%s; level 10 holds %d; bucket-list hash %s; BucketDB %s"
         % (phase, card, n + len(extra), LEDGER_START, setup_s, t_gen - t0,
            t_decode,
-           t_hash, json.dumps({str(k): len(b) - 1
-                               for k, b in sorted(by_level.items())}),
-           len(deep) - 1, mgr.get_hash().hex()[:16]))
-    return {"mgr": mgr, "live": live, "deep": deep, "setup_s": setup_s,
+           t_hash, index_s, json.dumps({str(k): len(b) - 1
+                                        for k, b in sorted(
+                                            by_level.items())}),
+           len(deep) - 1, mgr.get_hash().hex()[:16],
+           bucketdb_line(mgr, bucket_dir)))
+    return {"mgr": mgr, "live": live, "deep": deep, "accounts": accounts,
+            "setup_s": setup_s,
             "generate_s": t_gen - t0, "decode_s": t_decode,
-            "bucket_s": t_hash}
+            "bucket_s": t_hash, "index_s": index_s}
 
 
 def ledger_close(X, S, SC, st: dict, seq: int, rng) -> dict:
@@ -2364,6 +2435,7 @@ def ledger_path(S, E, rng, flight_dir: str, card: str) -> dict:
         # --- L1 ------------------------------------------------------------
         E.LAUNCHES = S.LAUNCHES = 0
         st = ledger_state(rng, bdir, card)
+        st.pop("accounts")
         check(S.LAUNCHES == 0 and E.LAUNCHES == 0,
               "L1 builds the state without a launch")
         mgr = st["mgr"]
@@ -2606,30 +2678,77 @@ def ledger_path(S, E, rng, flight_dir: str, card: str) -> dict:
 
 # --- the close phases (C1-C5): LedgerManager closes over a restored state --
 
-def close_side(mgr, verifier, hasher, sql: bool, root_sk, node_seed,
-               metrics=None, tracer=None, recorder=None):
-    """A port LedgerManager over `mgr`, closing through `verifier` and
-    `hasher`, with its own StateCommitmentEngine, on a LedgerTxnRoot over
-    sqlite `:memory:` (`sql`) or the in-memory root."""
+def close_side(bucket_dir, verifier, hasher, bucket_reads: bool, root_sk,
+               node_seed, metrics=None, tracer=None, recorder=None):
+    """A port LedgerManager on a LedgerTxnRoot over sqlite `:memory:`,
+    closing through `verifier` and `hasher`, with its own
+    StateCommitmentEngine, wired by `torch_catchup_harness.wire_node` as
+    the reference's Application wires a node: its BucketManager (in
+    `bucket_dir`, or in memory only for None) on its close cockpit, its
+    SQL root reading through BucketDB when `bucket_reads` (the
+    reference's default) and from SQL otherwise, no invariant and no
+    close-meta stream (the defaults; C4 turns both on)."""
     from types import SimpleNamespace
     from stellar_core_tpu_torch.database.database import Database
     from stellar_core_tpu_torch.ledger import state_commitment as SC
     from stellar_core_tpu_torch.ledger.ledger_manager import LedgerManager
     cfg = SimpleNamespace(
-        DATABASE="sqlite3://:memory:" if sql else "in-memory",
+        DATABASE="sqlite3://:memory:",
         LEDGER_PROTOCOL_VERSION=LEDGER_PROTOCOL,
         GENESIS_TOTAL_COINS=GENESIS_TOTAL_COINS,
         TESTING_UPGRADE_DESIRED_FEE=100, TESTING_UPGRADE_RESERVE=5_000_000,
         TESTING_UPGRADE_MAX_TX_SET_SIZE=CLOSE_MAX_TX_SET_SIZE,
         network_id=LEDGER_NETWORK_ID, NODE_SEED=node_seed,
-        STATE_CHECKPOINT_INTERVAL=CHECKPOINT_EVERY)
+        STATE_CHECKPOINT_INTERVAL=CHECKPOINT_EVERY,
+        BUCKETDB_READS=bucket_reads, BUCKETDB_BLOOM_BITS_PER_KEY=10,
+        INVARIANT_CHECKS=[], METADATA_OUTPUT_STREAM="")
     app = SimpleNamespace(
         config=cfg, network_root_key=lambda: root_sk, sig_verifier=verifier,
-        batch_hasher=hasher, bucket_manager=mgr,
-        database=Database() if sql else None, metrics=metrics,
+        batch_hasher=hasher, database=Database(), metrics=metrics,
         tracer=tracer, flight_recorder=recorder)
     app.state_commitment = SC.StateCommitmentEngine(app)
-    return LedgerManager(app)
+    lm = app.ledger_manager = LedgerManager(app)
+    harness("torch_catchup_harness").wire_node(app, bucket_dir)
+    return lm
+
+
+def bucketdb_line(mgr, bucket_dir) -> str:
+    """A BucketManager's indexes: the builds and loads and their seconds,
+    the sidecar files' bytes in `bucket_dir`, the indexed entries and the
+    bloom filters' mean bit density."""
+    db = mgr.bucketdb
+    ix = db.stats.to_json()["index"]
+    with db._lock:
+        idxs = list(db._indexes.values())
+    dens = [i.bloom.bit_density() for i in idxs if len(i)]
+    side = sum(os.path.getsize(os.path.join(bucket_dir, f))
+               for f in os.listdir(bucket_dir) if f.endswith(".idx")) \
+        if bucket_dir else 0
+    return ("%d indexes (%d entries): %d builds in %.2f s, %d loads in "
+            "%.2f s, %d load failures; sidecars %d bytes; bloom bit "
+            "density %.2f%% (mean), %d bits a key"
+            % (len(idxs), sum(len(i) for i in idxs), ix["builds"],
+               ix["build_seconds"], ix["loads"], ix["load_seconds"],
+               ix["load_failures"], side,
+               100.0 * sum(dens) / max(len(dens), 1), db.bits_per_key))
+
+
+def level_hits(db) -> dict:
+    """BucketDB's probes and hits so far, by level: {level: [probes,
+    hits]}, point reads and prefetch passes together."""
+    return {int(k): [v["probes"], v["hits"]]
+            for k, v in db.stats.to_json()["levels"].items()}
+
+
+def add_levels(into: dict, before: dict, after: dict) -> None:
+    """Adds to `into` the probes and hits of `after` beyond `before`
+    (two `level_hits`)."""
+    for lv, (p, h) in after.items():
+        p0, h0 = before.get(lv, (0, 0))
+        if p > p0:
+            acc = into.setdefault(lv, [0, 0])
+            acc[0] += p - p0
+            acc[1] += h - h0
 
 
 def fresh_slots(S, SC, st: dict, bl) -> int:
@@ -2678,6 +2797,33 @@ class GcPauses:
     def line(self) -> str:
         return ("%d full collections, %.1f ms in all, the longest %.1f ms"
                 % (len(self.ms), sum(self.ms), max(self.ms, default=0.0)))
+
+
+class LogLines:
+    """While entered, the messages of logger `name` (and its children)
+    that contain `needle`, in `lines`."""
+
+    def __init__(self, name: str, needle: str):
+        import logging
+        self.logger = logging.getLogger(name)
+        self.needle, self.lines = needle, []
+        outer = self
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if outer.needle in msg:
+                    outer.lines.append(msg)
+
+        self.handler = Grab()
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
 
 
 class EnqueueCalls:
@@ -2738,20 +2884,25 @@ class EngineCalls:
         return False
 
 
-def close_harness():
-    """`tests/torch_close_harness.py` (the apply engine's candidate rule,
-    `engine_candidates` and `engine_launches`), imported from the
-    checkout."""
+def harness(name: str):
+    """A port-only harness module of the checkout's `tests/`, imported
+    from the checkout: `torch_close_harness` (the apply engine's candidate
+    rule, `engine_candidates` and `engine_launches`),
+    `torch_catchup_harness` (`wire_node`, `enable_buckets`,
+    `invariants_and_stream`: a node's ledger layer as the reference's
+    Application builds it) and `torch_herder_harness` (the relay that
+    stands in for overlay, the node builder, the traffic)."""
+    import importlib
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import torch_close_harness
-    return torch_close_harness
+    return importlib.import_module(name)
 
 
 def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
-                prewarm: bool = True, native: bool = True) -> dict:
+                prewarm: bool = True, native: bool = True,
+                cold_reads: bool = False) -> dict:
     """One ledger on the card's LedgerManager and on its CPU twin, as a
     node runs it: TxSetFrame.trim_invalid through the side's verifier
     (the herder's call), a StellarValue over the trimmed set, then
@@ -2769,10 +2920,12 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
     close), or, in the Python phases, one `enqueue`s-and-`flush` per
     transaction left, launching once each in a cold close, none after the
     prewarm; every decision of the close equal to the C verifier's; the
-    close paths as chosen; the card's SHA-256 launches as derived from
+    close paths as chosen (with `cold_reads`, the card root's entry cache
+    is emptied just before the close, so that the close's point reads
+    reach the root's read path); the card's SHA-256 launches as derived from
     the bucket list; and lcl_hash, each result pair, the bucket-list hash
     and the commitment root equal the twin's."""
-    CH = close_harness()
+    CH = harness("torch_close_harness")
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.herder.txset import TxSetFrame
     from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
@@ -2806,6 +2959,8 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
         calls, flushed = [], []
         if side == "card":
             lm.use_native_apply = native
+            if cold_reads:
+                lm.root._cache.clear()
         with EngineCalls(lm.app.sig_verifier, calls), \
                 EnqueueCalls(lm.app.sig_verifier, flushed):
             e0, s0 = E.LAUNCHES, S.LAUNCHES
@@ -2887,6 +3042,23 @@ def close_round(S, E, K, SC, st: dict, blobs: list, corrupted: set,
     return card
 
 
+def deep_destinations(accounts: dict, per_close: int):
+    """C1's restored account IDs (`accounts`: level -> IDs) in the order
+    the close phases pay them, each once: rounds of `per_close`, one from
+    each of levels 4-9 and the rest (at least one) from level 10, while
+    levels 4-9 last; then level 10's alone."""
+    deep = sorted(DEEP_LEVEL_ENTRIES)
+    top = max(accounts)
+    rounds = min(len(accounts[lv]) for lv in deep)
+    rest = max(per_close - len(deep), 1)
+    out = []
+    for r in range(rounds):
+        out.extend(accounts[lv][r] for lv in deep)
+        out.extend(accounts[top][r * rest:(r + 1) * rest])
+    out.extend(accounts[top][rounds * rest:])
+    return out
+
+
 class CloseTraffic:
     """The reference bench's senders (`replay_bench`, bench.py:339-468)
     built with the port's TestAccount against the card side's state:
@@ -2894,10 +3066,12 @@ class CloseTraffic:
     extra signers and a medium threshold of 20, the rest with one extra
     signer and a threshold of 2. Every key comes from SecretKey.from_seed;
     every `corrupt_every`-th payment (CLOSE_CORRUPT_EVERY; 0 for none) has
-    one signature corrupted."""
+    one signature corrupted. With `deep` (account IDs, each paid once, in
+    order), every CLOSE_DEEP_EVERY-th payment of a close pays the next of
+    them instead of its mix's destination."""
 
     def __init__(self, lm, root_sk, senders: int = CLOSE_SENDERS,
-                 corrupt_every: int = CLOSE_CORRUPT_EVERY):
+                 corrupt_every: int = CLOSE_CORRUPT_EVERY, deep=None):
         from stellar_core_tpu_torch import testing as T
         from stellar_core_tpu_torch.crypto.keys import SecretKey
         from stellar_core_tpu_torch.xdr import LedgerKey
@@ -2924,6 +3098,12 @@ class CloseTraffic:
         self.corrupt_every = corrupt_every
         self.corrupted = set()
         self.k = 0
+        self.deep = iter(deep) if deep is not None else None
+
+    def _dest(self, i: int, dest):
+        if self.deep is not None and i % CLOSE_DEEP_EVERY == 0:
+            return next(self.deep)
+        return dest
 
     def fund(self, lo: int) -> list:
         r = self.root
@@ -2951,7 +3131,8 @@ class CloseTraffic:
         (the multisig mix). The amount varies by round so that a trimmed
         payment's successor, which reuses its sequence number, does not
         reuse its contents hash."""
-        return [self._signed(s, self.extra[i], self.root.account_id,
+        return [self._signed(s, self.extra[i],
+                             self._dest(i, self.root.account_id),
                              1000 + rnd)
                 for i, s in enumerate(self.senders[:CLOSE_TXS])]
 
@@ -2960,14 +3141,15 @@ class CloseTraffic:
         standard mix's payments, bench.py:457-468)."""
         pay = self.senders[CLOSE_TXS:]
         return [self._signed(s, self.extra[CLOSE_TXS + i],
-                             pay[i ^ 1].account_id, 1000 + rnd)
+                             self._dest(i, pay[i ^ 1].account_id),
+                             1000 + rnd)
                 for i, s in enumerate(pay)]
 
 
 def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
     """C1-C5p of the module docstring; returns the launches by phase."""
     from stellar_core_tpu_torch import testing as T
-    from stellar_core_tpu_torch.bucket import BucketManager, apply_buckets
+    from stellar_core_tpu_torch.bucket import apply_buckets
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
     from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
     from stellar_core_tpu_torch.crypto.hashing import sha256
@@ -2980,30 +3162,13 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
     from stellar_core_tpu_torch.util.metrics import MetricsRegistry
     from stellar_core_tpu_torch.util.tracing import FlightRecorder, Tracer
     out = {"verify": {}, "sha256": {}}
+    NH = harness("torch_catchup_harness")
     root_sk = T.root_secret_key(LEDGER_NETWORK_ID)
     node_seed = SecretKey(rng.bytes(32))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_close_") as bdir:
         # --- C1 ------------------------------------------------------------
         E.LAUNCHES = S.LAUNCHES = 0
         t0 = time.perf_counter()
-        st = ledger_state(rng, bdir, card, n=CLOSE_STATE, phase="C1",
-                          extra=[make_account_entry(
-                              root_sk.public_key, GENESIS_TOTAL_COINS, 0,
-                              LEDGER_START)])
-        mgr = st.pop("mgr")
-        st.pop("live")
-        st.pop("deep")
-        slots = list_slots(mgr.bucket_list)
-        # the twin's list holds the same bucket objects, in memory only
-        twin_mgr = BucketManager(None, background_merges=True)
-        for b in slots:
-            twin_mgr.adopt_bucket(b)
-        twin_mgr.assume_state(
-            [{"curr": lev.curr.get_hash(), "snap": lev.snap.get_hash()}
-             for lev in mgr.bucket_list.levels], LEDGER_START,
-            LEDGER_PROTOCOL)
-        check(twin_mgr.get_hash() == mgr.get_hash(),
-              "C1: the twin's bucket list == the card's")
         reg = MetricsRegistry()
         tr = Tracer()
         rec = FlightRecorder(tr, metrics=reg, out_dir=flight_dir)
@@ -3013,12 +3178,36 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
                         flight_recorder=rec)
         check(v.fallback is None and h.fallback is None,
               "C1: the card's stacks have no fallback")
-        lm = close_side(mgr, v, h, True, root_sk, node_seed, metrics=reg,
+        # the card's node as the reference's default node: its SQL root
+        # reads through BucketDB (attached before the restore, as before
+        # genesis); the twin's root reads SQL
+        lm = close_side(bdir, v, h, True, root_sk, node_seed, metrics=reg,
                         tracer=tr, recorder=rec)
         ttr = Tracer()
-        twin = close_side(twin_mgr, make_verifier("cpu"),
-                          make_hasher("cpu"), False, root_sk, node_seed,
-                          tracer=ttr)
+        twin = close_side(None, make_verifier("cpu"), make_hasher("cpu"),
+                          False, root_sk, node_seed, tracer=ttr)
+        mgr, twin_mgr = lm.app.bucket_manager, twin.app.bucket_manager
+        check(lm.root.bucket_backed() and not twin.root.bucket_backed(),
+              "C1: the card's root reads through BucketDB, the twin's SQL")
+        st = ledger_state(rng, bdir, card, n=CLOSE_STATE, phase="C1",
+                          extra=[make_account_entry(
+                              root_sk.public_key, GENESIS_TOTAL_COINS, 0,
+                              LEDGER_START)], mgr=mgr)
+        st.pop("mgr")
+        st.pop("live")
+        st.pop("deep")
+        deep = deep_destinations(st.pop("accounts"),
+                                 -(-CLOSE_TXS // CLOSE_DEEP_EVERY))
+        slots = list_slots(mgr.bucket_list)
+        # the twin's list holds the same bucket objects, in memory only
+        for b in slots:
+            twin_mgr.adopt_bucket(b)
+        twin_mgr.assume_state(
+            [{"curr": lev.curr.get_hash(), "snap": lev.snap.get_hash()}
+             for lev in mgr.bucket_list.levels], LEDGER_START,
+            LEDGER_PROTOCOL)
+        check(twin_mgr.get_hash() == mgr.get_hash(),
+              "C1: the twin's bucket list == the card's")
         # the card closes in the apply engine, the twin in the Python
         # phases: each close is held against the other path
         check(lm.use_native_apply, "C1: the card's close runs the engine")
@@ -3049,6 +3238,10 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
         check(lm.lcl_hash == twin.lcl_hash and
               lm.lcl_header.bucketListHash == mgr.get_hash(),
               "C1: both LCLs at the restored header")
+        check(lm.root.bucket_backed() and not twin.root.bucket_backed(),
+              "C1: after set_last_closed_ledger the card's root reads "
+              "through BucketDB (the list covers the restored state), "
+              "the twin's SQL")
         restore_s = st["setup_s"] + apply_s
         wall_s = time.perf_counter() - t0
         check(S.LAUNCHES == 0 and E.LAUNCHES == 0,
@@ -3068,16 +3261,21 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
         out["sha256"]["C1"] = S.LAUNCHES
         out["restore_s"] = restore_s
         log("C1 restore (%s): %d entries in %.1f s: generation %.1f s, "
-            "buckets %.1f s (decode %.1f, hash + file %.1f), apply_buckets "
+            "buckets %.1f s (decode %.1f, hash + file + index %.1f, of it "
+            "the BucketDB index build %.2f), apply_buckets "
             "into a LedgerTxnRoot over sqlite :memory: %.1f s (%.1f us an "
-            "entry); with the twin's list and in-memory root (%.1f s) %.1f "
-            "s; first commitment root %.1f ms in %d launches"
+            "entry); with the twin's list and its SQL root (%.1f s) %.1f "
+            "s; first commitment root %.1f ms in %d launches; the card's "
+            "BucketDB %s"
             % (card, CLOSE_STATE + 1, restore_s, st["generate_s"],
                st["setup_s"] - st["generate_s"], st["decode_s"],
-               st["bucket_s"], apply_s, apply_s / (CLOSE_STATE + 1) * 1e6,
-               twin_apply_s, wall_s, first_ms, S.LAUNCHES))
+               st["bucket_s"], st["index_s"], apply_s,
+               apply_s / (CLOSE_STATE + 1) * 1e6,
+               twin_apply_s, wall_s, first_ms, S.LAUNCHES,
+               bucketdb_line(mgr, bdir)))
         st.update(card=lm, twin=twin)
-        traffic = CloseTraffic(lm, root_sk)
+        traffic = CloseTraffic(lm, root_sk, deep=deep)
+        del deep
 
         # --- C2 ------------------------------------------------------------
         E.LAUNCHES = S.LAUNCHES = 0
@@ -3111,12 +3309,44 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
             ttr.enable(capacity=65536)
             recorded.clear()
             v.prewarm_many = recording_prewarm
+            if phase == "C3":
+                # the cockpit's and BucketDB's aggregates of C3 alone
+                lm.apply_stats.reset()
+                mgr.bucketdb.stats.reset()
+            else:
+                streams = c4_begin(NH, lm, twin, bdir)
+                c4_levels = {}
             E.LAUNCHES = S.LAUNCHES = 0
             t0 = time.perf_counter()
+            rounds, per_close = [], []
             with GcPauses() as gcp:
-                rounds = [close_round(S, E, K, SC, st, build(k),
-                                      traffic.corrupted)
-                          for k in range(closes)]
+                for k in range(closes):
+                    # C3 runs both read paths on the card's node: its
+                    # odd closes read SQL, its even closes BucketDB
+                    bucket = phase != "C3" or (k + 1) % 2 == 0
+                    if bucket:
+                        lm.root.attach_bucketdb(mgr.bucketdb)
+                    else:
+                        lm.root.detach_bucketdb()
+                    n_sp = len(tr.spans())
+                    lv0 = level_hits(mgr.bucketdb)
+                    rounds.append(close_round(S, E, K, SC, st, build(k),
+                                              traffic.corrupted,
+                                              cold_reads=phase == "C3"))
+                    levels = {}
+                    add_levels(levels, lv0, level_hits(mgr.bucketdb))
+                    blob = lm.apply_stats.last_close
+                    check(blob["path"] == "native" and (
+                        blob["reads"]["lookups"] == {} if bucket else
+                        blob["reads"]["bucket_reads"] == 0),
+                        "%s close %d: the card's point reads all from %s "
+                        "(%s)" % (phase, k + 1, "BucketDB" if bucket
+                                  else "SQL", blob["reads"]))
+                    per_close.append((bucket, tr.spans()[n_sp:], blob,
+                                      levels))
+                    if phase == "C4":
+                        add_levels(c4_levels, {}, levels)
+            lm.root.attach_bucketdb(mgr.bucketdb)
             wall_s = time.perf_counter() - t0
             v.prewarm_many = pw
             tr.disable()
@@ -3199,6 +3429,19 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
                                                       for x in close_s],
                           "sigs_per_s": sigs / (sum(val) / 1e3),
                           "apply_ms": apply_ms}
+            if phase == "C3":
+                out["C3"]["halves"] = c3_read_paths(lm, mgr, per_close,
+                                                    close_s, card)
+            else:
+                out["C4"]["invariants"] = c4_end(
+                    lm, twin, streams, tr, ttr, closes, card)
+                check(all(c4_levels.get(lv, (0, 0))[1] > 0
+                          for lv in range(4, 11)),
+                      "C4: BucketDB hit each of levels 4-10 (%s)"
+                      % json.dumps(c4_levels))
+                log("C4 BucketDB levels probed (%s), [probes, hits] over "
+                    "the %d closes: %s" % (card, closes,
+                                           json.dumps(c4_levels)))
 
         # --- C5 ------------------------------------------------------------
         E.LAUNCHES = S.LAUNCHES = 0
@@ -3230,9 +3473,236 @@ def close_path(S, E, K, rng, flight_dir: str, card: str) -> dict:
         log("C5 from_scratch_root over the final list: %.1f s"
             % (time.perf_counter() - t0))
         c5_fault(E, K, lm, traffic, reg, tr, rec)
+        c4_invariant_abort(NH, E, S, lm, traffic, bdir, card)
         for m in (mgr, twin_mgr):
             m.shutdown()
     return out
+
+
+def c3_read_paths(lm, mgr, per_close: list, close_s: list,
+                  card: str) -> dict:
+    """C3's two read paths on the card's node, from one call: for each
+    half (the closes that read SQL, those that read BucketDB) the p50 of
+    `close.prefetch`, `close.apply` and `ledger.ledger.close`; then
+    BucketDbStats, the cockpit's `apply_breakdown()` (held to the
+    reference test's `_breakdown_sums` bound: its per-op parts and the
+    rest add up to the apply wall) and the engine's clusters."""
+    halves = {}
+    for name, want in (("SQL", False), ("BucketDB", True)):
+        sel = [(spans, close_s[i]) for i, (b, spans, _bl, _lv) in
+               enumerate(per_close) if b == want]
+        levels = {}
+        for b, _sp, _bl, lv in per_close:
+            if b == want:
+                add_levels(levels, {}, lv)
+        ms = {}
+        for span in ("close.prefetch", "close.apply"):
+            ms[span] = [sp.dur * 1e3 for spans, _c in sel for sp in spans
+                        if sp.name == span and sp.dur is not None]
+        ms["ledger.ledger.close"] = [c * 1e3 for _s, c in sel]
+        check(len(ms["close.apply"]) == len(sel) and len(ms[
+            "close.prefetch"]) == (len(sel) if want else 0),
+            "C3 %s half: one close.apply a close, %s" % (
+                name, "one close.prefetch a close (the batched BucketDB "
+                "pass)" if want else "no close.prefetch (the engine "
+                "loads its keys itself on a SQL root)"))
+        check(all(levels.get(lv, (0, 0))[1] > 0
+                  for lv in range(4, 11)) if want else levels == {},
+              "C3 %s half: %s (%s)" % (
+                  name, "BucketDB hit each of levels 4-10" if want
+                  else "no BucketDB probe",
+                  json.dumps(levels)))
+        halves[name] = {k: float(np.percentile(x, 50)) if x else None
+                        for k, x in ms.items()}
+        halves[name]["levels"] = levels
+        log("C3 %s reads (%s): %d closes; p50 close.prefetch %s, "
+            "close.apply %.2f ms, ledger.ledger.close %.2f ms; BucketDB "
+            "levels probed, [probes, hits]: %s"
+            % (name, card, len(sel),
+               "%.2f ms" % halves[name]["close.prefetch"] if want else
+               "none (deferred to the engine)",
+               halves[name]["close.apply"],
+               halves[name]["ledger.ledger.close"], json.dumps(levels)))
+    db = mgr.bucketdb
+    dj = db.stats.to_json()
+    log("C3 BucketDbStats (%s), the BucketDB half: reads %s; levels "
+        "probed %s; bloom %s, false-positive rate %.4f; %d bytes read; "
+        "prefetch %s" % (card, json.dumps(dj["reads"]),
+                         json.dumps(dj["levels"]), json.dumps(dj["bloom"]),
+                         db.stats.false_positive_rate(), dj["bytes_read"],
+                         json.dumps(dj["prefetch"])))
+    ab = lm.apply_stats.apply_breakdown()
+    total_ms = sum(ab["per_op_ms"].values()) + ab["other_ms"]
+    wall_ms = ab["apply_wall_s"] * 1e3
+    check(abs(total_ms - wall_ms) < max(0.5, 1e-3 * wall_ms)
+          and ab["other_ms"] >= 0.0,
+          "C3 apply_breakdown: per-op %.3f + other %.3f ms == the apply "
+          "wall %.3f ms" % (total_ms - ab["other_ms"], ab["other_ms"],
+                            wall_ms))
+    check(ab["bails"] == {} and ab["closes"].get("native", 0)
+          == len(per_close), "C3 apply_breakdown: %d closes in the "
+          "engine, no bail" % len(per_close))
+    log("C3 apply_breakdown (%s): apply wall %.1f ms over %d closes; per "
+        "op ms %s (counts %s), other %.1f ms; bails %s; state reads %s"
+        % (card, wall_ms, len(per_close), json.dumps(ab["per_op_ms"]),
+           json.dumps(ab["op_counts"]), ab["other_ms"],
+           json.dumps(ab["bails"]), json.dumps(ab["state_reads"])))
+    cl = ab["clusters"]
+    log("C3 clusters (%s): the last close %d clusters, the widest %d "
+        "transactions, %d workers; %d parallel closes, %d serial, %d "
+        "degraded; the last close's cluster apply %.2f ms"
+        % (card, cl["last_count"], cl["last_width"], cl["last_workers"],
+           cl["parallel_closes"], cl["serial_closes"], cl["degraded"],
+           cl["last_apply_ms"]))
+    return {"halves": halves, "clusters": cl,
+            "bucketdb": {"reads": dj["reads"], "bytes_read":
+                         dj["bytes_read"], "fp_rate":
+                         db.stats.false_positive_rate()}}
+
+
+def c4_begin(NH, lm, twin, bdir: str) -> dict:
+    """C4's nodes run every invariant and stream their close meta, each
+    to a file: the card's node and the twin with INVARIANT_CHECKS
+    [".*"] and METADATA_OUTPUT_STREAM set, wired again as the
+    reference's Application wires them (`invariants_and_stream`)."""
+    paths = {}
+    for name, side in (("card", lm), ("twin", twin)):
+        cfg = side.app.config
+        paths[name] = os.path.join(bdir, "c4-meta-%s.xdr" % name)
+        cfg.INVARIANT_CHECKS = [".*"]
+        cfg.METADATA_OUTPUT_STREAM = paths[name]
+        NH.invariants_and_stream(side.app)
+        check(len(side.app.invariant_manager.enabled_names()) == 6,
+              "C4: the %s runs all six invariants" % name)
+    return paths
+
+
+def c4_end(lm, twin, paths: dict, tr, ttr, closes: int,
+           card: str) -> dict:
+    """After C4: both streams closed and read back through
+    `read_close_meta_stream`, equal record for record and byte for byte,
+    one record a close; the invariants' ms per close (the tx-phase delta
+    snapshot, `check_on_ledger_close`) on each side; then both nodes back
+    to the defaults (no invariant, no stream)."""
+    from stellar_core_tpu_torch.ledger.close_meta_stream import (
+        read_close_meta_stream,
+    )
+    recs, raw = {}, {}
+    for name, side in (("card", lm), ("twin", twin)):
+        side.app.close_meta_stream.close()
+        recs[name], err = read_close_meta_stream(paths[name])
+        check(err is None and len(recs[name]) == closes,
+              "C4: the %s's stream holds %d whole records" % (name, closes))
+        with open(paths[name], "rb") as fh:
+            raw[name] = fh.read()
+        cfg = side.app.config
+        cfg.INVARIANT_CHECKS, cfg.METADATA_OUTPUT_STREAM = [], ""
+        harness("torch_catchup_harness").invariants_and_stream(side.app)
+    check([r.to_xdr() for r in recs["card"]] ==
+          [r.to_xdr() for r in recs["twin"]] and raw["card"] == raw["twin"],
+          "C4: the card's close-meta stream == the twin's, record for "
+          "record, byte for byte (%d bytes)" % len(raw["card"]))
+    check(recs["card"][-1].value.ledgerHeader.hash == lm.lcl_hash,
+          "C4: the stream's last record carries the LCL's hash")
+    ms = {}
+    for name, t in (("card", tr), ("twin", ttr)):
+        for span in ("close.invariant_snapshot", "close.invariants"):
+            d = [sp.dur * 1e3 for sp in t.spans()
+                 if sp.name == span and sp.dur is not None]
+            check(len(d) == closes, "C4: one %s span a close on the %s"
+                  % (span, name))
+            ms[(name, span)] = (float(np.percentile(d, 50)),
+                                float(np.mean(d)))
+    log("C4 invariants (%s), all six on both nodes, ms per close p50 / "
+        "mean: the card's tx-phase delta snapshot %.2f / %.2f, "
+        "check_on_ledger_close %.2f / %.2f; the twin's %.2f / %.2f, "
+        "%.2f / %.2f; the close-meta streams %d records, %d bytes each, "
+        "equal"
+        % ((card,) + ms[("card", "close.invariant_snapshot")]
+           + ms[("card", "close.invariants")]
+           + ms[("twin", "close.invariant_snapshot")]
+           + ms[("twin", "close.invariants")]
+           + (closes, len(raw["card"]))))
+    return {"ms": {"%s %s" % k: v for k, v in ms.items()},
+            "stream_bytes": len(raw["card"])}
+
+
+def c4_invariant_abort(NH, E, S, lm, traffic, bdir: str, card: str) -> None:
+    """The invariant case, last on the card's node (a tripped invariant
+    stops a node, as in the reference, so nothing closes on it after):
+    INVARIANT_CHECKS [".*"] and a close-meta stream again, then one
+    C4-shaped close on the Python phases whose payment mints lumens (the
+    payment's apply credits the destination without debiting the source,
+    as `tests/test_invariants.py::test_corrupted_op_aborts_real_close`
+    does): InvariantDoesNotHold, the LCL and its hash unchanged, and no
+    record in the stream."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.herder.txset import TxSetFrame
+    from stellar_core_tpu_torch.invariant.invariants import (
+        InvariantDoesNotHold,
+    )
+    from stellar_core_tpu_torch.ledger.close_meta_stream import (
+        read_close_meta_stream,
+    )
+    from stellar_core_tpu_torch.ledger.ledger_manager import LedgerCloseData
+    from stellar_core_tpu_torch.transactions import account_helpers as AH
+    from stellar_core_tpu_torch.transactions.operations import (
+        PaymentOpFrame, PaymentResultCode,
+    )
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    path = os.path.join(bdir, "c4-abort-meta.xdr")
+    cfg = lm.app.config
+    cfg.INVARIANT_CHECKS, cfg.METADATA_OUTPUT_STREAM = [".*"], path
+    NH.invariants_and_stream(lm.app)
+    frames = [TransactionFrame.make_from_wire(
+        LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(b))
+        for b in traffic.standard(C4_CLOSES + 2)]
+    frames = [f for f in frames if f.contents_hash() not in
+              traffic.corrupted]
+    ts = TxSetFrame(LEDGER_NETWORK_ID, lm.lcl_hash, frames)
+    check(not ts.trim_invalid(lm.ltx_root(), lm.app.sig_verifier),
+          "C4 invariant: the set validates whole")
+    header = lm.root.get_header()
+    seq, lcl = header.ledgerSeq, lm.lcl_hash
+    value = X.StellarValue(
+        txSetHash=ts.get_contents_hash(hasher=lm.app.batch_hasher),
+        closeTime=header.scpValue.closeTime + 1, upgrades=[],
+        ext=X.StellarValueExt(0, None))
+
+    def minting_apply(self, ltx):
+        body = self.op.body.value
+        dest = AH.load_account(ltx, body.destination.account_id)
+        AH.add_balance(ltx.load_header(), dest, body.amount)
+        return self.set_inner(PaymentResultCode.SUCCESS)
+
+    real = PaymentOpFrame.do_apply
+    PaymentOpFrame.do_apply = minting_apply
+    lm.use_native_apply = False
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        lm.close_ledger(LedgerCloseData(seq + 1, ts, value))
+    except InvariantDoesNotHold as e:
+        raised = e
+    finally:
+        PaymentOpFrame.do_apply = real
+        lm.use_native_apply = True
+        lm.app.close_meta_stream.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    recs, err = read_close_meta_stream(path)
+    check(raised is not None and "ConservationOfLumens" in str(raised)
+          and lm.last_closed_ledger_num() == seq and lm.lcl_hash == lcl
+          and err is None and recs == []
+          and lm.apply_stats.last_close["path"] == "failed",
+          "C4 invariant: a close of %d payments that mint lumens raises "
+          "InvariantDoesNotHold (%s); LCL %d and its hash unchanged, no "
+          "close-meta record written" % (len(frames), raised, seq))
+    log("C4 invariant abort (%s): a close of %d payments whose apply "
+        "mints lumens, on the Python phases, raised InvariantDoesNotHold "
+        "in %.1f ms (%s); LCL %d and its hash unchanged, the stream empty"
+        % (card, len(frames), ms, raised, seq))
 
 
 def c5_fault(E, K, lm, traffic, reg, tr, rec) -> None:
@@ -3308,17 +3778,19 @@ def c5_fault(E, K, lm, traffic, reg, tr, rec) -> None:
 
 def r_node(tmp: str, name: str, archive: str, verifier, hasher,
            writable: bool = False, recent: int = 0, metrics=None,
-           tracer=None, recorder=None, faults=None):
+           tracer=None, recorder=None, faults=None,
+           bucket_reads: bool = True):
     """A started port node, wired as the reference's Application wires
     one (`main/application.py` is not ported): sqlite in `tmp`/`name`.db,
     buckets in `tmp`/`name`-buckets (so a second node of the same name
-    restarts over the first one's files), the local-directory archive
-    `archive`, and the verifier and hasher it is handed. Like
-    `Application.start`, it restores the last known ledger or starts a
-    new one. `recent` > 0 makes a gap's catchup a recent one of that many
-    ledgers (minimal otherwise)."""
+    restarts over the first one's files) through
+    `torch_catchup_harness.wire_node`, its SQL root reading through
+    BucketDB when `bucket_reads` (the reference's default) and from SQL
+    otherwise, the local-directory archive `archive`, and the verifier
+    and hasher it is handed. Like `Application.start`, it restores the
+    last known ledger or starts a new one. `recent` > 0 makes a gap's
+    catchup a recent one of that many ledgers (minimal otherwise)."""
     from types import SimpleNamespace
-    from stellar_core_tpu_torch.bucket import BucketManager
     from stellar_core_tpu_torch.catchup.catchup_manager import CatchupManager
     from stellar_core_tpu_torch.crypto.hashing import sha256
     from stellar_core_tpu_torch.crypto.keys import SecretKey
@@ -3342,6 +3814,7 @@ def r_node(tmp: str, name: str, archive: str, verifier, hasher,
     cfg.CHECKPOINT_FREQUENCY = R_FREQ
     cfg.CATCHUP_RECENT = recent
     cfg.TESTING_UPGRADE_MAX_TX_SET_SIZE = CLOSE_MAX_TX_SET_SIZE
+    cfg.BUCKETDB_READS = bucket_reads
     arch = HistoryArchive.local_dir("r", archive)
     cfg.HISTORY = {"r": {"get": arch.get_tmpl, "mkdir": arch.mkdir_tmpl}}
     if writable:
@@ -3353,14 +3826,14 @@ def r_node(tmp: str, name: str, archive: str, verifier, hasher,
         persistent_state=PersistentState(db), metrics=metrics,
         tracer=tracer, flight_recorder=recorder,
         faults=faults or FaultInjector(), sig_verifier=verifier,
-        batch_hasher=hasher,
-        bucket_manager=BucketManager(os.path.join(tmp, name + "-buckets")),
-        status_manager=StatusManager(),
+        batch_hasher=hasher, status_manager=StatusManager(),
         network_root_key=lambda: SecretKey.from_seed(
             sha256(cfg.network_id)))
     check(cfg.network_id == LEDGER_NETWORK_ID, "R: the network's id")
     app.state_commitment = SC.StateCommitmentEngine(app)
     app.ledger_manager = LedgerManager(app)
+    harness("torch_catchup_harness").wire_node(
+        app, os.path.join(tmp, name + "-buckets"))
     app.work_scheduler = WorkScheduler(clock)
     app.process_manager = ProcessManager(clock,
                                          cfg.MAX_CONCURRENT_SUBPROCESSES)
@@ -3558,7 +4031,7 @@ class RProbe:
             self.card_triples.extend(triples)
             return self._vm(triples)
 
-        CH = close_harness()
+        CH = harness("torch_close_harness")
 
         def close(lcd):
             want_e = CH.engine_launches(CH.engine_candidates(
@@ -3674,7 +4147,9 @@ def r1_publish(S, E, K, tmp: str, card: str) -> dict:
     archive = os.path.join(tmp, "archive")
     os.makedirs(archive)
     pub = r_node(tmp, "publisher", archive, make_verifier("cpu"),
-                 make_hasher("cpu"), writable=True)
+                 make_hasher("cpu"), writable=True, bucket_reads=False)
+    check(not pub.ledger_manager.root.bucket_backed(),
+          "R1: the publisher's root reads SQL")
     # the history is applied by the Python phases, so the card's engine
     # replays (R2) are held against another path's ledgers
     pub.ledger_manager.use_native_apply = False
@@ -3857,12 +4332,15 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     node = r_node(tmp, name, archive, v, h, metrics=reg, tracer=tr,
                   recorder=rec)
     node.ledger_manager.use_native_apply = native
+    check(node.ledger_manager.root.bucket_backed(),
+          "%s: the card node's root reads through BucketDB" % phase)
     want = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1])
     K.flush_verify_cache()
     E.LAUNCHES = S.LAUNCHES = 0
     tr.enable(capacity=1 << 16)
     t0 = time.perf_counter()
-    with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp:
+    with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp, \
+            LogLines("stellar.History", "prefetch coverage") as summary:
         work = node.catchup_manager.start_catchup(
             CatchupConfiguration.complete())
         check(r_crank_until(node, work.is_done, 900.0),
@@ -3870,6 +4348,11 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     wall = time.perf_counter() - t0
     tr.disable()
     lm = node.ledger_manager
+    check(lm.root.bucket_backed() and len(summary.lines) == 2,
+          "%s: the root still reads through BucketDB; one prefetch "
+          "summary a checkpoint (%d)" % (phase, len(summary.lines)))
+    for line in summary.lines:
+        log("%s prefetch (%s): %s" % (phase, card, line))
     check(work.state == State.SUCCESS and lm.is_synced()
           and lm.last_closed_ledger_num() == R_TIP,
           "%s: SUCCESS at LCL %d" % (phase, R_TIP))
@@ -3970,6 +4453,18 @@ def r3_restart(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
           == r1["bucket_list"],
           "R3: load_last_known_ledger gives LCL %d and the bucket list its "
           "header commits to" % R_TIP)
+    ix = bm.bucketdb.stats.to_json()["index"]
+    with bm.bucketdb._lock:
+        n_idx = len(bm.bucketdb._indexes)
+    check(lm.root.bucket_backed() and n_idx > 0
+          and ix["loads"] == n_idx and ix["builds"] == 0
+          and ix["load_failures"] == 0,
+          "R3: the restart loaded the %d persisted sidecars with no "
+          "rebuild (loads %d, builds %d) and passed _check_bucket_coverage "
+          "(the root reads through BucketDB)" % (n_idx, ix["loads"],
+                                                  ix["builds"]))
+    log("R3 restart BucketDB (%s): %s" % (
+        card, bucketdb_line(bm, os.path.join(tmp, "r2-buckets"))))
     check(E.LAUNCHES == S.LAUNCHES == 0, "R3: the restart launches nothing")
     with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp:
         want = fresh_slots(S, SC, pr.st, bm.bucket_list)
@@ -4036,6 +4531,14 @@ def r4_gap(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
         finally:
             apply_s.append(time.perf_counter() - t0)
 
+    attached = []
+    attach = lm.root.attach_bucketdb
+
+    def counted_attach(bdb):
+        attached.append(lm.last_closed_ledger_num())
+        attach(bdb)
+
+    lm.root.attach_bucketdb = counted_attach
     K.flush_verify_cache()
     E.LAUNCHES = S.LAUNCHES = 0
     AW.ApplyBucketsWork.on_run = timed_apply
@@ -4053,7 +4556,11 @@ def r4_gap(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
                                 600.0), "R4: the catchup finished")
     finally:
         AW.ApplyBucketsWork.on_run = run
+        del lm.root.attach_bucketdb
     wall = time.perf_counter() - t0
+    check(attached == [first - 1] and lm.root.bucket_backed(),
+          "R4: the bucket-apply's set_last_closed_ledger re-attached "
+          "BucketDB at %d (%s)" % (first - 1, attached))
     check(lm.is_synced() and lm.last_closed_ledger_num() == R_TOP
           and lm.lcl_hash.hex() == r_hashes(pub.database, R_TOP,
                                             R_TOP)[R_TOP],
@@ -4227,17 +4734,6 @@ def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
 
 
 # ------------------------------------------------------ SCP and the herder
-
-def herder_harness():
-    """`tests/torch_herder_harness.py` (the relay that stands in for
-    overlay, the node builder, the traffic), imported from the checkout."""
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import torch_herder_harness
-    return torch_herder_harness
-
 
 class HerderProbe:
     """What a network's verifiers and kernels did, where: verify and
@@ -4422,13 +4918,18 @@ def s1_network(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
         if relay is None:
             relay = H.Relay(cfg.network_id)
         relay.join("v%d" % i, app)
-    twin = H.make_port_app(os.path.join(tmp, "s1-twin"),
-                           config=H.node_config(n, qset, False,
-                                                CLOSE_MAX_TX_SET_SIZE),
+    twin_cfg = H.node_config(n, qset, False, CLOSE_MAX_TX_SET_SIZE)
+    twin_cfg.BUCKETDB_READS = False
+    twin = H.make_port_app(os.path.join(tmp, "s1-twin"), config=twin_cfg,
                            verifier=CpuSigVerifier(),
                            hasher=make_hasher("cpu"))
-    # the nodes close in the apply engine, the twin in the Python phases
+    # the nodes close in the apply engine reading through BucketDB, the
+    # twin in the Python phases reading SQL
     twin.ledger_manager.use_native_apply = False
+    check(all(nd.app.ledger_manager.root.bucket_backed()
+              for nd in relay.nodes)
+          and not twin.ledger_manager.root.bucket_backed(),
+          "S1: every node's root reads through BucketDB, the twin's SQL")
     network_hashes(relay, twin)      # genesis
     log("S1: %d validators (%d organisations of %d, each node's quorum "
         "%d of %d inner sets of %d of %d) and a CPU twin built in %.1f s "
@@ -4567,6 +5068,9 @@ def s2_async(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
         if relay is None:
             relay = H.Relay(cfg.network_id)
         relay.join("a%d" % i, app)
+    check(all(nd.app.ledger_manager.root.bucket_backed()
+              for nd in relay.nodes),
+          "S2: every node's root reads through BucketDB")
     tr = H.Traffic(relay.nodes[0].app.ledger_manager, relay.network_id,
                    relay.nodes[0].app.network_root_key(), CLOSE_TXS,
                    CLOSE_SIGS, corrupt_every=CLOSE_CORRUPT_EVERY)
@@ -4662,7 +5166,7 @@ def herder_path(S, E, K, SC, card: str) -> dict:
     and phase."""
     from stellar_core_tpu_torch.crypto import batch_hasher as BH
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
-    H = herder_harness()
+    H = harness("torch_herder_harness")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_herder_") as tmp:
         t0 = time.perf_counter()
         s1 = s1_network(H, S, E, K, SC, BV, BH, tmp, card)

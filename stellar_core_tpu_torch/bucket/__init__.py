@@ -1,8 +1,7 @@
 """Bucket layer: content-addressed LSM of canonical ledger entries.
 
-Copied (the exports of what is ported) from `stellar_core_tpu/bucket/
-__init__.py` at commit bb973b8; carry a fix in either copy to the other.
-BucketDB (`bucket_index.py`) is not ported yet.
+Copied from `stellar_core_tpu/bucket/__init__.py` at commit bb973b8;
+carry a fix in either copy to the other.
 
 Role parity: reference `src/bucket` (BucketList.h:14)."""
 
@@ -18,10 +17,16 @@ from .bucket_list import (
 )
 from .bucket_manager import BucketManager
 from .applicator import BucketApplicator, apply_buckets
+from .bucket_index import (
+    BloomFilter, BucketDB, BucketDbStats, BucketIndex, IndexLoadError,
+    sidecar_path,
+)
 
 __all__ = [
-    "Bucket", "BucketApplicator", "BucketLevel", "BucketList",
-    "BucketManager", "FutureBucket", "K_NUM_LEVELS", "apply_buckets",
+    "BloomFilter", "Bucket", "BucketApplicator", "BucketDB",
+    "BucketDbStats", "BucketIndex", "BucketLevel", "BucketList",
+    "BucketManager", "FutureBucket", "IndexLoadError", "K_NUM_LEVELS",
+    "apply_buckets", "sidecar_path",
     "bucket_entry_sort_key", "keep_dead_entries", "level_half",
     "level_should_spill", "level_size", "mask", "merge_buckets",
     "oldest_ledger_in_curr", "oldest_ledger_in_snap", "size_of_curr",

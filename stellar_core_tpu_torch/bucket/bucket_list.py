@@ -1,7 +1,9 @@
 """BucketList: LSM-like temporal leveling of canonical ledger entries.
 
 Copied from `stellar_core_tpu/bucket/bucket_list.py` at commit 637fb91;
-carry a fix in either copy to the other.
+carry a fix in either copy to the other. The close cockpit's `stats`
+(ApplyStats, `ledger/apply_stats.py`) times each merge against its level
+(`FutureBucket.start`'s `on_done`, `BucketLevel.prepare`).
 
 Role parity: reference `src/bucket/BucketList.{h,cpp}` — kNumLevels=11
 levels, each (curr, snap); level i spills every levelHalf(i) ledgers; merges
@@ -160,7 +162,12 @@ class FutureBucket:
     def start(cls, executor: Optional[Executor], curr: Bucket, snap: Bucket,
               shadows: Sequence[Bucket], keep_dead: bool,
               max_protocol_version: int,
-              adopt: Callable[[Bucket], Bucket]) -> "FutureBucket":
+              adopt: Callable[[Bucket], Bucket],
+              on_done: Optional[Callable[[float, int], None]] = None
+              ) -> "FutureBucket":
+        """`on_done(seconds, out_entries)` fires when the merge finishes
+        (on the worker thread when an executor runs it) — the close
+        cockpit's bucket-merge duration telemetry."""
         fb = cls()
         fb._state = FutureBucket.FB_MERGING
         fb.input_curr_hash = curr.get_hash()
@@ -168,9 +175,14 @@ class FutureBucket:
         fb.input_shadow_hashes = [s.get_hash() for s in shadows]
 
         def run() -> Bucket:
-            return adopt(merge_buckets(
+            from ..util.timer import real_monotonic
+            t0 = real_monotonic()
+            out = adopt(merge_buckets(
                 curr, snap, shadows, keep_dead_entries=keep_dead,
                 max_protocol_version=max_protocol_version))
+            if on_done is not None:
+                on_done(real_monotonic() - t0, len(out))
+            return out
 
         if executor is not None:
             fb._future = executor.submit(run)
@@ -266,11 +278,13 @@ class BucketLevel:
     def prepare(self, executor: Optional[Executor], curr_ledger: int,
                 curr_ledger_protocol: int, snap: Bucket,
                 shadows: Sequence[Bucket],
-                adopt: Callable[[Bucket], Bucket]) -> None:
+                adopt: Callable[[Bucket], Bucket],
+                stats=None) -> None:
         """Kick off the merge for this level's next curr
         (BucketList.cpp:127-166). If this level's own curr is one
         prev-level-spill away from snapping, merge against an empty curr
-        instead (the pending-snapshot subtlety)."""
+        instead (the pending-snapshot subtlety). `stats` (ApplyStats)
+        records the merge's duration against this level."""
         assert not self.next.is_merging(), "double prepare"
         curr = self.curr
         if self.level != 0:
@@ -281,19 +295,26 @@ class BucketLevel:
         from .bucket import FIRST_PROTOCOL_SHADOWS_REMOVED
         use_shadows = [] if snap.get_version() >= \
             FIRST_PROTOCOL_SHADOWS_REMOVED else list(shadows)
+        on_done = None
+        if stats is not None:
+            level = self.level
+            on_done = (lambda secs, n, _s=stats, _l=level:
+                       _s.record_merge(_l, secs, n))
         self.next = FutureBucket.start(
             executor, curr, snap, use_shadows,
             keep_dead=keep_dead_entries(self.level),
-            max_protocol_version=curr_ledger_protocol, adopt=adopt)
+            max_protocol_version=curr_ledger_protocol, adopt=adopt,
+            on_done=on_done)
 
 
 class BucketList:
     def __init__(self, executor: Optional[Executor] = None,
-                 adopt: Optional[Callable[[Bucket], Bucket]] = None
-                 ) -> None:
+                 adopt: Optional[Callable[[Bucket], Bucket]] = None,
+                 stats=None) -> None:
         self.levels = [BucketLevel(i) for i in range(K_NUM_LEVELS)]
         self._executor = executor
         self._adopt = adopt or (lambda b: b)
+        self._stats = stats   # ApplyStats: merge durations per level
 
     def get_level(self, i: int) -> BucketLevel:
         return self.levels[i]
@@ -347,12 +368,13 @@ class BucketList:
                 self.levels[i].commit()
                 self.levels[i].prepare(self._executor, curr_ledger,
                                        curr_ledger_protocol, snap, shadows,
-                                       self._adopt)
+                                       self._adopt, stats=self._stats)
         assert not shadows
         fresh = self._adopt(Bucket.fresh(curr_ledger_protocol, init_entries,
                                          live_entries, dead_entries))
         self.levels[0].prepare(self._executor, curr_ledger,
-                               curr_ledger_protocol, fresh, [], self._adopt)
+                               curr_ledger_protocol, fresh, [], self._adopt,
+                               stats=self._stats)
         self.levels[0].commit()
         self.resolve_any_ready_futures()
 
@@ -384,4 +406,5 @@ class BucketList:
                 # empty decision (reference restartMerges:650-654)
                 merge_start = mask(curr_ledger, level_half(i - 1))
                 lev.prepare(self._executor, merge_start,
-                            version, snap, [], self._adopt)
+                            version, snap, [], self._adopt,
+                            stats=self._stats)

@@ -1,28 +1,21 @@
 """BucketManager: content-addressed bucket store + the node's BucketList.
 
-Copied without BucketDB from `stellar_core_tpu/bucket/bucket_manager.py` at
-commit bb973b8; carry a fix in either copy to the other.
+Copied from `stellar_core_tpu/bucket/bucket_manager.py` at commit bb973b8;
+carry a fix in either copy to the other. BucketDB (`bucket_index.py`:
+bloom-filtered per-bucket indexes built at adoption, serving
+`LedgerTxnRoot`'s point reads) hooks the constructor, `adopt_bucket`
+(`on_adopt`), `forget_unreferenced_buckets` (`invalidate`) and `shutdown`
+(`close`); the close cockpit's `stats` (ApplyStats,
+`ledger/apply_stats.py`) takes the level sizes at each snapshot and the
+merge timings (`FutureBucket`'s `on_done`). The merge pool's size (the
+reference's `num_workers` option, default 2) is the constant
+`MERGE_WORKERS`.
 
 Role parity: reference `src/bucket/BucketManager{,Impl}.{h,cpp}` — owns the
 bucket directory (files named bucket-<hex>.xdr), dedups adopted buckets by
 hash, tracks referenced hashes for GC (forgetUnreferencedBuckets), and runs
 level merges on a shared worker pool (reference worker threads;
 ThreadPoolExecutor here).
-
-BucketDB (the reference's `bucket_index.py`: bloom-filtered per-bucket
-indexes built at adoption, serving `LedgerTxnRoot`'s point reads) is left
-out with its hooks in the constructor, `adopt_bucket`,
-`forget_unreferenced_buckets` and `shutdown`, and with the constructor's
-options that only configured it (`bucketdb_stats`, `faults`,
-`bloom_bits_per_key`, `eager_index`); it comes with the ledger layer.
-
-The close cockpit's hooks are left out too: the reference's `stats`
-(ApplyStats, `ledger/apply_stats.py`) threaded through the constructor,
-`BucketList`, `BucketLevel.prepare`, `FutureBucket.start`'s `on_done`,
-`snapshot_ledger` and `assume_state`. They come back with
-`ledger/apply_stats.py` and the test that drives them. The merge pool's
-size (the reference's `num_workers`, default 2) is the constant
-`MERGE_WORKERS`.
 """
 
 from __future__ import annotations
@@ -75,7 +68,10 @@ def calculate_skip_values(header) -> None:
 
 class BucketManager:
     def __init__(self, bucket_dir: Optional[str] = None,
-                 background_merges: bool = True) -> None:
+                 background_merges: bool = True,
+                 stats=None, bucketdb_stats=None, faults=None,
+                 bloom_bits_per_key: int = 10,
+                 eager_index: bool = True) -> None:
         self.bucket_dir = bucket_dir
         if bucket_dir:
             os.makedirs(bucket_dir, exist_ok=True)
@@ -84,7 +80,19 @@ class BucketManager:
         self._executor = (ThreadPoolExecutor(
             max_workers=MERGE_WORKERS,
             thread_name_prefix="bucket-merge") if background_merges else None)
-        self.bucket_list = BucketList(self._executor, adopt=self.adopt_bucket)
+        # close cockpit (ledger/apply_stats.py): per-level sizes recorded
+        # at every snapshot, merge durations from the worker pool
+        self._stats = stats
+        self.bucket_list = BucketList(self._executor, adopt=self.adopt_bucket,
+                                      stats=stats)
+        # BucketDB: bloom-filtered per-bucket indexes over the
+        # live list, built at adopt time (close path + merge workers),
+        # sidecars persisted beside the bucket files; LedgerTxnRoot
+        # point reads route through it (bucket/bucket_index.py)
+        from .bucket_index import BucketDB
+        self.bucketdb = BucketDB(self, stats=bucketdb_stats, faults=faults,
+                                 bits_per_key=bloom_bits_per_key,
+                                 eager_index=eager_index)
 
     # -- store ---------------------------------------------------------------
     def bucket_filename(self, hash_: bytes) -> Optional[str]:
@@ -94,7 +102,10 @@ class BucketManager:
 
     def adopt_bucket(self, b: Bucket) -> Bucket:
         """Deduplicate by hash and persist to the bucket dir (reference
-        BucketManagerImpl::adoptFileAsBucket)."""
+        BucketManagerImpl::adoptFileAsBucket). Adoption also indexes the
+        bucket for BucketDB (load the persisted sidecar, else build and
+        persist one) — OUTSIDE the store lock, so a large merge output's
+        index build never blocks concurrent bucket lookups."""
         h = b.get_hash()
         if h == ZERO_HASH:
             return b
@@ -112,6 +123,7 @@ class BucketManager:
                 # re-download): serve reads from it
                 b.path = path
             self._shared[h] = b
+        self.bucketdb.on_adopt(b)
         return b
 
     def get_bucket_by_hash(self, hash_: bytes) -> Optional[Bucket]:
@@ -144,6 +156,12 @@ class BucketManager:
         its skipList (reference BucketManagerImpl::snapshotLedger)."""
         header.bucketListHash = self.get_hash()
         calculate_skip_values(header)
+        if self._stats is not None:
+            # per-level curr+snap entry counts — the close cockpit's
+            # bucket-size view (bounded: K_NUM_LEVELS gauges)
+            self._stats.record_level_sizes(
+                (lev.level, len(lev.curr) + len(lev.snap))
+                for lev in self.bucket_list.levels)
 
     def get_referenced_hashes(self) -> List[bytes]:
         refs: List[bytes] = []
@@ -169,13 +187,22 @@ class BucketManager:
         BucketManagerImpl::forgetUnreferencedBuckets."""
         keep = set(self.get_referenced_hashes()) | set(extra_refs)
         dropped = 0
+        victims = []
         with self._lock:
             for h in list(self._shared):
                 if h not in keep:
                     b = self._shared.pop(h)
                     if b.path and os.path.exists(b.path):
                         os.remove(b.path)
+                    victims.append((h, b.path))
                     dropped += 1
+        # BucketDB index lifetime follows the bucket's: a GC'd bucket's
+        # in-memory index, cached fd and persisted sidecar all go with
+        # it — a stale sidecar left behind
+        # would be adopted verbatim if the same content hash ever
+        # returns, which is exactly why it must match the file's fate
+        for h, path in victims:
+            self.bucketdb.invalidate(h, path)
         return dropped
 
     # -- state restore (catchup / restart) -----------------------------------
@@ -225,13 +252,18 @@ class BucketManager:
                 lev.next = FutureBucket.resolved(payload)
             else:
                 mc, ms, sh = payload
+                on_done = None
+                if self._stats is not None:
+                    on_done = (lambda secs, n, _s=self._stats, _l=i:
+                               _s.record_merge(_l, secs, n))
                 lev.next = FutureBucket.start(
                     self._executor, mc, ms, sh,
                     keep_dead=keep_dead_entries(i),
                     max_protocol_version=max_protocol_version,
-                    adopt=self.adopt_bucket)
+                    adopt=self.adopt_bucket, on_done=on_done)
         self.bucket_list.restart_merges(curr_ledger)
 
     def shutdown(self) -> None:
         if self._executor is not None:
             self._executor.shutdown(wait=True)
+        self.bucketdb.close()

@@ -10,10 +10,11 @@ verifies each close's candidates in one call of its own), and the
 pipeline verifies ledger N+1's on a worker while ledger N applies. A
 pipelined drain that fails is logged and dropped, as in the reference:
 it only warmed the cache, and the close verifies the same pairs again
-through the engine, where a failure fails the close. Left out, with the
-close cockpit that brings them back (`ledger/apply_stats.py` and the
-root's `prefetch`, ROADMAP Queue 1 item 4): the entry-cache prefetch and
-its summary (`_prefetch_checkpoint`, `_log_checkpoint_summary`). On every
+through the engine, where a failure fails the close. Kept with the close
+cockpit (`ledger/apply_stats.py` and the root's `prefetch`): the
+checkpoint's entry-cache prefetch (`_prefetch_checkpoint`, one batched
+BucketDB pass per level on a bucket-backed root) and its one summary line
+per applied checkpoint (`_log_checkpoint_summary`). On every
 other verifier (the card's stacks among them) each checkpoint drains its
 signatures through the app's verifier in one `prewarm_many` (and once
 more after a signer-set change); a drain that raises (a card fault, or a
@@ -212,6 +213,7 @@ class ApplyCheckpointWork(BasicWork):
         self._frames: Dict[int, object] = {}   # seq -> TxSetFrame
         self._next: int = first_seq
         self._sig_state_dirty = False   # a signer set changed mid-checkpoint
+        self._prefetch_summary: Optional[dict] = None
         self._pipeline: Optional[_PrewarmPipeline] = None
 
     def on_reset(self) -> None:
@@ -221,6 +223,7 @@ class ApplyCheckpointWork(BasicWork):
         self._frames.clear()
         self._next = self.first_seq
         self._sig_state_dirty = False
+        self._prefetch_summary = None
         self._close_pipeline()
 
     def _close_pipeline(self) -> None:
@@ -358,8 +361,44 @@ class ApplyCheckpointWork(BasicWork):
             # cpu+native: the whole checkpoint's signature verification
             # rides the pipeline worker underneath the apply loop
             self._pipeline_submit(self.first_seq, self.last_seq)
+        self._prefetch_checkpoint(frames)
         log.debug("prewarmed checkpoint %08x (%d txs)",
                   self.checkpoint, len(frames))
+
+    def _prefetch_checkpoint(self, frames) -> None:
+        """Bulk-warm the root entry cache with the whole checkpoint's
+        statically-knowable touched keys (the ledger.apply.prefetch.*
+        coverage metrics via LedgerTxnRoot)."""
+        root = self.app.ledger_manager.ltx_root()
+        if not frames or not hasattr(root, "prefetch"):
+            return
+        from ..ledger.apply_stats import txset_prefetch_keys
+        keys = txset_prefetch_keys(frames)
+        # prefetch() returns only NEWLY loaded keys; coverage (resident
+        # after the pass / requested, already-warm included) comes from
+        # the stats aggregates it feeds — delta around the call
+        stats = getattr(self.app.ledger_manager, "apply_stats", None)
+        before = stats.prefetch_totals() if stats is not None else None
+        loaded = root.prefetch(keys)
+        covered = len(keys)
+        if before is not None:
+            after = stats.prefetch_totals()
+            covered = after["cached"] - before["cached"]
+        self._prefetch_summary = {
+            "keys": len(keys), "covered": covered, "loaded": loaded}
+
+    def _log_checkpoint_summary(self) -> None:
+        """One line per applied checkpoint: prefetch coverage + the
+        cumulative getPrefetchHitRate-parity hit rate."""
+        stats = getattr(self.app.ledger_manager, "apply_stats", None)
+        ps = self._prefetch_summary
+        if stats is None or ps is None:
+            return
+        log.info(
+            "checkpoint %08x applied: prefetch coverage %d/%d keys "
+            "(%d newly loaded; hit-rate %.1f%% cumulative)",
+            self.checkpoint, ps["covered"], ps["keys"], ps["loaded"],
+            100.0 * stats.prefetch_hit_rate())
 
     @staticmethod
     def _mutates_signers(txset) -> bool:
@@ -415,6 +454,7 @@ class ApplyCheckpointWork(BasicWork):
 
         lm = self.app.ledger_manager
         if self._next > self.last_seq:
+            self._log_checkpoint_summary()
             return SUCCESS
         seq = self._next
         if seq <= lm.last_closed_ledger_num():
@@ -444,6 +484,7 @@ class ApplyCheckpointWork(BasicWork):
             return FAILURE
         self._next += 1
         if self._next > self.last_seq:
+            self._log_checkpoint_summary()
             return SUCCESS
         return RUNNING
 

@@ -6,14 +6,19 @@ phases in the apply engine (`ledger/native_apply.py`, `native/applyc.c`)
 unless `use_native_apply` is False (True by default, as in the
 reference) or the engine bails on the set, and the Python phases
 otherwise; `last_apply_path` names the path of the last close ("native" or
-"python", the `close.apply` span's `apply_path` tag). Left out, each with
-the module that drives it: the close cockpit (`ApplyStats`,
-`ledger/apply_stats.py`, with the entry-cache prefetch its
-`txset_prefetch_keys` feeds, and `_native_covers_prefetch` with the
-deferred bulk prefetch; ROADMAP Queue 1 item 4); BucketDB
-(`_check_bucket_coverage` and the re-attach in `set_last_closed_ledger`,
-and the detach in `_restore_bucket_list`'s fallback; item 5); invariants;
-the close-meta stream (`_emit_close_meta`). Kept: the slot timeline's
+"python", the `close.apply` span's `apply_path` tag). Kept with the
+ledger layer: the close cockpit (`apply_stats`, built before the root;
+`begin_close`, `record_tx_counts`, `end_close` with the `close.apply`
+span's tags, `abort_close` on a failed close; the bulk prefetch
+`_bulk_prefetch`, deferred when `_native_covers_prefetch` and the root is
+not bucket-backed); BucketDB (`_check_bucket_coverage` from
+`load_last_known_ledger`, the re-attach in `set_last_closed_ledger` and
+the detach in `_restore_bucket_list`'s fallback); the invariants (the
+tx-phase delta snapshot, taken only when an invariant is enabled, and
+`check_on_ledger_close` after the bucket add; the port adds the spans
+`close.invariant_snapshot` and `close.invariants` around them); the
+close-meta stream (`_emit_close_meta`: a dead consumer disables the
+stream and the close goes on). Kept: the slot timeline's
 `ledger.applied` record (`util/slot_timeline.py` came with the herder). Kept from the
 history and catchup wiring: `load_last_known_ledger` (a restart over the SQL store
 and the bucket directory), `_store_local_has` and `_restore_bucket_list`
@@ -51,11 +56,13 @@ from ..herder.upgrades import Upgrades, UpgradeValidity
 from ..ledger.ledgertxn import (
     InMemoryLedgerTxnRoot, LedgerTxn, LedgerTxnRoot, delta_to_changes,
 )
+from ..ledger.apply_stats import frame_traits, txset_prefetch_keys
 from ..ledger.native_apply import native_apply_txset
 from ..transactions.account_helpers import make_account_entry
 from ..util.log import get_logger
 from ..util.slow_execution import LogSlowExecution
 from ..util.threads import main_thread_only
+from ..util.timer import real_perf_counter
 from ..util.tracing import app_span
 from ..xdr import (
     LedgerHeader, LedgerKey, LedgerUpgrade, StellarValue, StellarValueExt,
@@ -96,10 +103,21 @@ class LedgerManager:
         self.app = app
         self.state = LedgerManagerState.LM_BOOTING_STATE
         cfg = app.config
+        # close cockpit: ONE aggregation shared by the apply engine, the
+        # Python op loop, the SQL root and the bucket layer; constructed
+        # before the root so state-read telemetry is wired from the first
+        # lookup
+        from ..ledger.apply_stats import ApplyStats
+        clock = getattr(app, "clock", None)
+        self.apply_stats = ApplyStats(
+            metrics=getattr(app, "metrics", None),
+            tracer=getattr(app, "tracer", None),
+            now_fn=clock.now if clock is not None else None)
         if cfg.DATABASE == "in-memory":
             self.root = InMemoryLedgerTxnRoot()
         else:
-            self.root = LedgerTxnRoot(app.database)
+            self.root = LedgerTxnRoot(app.database,
+                                      stats=self.apply_stats)
         self.lcl_hash: bytes = b"\x00" * 32
         self.catchup_trigger = None  # set by CatchupManager wiring
         # the apply engine runs each close's fee and apply phases unless
@@ -167,7 +185,41 @@ class LedgerManager:
         self.lcl_hash = bytes.fromhex(row[0])
         self.state = LedgerManagerState.LM_SYNCED_STATE
         self._restore_bucket_list()
+        self._check_bucket_coverage()
         return True
+
+    def _check_bucket_coverage(self) -> None:
+        """BucketDB may only serve authoritative reads when the bucket
+        list covers the root's whole SQL state. Two restart shapes
+        break that: a data dir written before genesis seeding whose
+        headers legitimately match an unseeded list, and a dir whose
+        buckets were enabled mid-life (no HAS at all, list empty over
+        populated SQL). The root account is the sentinel: it is the only
+        entry ever created outside a close delta — everything else
+        entered a bucket with the close that touched it — so if SQL has
+        it and the bucket list disagrees, the list does not cover this
+        state: detach (SQL point reads carry the node; a bucket-apply
+        catchup re-attaches)."""
+        root = self.root
+        if not getattr(root, "bucket_backed", lambda: False)():
+            return
+        key = LedgerKey.account(self.app.network_root_key().public_key)
+        sql_blob = root._select_blob(key)
+        if sql_blob is None:
+            return
+        served, blob = root._bucketdb.lookup(key.to_xdr())
+        if not served:
+            # a bucketdb.read-fail degrade during the sentinel proves
+            # nothing about coverage — don't detach on a fault
+            return
+        if blob != sql_blob:
+            root.detach_bucketdb()
+            log.warning(
+                "bucket list does not cover SQL state (root-account "
+                "sentinel: bucket says %s, SQL has it) — bucket-backed "
+                "reads disabled, SQL point reads in effect until a "
+                "bucket-apply catchup heals the list",
+                "absent" if blob is None else "a different entry")
 
     def set_last_closed_ledger(self, header: LedgerHeader,
                                ledger_hash: bytes) -> None:
@@ -179,6 +231,17 @@ class LedgerManager:
         self.lcl_hash = ledger_hash
         self._store_header(header)
         self.entries_invalidated = False
+        # a bucket-apply catchup rebuilt SQL state FROM the bucket list,
+        # so the two are in sync again: (re-)attach BucketDB reads if
+        # the adopted list matches what this header committed to (heals
+        # a startup-time detach). Respects the operator's
+        # BUCKETDB_READS=False pin.
+        bm = self._bucket_manager()
+        cfg = getattr(self.app, "config", None)
+        if bm is not None and hasattr(self.root, "attach_bucketdb") and \
+                getattr(cfg, "BUCKETDB_READS", True) and \
+                bm.get_hash() == header.bucketListHash:
+            self.root.attach_bucketdb(bm.bucketdb)
         log.info("LCL set to %d (%s) from catchup", header.ledgerSeq,
                  ledger_hash.hex()[:8])
 
@@ -290,6 +353,10 @@ class LedgerManager:
         except BaseException as e:
             if ltx._open:
                 ltx.rollback()   # drop children too: no dangling state
+            # seal the close-cockpit window (path "failed") so per-op
+            # seconds already recorded for this close can't outgrow the
+            # cumulative apply wall (apply_stats.abort_close docstring)
+            self.apply_stats.abort_close()
             # black box for the postmortem: spans + metrics at the moment
             # of a failed close (KeyboardInterrupt/SystemExit excluded —
             # an operator ^C is not a crash)
@@ -310,15 +377,57 @@ class LedgerManager:
             frames = lcd.tx_set.sort_for_apply()
             base_fee = lcd.tx_set.base_fee(header)
 
+        # close cockpit: open the per-close stats window, classify the
+        # tx mix (fee-bump / muxed counted distinctly), and bulk-warm the
+        # root entry cache with the txset's statically-knowable keys so
+        # apply-path reads are cache hits with measured coverage
+        # (stellar-core's prefetchTransactionData; ledger/apply_stats.py)
+        stats = self.apply_stats
+        stats.begin_close(lcd.ledger_seq)
+        fee_bumps = muxeds = 0
+        for f in frames:
+            fee_bump, muxed = frame_traits(f)
+            fee_bumps += fee_bump
+            muxeds += muxed
+        stats.record_tx_counts(len(frames), fee_bumps, muxeds)
+        # the bulk prefetch warms the root cache for the PYTHON apply
+        # path; the apply engine loads every static key itself through
+        # get_entry_blob (same cache, same telemetry hooks), so running
+        # both would pay the Python key-build + cache walk twice per
+        # close. When the engine is expected to run, the prefetch is
+        # DEFERRED, not dropped: a bailing close still warms the cache
+        # before the Python phases (below). EXCEPT with a BucketDB-backed
+        # root: there the batched prefetch resolves the whole txset in
+        # one bloom-filtered pass per bucket level — cheaper than the
+        # engine's per-key multi-level walks — and feeds the engine its
+        # entry blobs directly as cache hits.
+        def _bulk_prefetch() -> None:
+            with app_span(self.app, "close.prefetch", cat="ledger") as psp:
+                psp.set_tag("cached",
+                            self.root.prefetch(txset_prefetch_keys(frames)))
+
+        bucket_backed = getattr(self.root, "bucket_backed",
+                                lambda: False)()
+        can_prefetch = bool(frames) and hasattr(self.root, "prefetch")
+        if can_prefetch and (bucket_backed or
+                             not self._native_covers_prefetch()):
+            _bulk_prefetch()
+            can_prefetch = False   # done; don't repeat on an engine bail
+
         with app_span(self.app, "close.apply", cat="ledger",
                       txs=len(frames)) as apply_sp:
             # the engine runs BOTH phases in one C call and installs
             # per-frame results/meta + the close-level delta; a bail
             # falls through to the Python phases with no state mutated
+            t_apply = real_perf_counter()
             if native_apply_txset(self, ltx, frames, base_fee, verifier):
                 apply_path = "native"
             else:
                 apply_path = "python"
+                if can_prefetch:
+                    # the engine bailed: the deferred bulk prefetch runs
+                    # now so the Python phases see a warm root cache
+                    _bulk_prefetch()
                 # phase 1: fees + seq nums for every tx, each in a nested
                 # txn so the per-tx fee-processing changes become
                 # txfeehistory meta (reference saves these
@@ -333,9 +442,11 @@ class LedgerManager:
                         if fee_ltx._open:
                             fee_ltx.rollback()
                         raise
-                # phase 2: apply, collecting results
+                # phase 2: apply, collecting results with per-op latency
+                # attribution (the cockpit's Python-path histograms)
                 for f in frames:
-                    f.apply(ltx, verifier)
+                    f.apply(ltx, verifier, stats=stats)
+            apply_wall_s = real_perf_counter() - t_apply
             apply_sp.set_tag("apply_path", apply_path)
             self.last_apply_path = apply_path
         # result hash in apply order, assembled from wire bytes:
@@ -346,6 +457,23 @@ class LedgerManager:
                            (f.result_pair_xdr() for f in frames))
             header.txSetResultHash = hasher.hash_stream(chunks,
                                                         site="result-set")
+
+        # invariants see the TX-phase delta under the pre-upgrade header:
+        # stellar-core hooks invariants per operation only, so upgrade
+        # rewrites (prepareLiabilities initializing liabilities / erasing
+        # offers) are exempt by design — they ESTABLISH the state the
+        # invariants check from then on. Snapshotting the delta costs a
+        # full parse+serialize pass over every changed entry, so it only
+        # happens when an invariant manager will actually read it; one
+        # with nothing enabled (the default) costs nothing either
+        inv = getattr(self.app, "invariant_manager", None)
+        if inv is not None and not inv.enabled_names():
+            inv = None
+        if inv is not None:
+            with app_span(self.app, "close.invariant_snapshot",
+                          cat="ledger"):
+                tx_phase_delta = ltx.get_delta()
+                tx_phase_header = _copy_header_fast(header)
 
         # upgrades (after txs; reference LedgerManagerImpl.cpp:617-669):
         # a malformed or invalid upgrade in an externalized value fails
@@ -414,6 +542,12 @@ class LedgerManager:
                 # bucketListHash
                 calculate_skip_values(header)
 
+        # invariants on the tx phase of the close (upgrade deltas exempt)
+        if inv is not None:
+            with app_span(self.app, "close.invariants", cat="ledger"):
+                inv.check_on_ledger_close(tx_phase_delta, header_prev,
+                                          tx_phase_header)
+
         with app_span(self.app, "close.commit", cat="ledger"):
             ltx.commit()
         with app_span(self.app, "close.header_hash", cat="ledger"):
@@ -444,11 +578,79 @@ class LedgerManager:
                 self._store_upgrade_history(lcd.ledger_seq, up, changes,
                                             index)
             self._store_local_has()
+
+        # seal the close-cockpit window only now that the close is
+        # DURABLE (LCL advanced, SQL stored) — a failure anywhere above
+        # reaches abort_close() instead, so closes.{native|python} never
+        # counts a close that didn't commit. Tagging the apply span this
+        # late still works: the span OBJECT is already recorded in the
+        # tracer ring (spans are recorded by reference at exit), so the
+        # op mix / read-set stats land in exported traces and flight
+        # dumps regardless.
+        close_blob = stats.end_close(apply_path, apply_wall_s,
+                                     write_set=len(delta))
+        if close_blob is not None:
+            apply_sp.set_tag("op_mix", {
+                n: d["count"] for n, d in close_blob["ops"].items()})
+            apply_sp.set_tag("reads", close_blob["reads"])
+            if close_blob.get("bail"):
+                apply_sp.set_tag("native_bail", close_blob["bail"])
+
+        self._emit_close_meta(lcd, frames, applied_upgrades)
         hm = getattr(self.app, "history_manager", None)
         if hm is not None:
             hm.maybe_queue_checkpoint(self)
         log.debug("closed ledger %d (%d txs) hash %s", lcd.ledger_seq,
                   len(frames), self.lcl_hash.hex()[:8])
+
+    def _emit_close_meta(self, lcd: LedgerCloseData, frames,
+                         applied_upgrades) -> None:
+        """Stream the full close meta to the operator's configured
+        fd/file (stellar-core's LedgerManagerImpl.cpp:590,673-678 builds
+        LedgerCloseMeta alongside the apply loop and emits it once the
+        close commits). txProcessing is in APPLY order; each entry
+        carries the tx's result, its fee-processing changes, and the full
+        apply meta — a downstream consumer can reconstruct every balance
+        from the stream alone."""
+        stream = getattr(self.app, "close_meta_stream", None)
+        if stream is None:
+            return
+        from ..xdr import (
+            LedgerCloseMeta, LedgerCloseMetaV0, LedgerHeaderHistoryEntry,
+            TransactionResultMeta, UpgradeEntryMeta,
+        )
+        meta = LedgerCloseMetaV0(
+            ledgerHeader=LedgerHeaderHistoryEntry(
+                hash=self.lcl_hash, header=self.root.get_header(),
+                ext=_Ext.v0()),
+            txSet=lcd.tx_set.to_wire(),
+            txProcessing=[
+                TransactionResultMeta(result=f.result_pair(),
+                                      feeProcessing=f.fee_meta,
+                                      txApplyProcessing=f.tx_meta())
+                for f in frames],
+            upgradesProcessing=[
+                UpgradeEntryMeta(upgrade=up, changes=changes)
+                for (up, changes, _i) in applied_upgrades],
+            scpInfo=[])
+        try:
+            stream.write_one(LedgerCloseMeta.v0(meta))
+        except OSError as e:
+            # a dead consumer pipe must not halt consensus; close and
+            # drop the stream, keep closing ledgers (operator sees the
+            # log)
+            log.error("close-meta stream failed at ledger %d: %s — "
+                      "disabling stream", lcd.ledger_seq, e)
+            stream.close()
+            self.app.close_meta_stream = None
+
+    def _native_covers_prefetch(self) -> bool:
+        """True when the apply engine will run this close and therefore
+        performs its own static-key loads (ledger/native_apply.py)."""
+        if not getattr(self, "use_native_apply", True):
+            return False
+        from ..native import apply_engine
+        return apply_engine() is not None
 
     def _bucket_manager(self):
         return getattr(self.app, "bucket_manager", None)
@@ -506,9 +708,16 @@ class LedgerManager:
             # or running on wrong state (catchup heals)
             from ..bucket.bucket_list import BucketList
             bm.bucket_list = BucketList(bm._executor,
-                                        adopt=bm.adopt_bucket)
-            log.warning("bucket-list restore failed: %s — starting from "
-                        "an empty bucket list until catchup heals it", e)
+                                        adopt=bm.adopt_bucket,
+                                        stats=bm._stats)
+            # the empty list no longer covers this root's SQL state, so
+            # BucketDB must NOT serve authoritative reads over it —
+            # detach; SQL point reads carry the node until catchup heals
+            # the list
+            if hasattr(self.root, "detach_bucketdb"):
+                self.root.detach_bucketdb()
+            log.warning("bucket-list restore failed: %s — bucket-backed "
+                        "reads disabled, SQL point reads in effect", e)
 
     def _store_upgrade_history(self, ledger_seq: int, up, changes,
                                index: int) -> None:

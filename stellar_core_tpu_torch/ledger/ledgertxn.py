@@ -5,12 +5,13 @@ a fix in either copy to the other. Kept: the apply engine's hooks
 (`inject_native_changes`, the serialized-entry cache `_cur_blobs` and the
 `blobs` argument of `commit_child` that its injected deltas fill,
 `get_delta`'s `need_prev`, and the roots' `get_entry_blob` /
-`offers_for_book_blobs` / `offers_by_account_blobs` callbacks). Left out,
-with the modules that drive them: BucketDB (`attach_bucketdb`,
-`detach_bucketdb`, `bucket_backed` and the bucket routing of point reads,
-ROADMAP Queue 1 item 5); the close cockpit's `stats` hooks
-(`ledger/apply_stats.py`) with the root's `prefetch`, which only its
-`txset_prefetch_keys` drives (item 4).
+`offers_for_book_blobs` / `offers_by_account_blobs` callbacks); BucketDB's
+routing on the SQL root (`attach_bucketdb`, `detach_bucketdb`,
+`bucket_backed`, `_load_blob`: a point read that misses the entry cache
+is served from the bucket list, from SQL only on a `bucketdb.read-fail`
+degrade, and `prefetch` resolves a set's keys in one batched pass per
+level); the close cockpit's read telemetry (`stats`: `_on_cache_evict`,
+`_note_prefetched`, `record_read`, the bulk-scan rows).
 
 Role parity: reference `src/ledger/LedgerTxn*` (LedgerTxn.h:18-165): a tree
 of transactions over (LedgerKey → LedgerEntry), root backed by SQL with an
@@ -25,6 +26,7 @@ generation, and entries are owned by the innermost open txn.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from ..database.database import Database
@@ -630,18 +632,55 @@ class InMemoryLedgerTxnRoot(AbstractLedgerTxnParent):
         self._entries.clear()
 
 
+_ENTRY_TYPE_NAMES = {
+    LedgerEntryType.ACCOUNT: "account",
+    LedgerEntryType.TRUSTLINE: "trustline",
+    LedgerEntryType.OFFER: "offer",
+    LedgerEntryType.DATA: "data",
+}
+
+
 class LedgerTxnRoot(AbstractLedgerTxnParent):
     """SQL-backed root with an entry cache and per-type bulk writers
     (reference LedgerTxnRoot + LedgerTxn{Account,Offer,TrustLine,Data}SQL).
-    The entry cache is a true-LRU bound."""
+
+    BucketDB routing: with a BucketDB
+    attached (`attach_bucketdb`), point reads that miss the entry cache
+    are served from the bloom-filtered bucket indexes instead of SQL —
+    SQL stays the write-behind query index (bulk order-book scans,
+    history, operator queries) and is only consulted for point reads
+    when a `bucketdb.read-fail` degrade makes a bucket read
+    non-authoritative. The entry cache itself is a true-LRU bound
+    whose evictions are metered, and the prefetch
+    bulk-warm resolves a whole txset's keys in one batched pass per
+    bucket level.
+
+    `stats` (ledger/apply_stats.py ApplyStats) is the close cockpit's
+    state-read telemetry: per-type SQL point lookups, entry-cache
+    hit/miss/eviction, bucket-served reads, prefetch coverage and
+    hit-rate (reference getPrefetchHitRate parity), bulk-scan row
+    counts. Every hook is a no-op when no stats object is wired (tests,
+    standalone tools)."""
 
     ENTRY_CACHE_SIZE = 4096
 
     def __init__(self, db: Database,
-                 header: Optional[LedgerHeader] = None) -> None:
+                 header: Optional[LedgerHeader] = None,
+                 stats=None) -> None:
         self._db = db
         self._header = header
-        self._cache: LRUCache = LRUCache(self.ENTRY_CACHE_SIZE)
+        self._cache: LRUCache = LRUCache(self.ENTRY_CACHE_SIZE,
+                                         on_evict=self._on_cache_evict)
+        self._stats = stats
+        self._bucketdb = None
+        # keys warmed by prefetch(): a later cache-hit on one counts as a
+        # prefetch hit, a fallthrough load counts as a prefetch miss
+        # (reference LedgerTxnRoot::getPrefetchHitRate). LRU-bounded at a
+        # few multiples of the cache it describes — evicting the oldest
+        # keys one by one instead of clearing wholesale (the old
+        # bounded-set half-cache budget degraded to silent coverage loss
+        # exactly when hot state outgrew it).
+        self._prefetched: "OrderedDict[bytes, bool]" = OrderedDict()
 
     def set_header(self, header: LedgerHeader) -> None:
         self._header = header
@@ -650,13 +689,67 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         assert self._header is not None
         return self._header
 
+    # -- BucketDB attachment -------------------------------------------------
+    def attach_bucketdb(self, bucketdb) -> None:
+        """Route point reads through `bucketdb` (bucket/bucket_index.py).
+        Only valid while the bucket list covers this root's entire
+        entry state (enabled-before-genesis, or restored from a HAS
+        that matches the LCL header) — Application.enable_buckets and
+        LedgerManager enforce that."""
+        self._bucketdb = bucketdb
+
+    def detach_bucketdb(self) -> None:
+        """Fall back to SQL point reads (bucket-list restore failed or
+        the list is otherwise not authoritative for this state)."""
+        self._bucketdb = None
+
+    def bucket_backed(self) -> bool:
+        return self._bucketdb is not None
+
     # -- reads --------------------------------------------------------------
+    def _on_cache_evict(self) -> None:
+        if self._stats is not None:
+            self._stats.record_cache_evictions()
+
+    def _note_prefetched(self, kb: bytes) -> None:
+        pf = self._prefetched
+        pf[kb] = True
+        pf.move_to_end(kb)
+        while len(pf) > 4 * self.ENTRY_CACHE_SIZE:
+            pf.popitem(last=False)
+
+    def _load_blob(self, key: Optional[LedgerKey], kb: bytes
+                   ) -> Tuple[Optional[bytes], str, Optional[LedgerKey]]:
+        """One cache-missing point read: (blob|None, serving source,
+        parsed key | None). BucketDB first when attached; SQL only when
+        no BucketDB is attached or the bucket read degraded
+        (`bucketdb.read-fail`). The key is parsed at most once — it is
+        returned so the caller can name the entry type for the SQL
+        lookup meters without re-parsing."""
+        bdb = self._bucketdb
+        if bdb is not None:
+            served, blob = bdb.lookup(kb)
+            if served:
+                return blob, "bucket", key
+        if key is None:
+            key = LedgerKey.from_xdr(kb)
+        return self._select_blob(key), "sql", key
+
     def get_entry(self, key: LedgerKey) -> Optional[LedgerEntry]:
         kb = _kb(key)
-        blob = self._cache.maybe_get(kb)
-        if blob is None:
-            blob = self._select_blob(key)
+        hit = self._cache.maybe_get(kb)
+        st = self._stats
+        if hit is not None:
+            blob = hit
+            if st is not None:
+                st.record_read(True, kb in self._prefetched)
+        else:
+            blob, source, _key = self._load_blob(key, kb)
             self._cache.put(kb, blob if blob is not None else b"")
+            if st is not None:
+                st.record_read(False, False,
+                               _ENTRY_TYPE_NAMES.get(key.disc, "unknown"),
+                               source=source)
         if not blob:
             return None
         return LedgerEntry.from_xdr(blob)
@@ -665,23 +758,34 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         """Raw LedgerEntry XDR by key XDR, through the entry cache — the
         apply engine's lookup callback."""
         hit = self._cache.maybe_get(kb)
+        st = self._stats
         if hit is not None:
+            if st is not None:
+                st.record_read(True, kb in self._prefetched)
             return hit or None
-        blob = self._select_blob(LedgerKey.from_xdr(kb))
+        blob, source, pkey = self._load_blob(None, kb)
         self._cache.put(kb, blob if blob is not None else b"")
+        if st is not None:
+            # the key parse is only needed to NAME a SQL lookup's entry
+            # type; bucket-served reads never parse it at all (this is
+            # the apply engine's per-entry hot path), and the SQL path
+            # reuses _load_blob's parse
+            etype = None if pkey is None else \
+                _ENTRY_TYPE_NAMES.get(pkey.disc, "unknown")
+            st.record_read(False, False, etype, source=source)
         return blob
 
     def offers_for_book_blobs(self, selling_xdr: bytes,
                               buying_xdr: bytes) -> List[bytes]:
         """Raw offer blobs for one book (the apply engine's `book`
         callback); the same SQL the Python path's `_all_offers_for_book`
-        runs."""
+        runs, counted into the same bulk-scan telemetry."""
         import base64
         cur = self._db.execute(
             "SELECT entry FROM offers WHERE selling=? AND buying=?",
             (base64.b64encode(selling_xdr).decode(),
              base64.b64encode(buying_xdr).decode()))
-        return [blob for (blob,) in cur.fetchall()]
+        return [blob for (blob,) in self._record_scan(cur.fetchall())]
 
     def offers_by_account_blobs(self, account_key: bytes) -> List[bytes]:
         """Raw offer blobs of one seller (ed25519 key bytes) — the apply
@@ -692,7 +796,7 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         cur = self._db.execute(
             "SELECT entry FROM offers WHERE sellerid=?",
             (_acc_str(PublicKey.ed25519(account_key)),))
-        return [blob for (blob,) in cur.fetchall()]
+        return [blob for (blob,) in self._record_scan(cur.fetchall())]
 
     def _select_blob(self, key: LedgerKey) -> Optional[bytes]:
         t = key.disc
@@ -717,12 +821,17 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         row = cur.fetchone()
         return row[0] if row else None
 
+    def _record_scan(self, rows) -> list:
+        if self._stats is not None:
+            self._stats.record_bulk_scan(len(rows))
+        return rows
+
     def _all_offers_for_book(self, selling, buying):
         out: Dict[bytes, LedgerEntry] = {}
         cur = self._db.execute(
             "SELECT entry FROM offers WHERE selling=? AND buying=?",
             (_asset_str(selling), _asset_str(buying)))
-        for (blob,) in cur.fetchall():
+        for (blob,) in self._record_scan(cur.fetchall()):
             e = LedgerEntry.from_xdr(blob)
             out[_kb(ledger_entry_key(e))] = e
         return out
@@ -732,26 +841,91 @@ class LedgerTxnRoot(AbstractLedgerTxnParent):
         cur = self._db.execute(
             "SELECT entry FROM offers WHERE sellerid=?",
             (_acc_str(account_id),))
-        for (blob,) in cur.fetchall():
+        for (blob,) in self._record_scan(cur.fetchall()):
             e = LedgerEntry.from_xdr(blob)
             out[_kb(ledger_entry_key(e))] = e
         return out
 
     def _all_offers(self):
         out: Dict[bytes, LedgerEntry] = {}
-        for (blob,) in self._db.execute(
-                "SELECT entry FROM offers").fetchall():
+        for (blob,) in self._record_scan(self._db.execute(
+                "SELECT entry FROM offers").fetchall()):
             e = LedgerEntry.from_xdr(blob)
             out[_kb(ledger_entry_key(e))] = e
         return out
 
     def _all_accounts(self):
         out: Dict[bytes, LedgerEntry] = {}
-        for (blob,) in self._db.execute(
-                "SELECT entry FROM accounts").fetchall():
+        for (blob,) in self._record_scan(self._db.execute(
+                "SELECT entry FROM accounts").fetchall()):
             e = LedgerEntry.from_xdr(blob)
             out[_kb(ledger_entry_key(e))] = e
         return out
+
+    def prefetch(self, keys) -> int:
+        """Bulk-warm the entry cache for `keys`; returns how many were
+        actually cached (reference LedgerTxnRoot::prefetch,
+        LedgerTxn.cpp — stops loading when the cache is half full so
+        prefetch can't evict the working set). Coverage — keys resident
+        afterwards (already warm + newly loaded) over keys requested —
+        feeds `ledger.apply.prefetch.coverage-pct`; later root reads of
+        prefetched keys count into the getPrefetchHitRate-parity
+        hit/miss meters.
+
+        With a BucketDB attached, the cold keys resolve in ONE batched
+        pass per bucket level (bloom-filtered, newest-level-first —
+        bucket/bucket_index.py prefetch_batch) instead of one multi-level
+        walk per key; the warmed cache then feeds the apply engine its
+        entry blobs directly through `get_entry_blob`."""
+        budget = self._cache._max // 2
+        n = 0
+        requested = 0
+        covered = 0
+        note = self._stats is not None
+        loads: Dict[str, int] = {}
+        bucket_loads = 0
+        # pass 1: split warm keys from cold ones; cold collection stops
+        # at the half-cache budget (remaining keys only count coverage,
+        # exactly like the old per-key walk)
+        room = max(0, budget - len(self._cache))
+        cold: List[Tuple[LedgerKey, bytes]] = []
+        for key in keys:
+            requested += 1
+            kb = _kb(key)
+            if self._cache.maybe_get(kb) is not None:
+                covered += 1
+                if note:
+                    self._note_prefetched(kb)
+                continue
+            if len(cold) >= room:
+                continue   # over budget: keep counting coverage only
+            cold.append((key, kb))
+        # pass 2: resolve every cold key — one batched BucketDB pass per
+        # level when attached, per-key SQL otherwise (or on degrade)
+        resolved: Dict[bytes, Optional[bytes]] = {}
+        bdb = self._bucketdb
+        if bdb is not None and cold:
+            served, resolved = bdb.prefetch_batch([kb for _k, kb in cold])
+            if not served:
+                resolved = {}   # degraded: fall back to per-key SQL
+        for key, kb in cold:
+            if kb in resolved:
+                blob = resolved[kb]
+                bucket_loads += 1
+            else:
+                blob = self._select_blob(key)
+                if note:
+                    name = _ENTRY_TYPE_NAMES.get(key.disc, "unknown")
+                    loads[name] = loads.get(name, 0) + 1
+            self._cache.put(kb, blob if blob is not None else b"")
+            if note:
+                self._note_prefetched(kb)
+            n += 1
+            covered += 1
+        if self._stats is not None:
+            self._stats.record_prefetch(requested, covered, loads,
+                                        bucket_loads=bucket_loads)
+        return n
 
     def clear_entries(self) -> None:
         """Drop all ledger entries + cache (bucket-apply catchup resets

@@ -1,11 +1,11 @@
 """Close-time glue for the apply engine (`native/applyc.c`).
 
 Copied from `stellar_core_tpu/ledger/native_apply.py` at commit 89bbd6f;
-carry a fix in either copy to the other. `op_type_name`'s table is copied
-here from `ledger/apply_stats.py`, which comes with the close cockpit
-(ROADMAP Queue 1 item 4); until then the manager has no `apply_stats`, and
-`_bail` and the cluster telemetry record nothing, as the reference's do
-when `stats` is None. Deliberately different: a close with no verifier
+carry a fix in either copy to the other. Per-op attribution
+(`record_native_op_table`), bail classification (`record_bail`), the
+cluster telemetry (`record_clusters`) and the cluster degrade land in the
+manager's `apply_stats` (`ledger/apply_stats.py`, the close cockpit).
+Deliberately different: a close with no verifier
 raises TypeError (the reference builds a CpuSigVerifier); a verifier that
 raises inside the engine's verify callback fails the close with
 SignatureVerifyError, as a failed drain fails the Python phases'
@@ -53,21 +53,9 @@ are left out).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import List, Optional
 
-from ..xdr import OperationType
-
-# OperationType value -> kebab-case name ("manage-sell-offer"), as the
-# reference's ledger/apply_stats.py builds it
-OP_TYPE_NAMES: Dict[int, str] = {
-    v: k.lower().replace("_", "-")
-    for k, v in vars(OperationType).items()
-    if isinstance(v, int) and not k.startswith("_") and k.isupper()
-}
-
-
-def op_type_name(op_type: int) -> str:
-    return OP_TYPE_NAMES.get(op_type, "unknown-%d" % op_type)
+from .apply_stats import op_type_name
 
 
 def _classify_engine_bail(reason: str) -> str:

@@ -8,21 +8,22 @@ and FORCE_SCP, the database, the herder's knobs, the transaction queue's
 depths and pool multiplier, the ingress tier's INGRESS_* knobs, the
 genesis and testing-upgrade values,
 ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING, HISTORY, CHECKPOINT_FREQUENCY,
-CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES, STATE_CHECKPOINT_INTERVAL and the
-apply engine's NATIVE_PARALLEL_WORKERS),
+CATCHUP_*, MAX_CONCURRENT_SUBPROCESSES, STATE_CHECKPOINT_INTERVAL, the
+apply engine's NATIVE_PARALLEL_WORKERS, BucketDB's BUCKETDB_READS and
+BUCKETDB_BLOOM_BITS_PER_KEY, INVARIANT_CHECKS and METADATA_OUTPUT_STREAM),
 `network_id`, `node_id`, `self_qset` and `test_config`. Left out, each
 with the module that reads it and the ROADMAP Queue 1 item that brings
 it: `from_toml`, `validate` (with UNSAFE_QUORUM and FAILURE_SAFETY), the
 node name and home domain, RUN_STANDALONE, the bucket and temporary
 directories (`main/commandline.py` and `main/application.py`, which
-open a node's files, item 8); the overlay knobs (item 7); BucketDB
-(`BUCKETDB_*`, item 5); invariants (item 6);
+open a node's files, item 8); the overlay knobs (item 7);
 ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING (the load generator,
 item 9); the verify and hash backends, faults, tracing, the slot
-timeline's size, the flight recorder, maintenance and the close-meta
-stream (`main/application.py`, which builds them, item 8). Until those are ported, the
-caller builds a node's verifier, hasher, tracer and recorder and hands
-them to it.
+timeline's size, the flight recorder and maintenance
+(`main/application.py`, which builds them, item 8). Until those are
+ported, the caller builds a node's verifier, hasher, tracer and recorder,
+its bucket manager with BucketDB, its invariant manager and its close-meta
+stream, and hands them to it.
 
 Role parity: reference `src/main/Config.{h,cpp}`.
 """
@@ -57,6 +58,13 @@ class Config:
 
         # database
         self.DATABASE = "sqlite3://:memory:"
+        # BucketDB (bucket/bucket_index.py): serve SQL-root point reads
+        # from bloom-filtered bucket indexes (SQL stays the write-behind
+        # query index). False pins the SQL read path; BLOOM_BITS_PER_KEY
+        # sizes the per-bucket filters (10 ≈ 1% false-positive rate at
+        # optimal k).
+        self.BUCKETDB_READS = True
+        self.BUCKETDB_BLOOM_BITS_PER_KEY = 10
 
         # herder
         self.EXPECTED_LEDGER_CLOSE_TIME = 5.0
@@ -96,6 +104,10 @@ class Config:
         self.HISTORY: Dict[str, dict] = {}
         self.CHECKPOINT_FREQUENCY = 64
 
+        # invariants (invariant/invariants.py): patterns of the names
+        # checked on every close
+        self.INVARIANT_CHECKS: List[str] = []
+
         # workers / process
         self.MAX_CONCURRENT_SUBPROCESSES = 16
         # apply engine (ledger/native_apply.py): conflict-graph parallel
@@ -109,6 +121,11 @@ class Config:
         # emitted every N closes; <= 0 disables emission (the Merkle
         # root still updates incrementally)
         self.STATE_CHECKPOINT_INTERVAL = 8
+
+        # downstream-consumer integration: stream one XDR LedgerCloseMeta
+        # record per close to this path or "fd:N" (stellar-core's
+        # METADATA_OUTPUT_STREAM); "" disables
+        self.METADATA_OUTPUT_STREAM = ""
 
     @property
     def network_id(self) -> bytes:
@@ -126,8 +143,8 @@ class Config:
     def test_config(cls, n: int = 0) -> "Config":
         """Per-instance deterministic test config (reference getTestConfig,
         src/test/test.cpp:80-131): the reference's node seed for instance
-        `n`, a 1-of-1 quorum of itself, manual closes with FORCE_SCP, and
-        an in-memory ledger."""
+        `n`, a 1-of-1 quorum of itself, manual closes with FORCE_SCP, an
+        in-memory ledger, and every invariant checked on every close."""
         cfg = cls()
         cfg.NODE_SEED = SecretKey.from_seed(
             sha256(b"test-node-%d" % n))
@@ -135,4 +152,5 @@ class Config:
         cfg.FORCE_SCP = True
         cfg.DATABASE = "in-memory"
         cfg.QUORUM_SET = cfg.self_qset()
+        cfg.INVARIANT_CHECKS = [".*"]
         return cfg

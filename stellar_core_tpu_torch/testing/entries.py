@@ -18,7 +18,9 @@ codec's; the mix of `entry_records` is an assumption with no published
 source behind it: 60 % accounts with no signers and no home domain, 25 %
 trustlines to a 4-character asset, 10 % offers selling such an asset for
 the native one, 4 % data entries with a 32-byte value, 1 % accounts with
-1-20 signers (20 is the protocol's most, signer counts uniform). It drives
+1-20 signers (20 is the protocol's most, signer counts uniform; an
+account's signers in key order, as the protocol keeps them and
+LedgerEntryIsValid checks). It drives
 a smoke run; a benchmark cell needs a mix measured on a real ledger.
 """
 
@@ -188,6 +190,16 @@ def entry_records(rng: np.random.Generator, n: int) -> List[bytes]:
             for off in slots:
                 arr[:, off:off + 32] = rng.integers(
                     0, 256, (len(idx), 32), dtype=np.uint8)
+            if s > 1:
+                # the signer slots follow the account ID's; sort each
+                # row's signer keys (bytes order, as fixed-width S32)
+                offs = slots[1:]
+                keys = np.stack([arr[:, o:o + 32] for o in offs], axis=1)
+                keys = np.sort(np.ascontiguousarray(keys).reshape(
+                    len(idx), -1).view("S32"), axis=1)
+                keys = keys.view(np.uint8).reshape(len(idx), len(offs), 32)
+                for j, o in enumerate(offs):
+                    arr[:, o:o + 32] = keys[:, j]
             blob = arr.tobytes()
             for j, i in enumerate(idx.tolist()):
                 out[i] = blob[j * size:(j + 1) * size]

@@ -4,9 +4,10 @@ Copied from `stellar_core_tpu/transactions/transaction_frame.py` at commit
 89bbd6f; carry a fix in either copy to the other. Kept: the apply
 engine's output on both frames (`set_native_apply_output`, the
 `_native_result_b` / `_native_fee_b` / `_native_meta_b` fields it fills and
-the lazy parses and byte accessors that read them). Left out: the close
-cockpit's `stats` argument of `apply` (`ledger/apply_stats.py`, ROADMAP
-Queue 1 item 4). Deliberately different: `check_valid`
+the lazy parses and byte accessors that read them) and the close cockpit's
+`stats` argument of `apply` (`ledger/apply_stats.py`: per-op latency on
+the Python path; the fee bump passes it to its inner frame). Deliberately
+different: `check_valid`
 and `apply`, of both frames, use the verifier they are given and raise
 TypeError without one (the reference falls back to a CpuSigVerifier), and
 `apply` lets a `SignatureVerifyError` (a verifier that failed, not a
@@ -536,10 +537,15 @@ class TransactionFrame:
         return ok
 
     def apply(self, ltx_parent,
-              verifier: Optional[BatchSigVerifier] = None) -> bool:
+              verifier: Optional[BatchSigVerifier] = None,
+              stats=None) -> bool:
         """Apply under a child txn of ltx_parent; on any op failure roll back
         every op's effects (fees/seqnums were already consumed).
-        Reference apply:778-835 / applyOperations:676."""
+        Reference apply:778-835 / applyOperations:676.
+
+        `stats` (ledger/apply_stats.py ApplyStats) attributes each op's
+        apply latency to its wire type — the close cockpit's Python-path
+        per-op histograms."""
         from ..ledger.ledgertxn import LedgerTxn
         checker = SignatureChecker(self.contents_hash(), self.signatures,
                                    verifier)
@@ -602,7 +608,15 @@ class TransactionFrame:
             # signer or lowering a weight invalidates later ops. From 10
             # the set resolved once in process_signatures above.
             pre10 = ops_ltx.load_header().ledgerVersion < 10
+            if stats is not None:
+                from ..ledger.apply_stats import op_type_name
+                from ..util.timer import real_perf_counter
             for f in self.op_frames:
+                # per-op attribution (stats): the op's whole handling —
+                # signature resolution (pre-10), apply, delta
+                # serialization, nested-txn commit/rollback — charges to
+                # its wire type, mirroring the apply engine's table
+                t_op = real_perf_counter() if stats is not None else 0.0
                 op_ltx = LedgerTxn(ops_ltx)
                 try:
                     if pre10 and not f.check_signature(op_ltx, checker):
@@ -620,6 +634,10 @@ class TransactionFrame:
                 except Exception:
                     op_ltx.rollback()
                     raise
+                if stats is not None:
+                    stats.record_op(op_type_name(f.op.body.disc),
+                                    seconds=real_perf_counter() - t_op,
+                                    sample=True)
                 op_results.append(f.result)
             self.op_metas = op_metas if ok else [[] for _ in op_results]
             if ok and ops_ltx.load_header().ledgerVersion < 10:
@@ -923,7 +941,7 @@ class FeeBumpTransactionFrame:
                 self._inner_pair()),
             ext=_Ext.v0())
 
-    def apply(self, ltx_parent, verifier=None) -> bool:
+    def apply(self, ltx_parent, verifier=None, stats=None) -> bool:
         # re-check the OUTER envelope at apply like the reference
         # (FeeBumpTransactionFrame::apply → commonValid + processSignatures
         # over the outer signatures): fee-source auth may have changed
@@ -943,7 +961,7 @@ class FeeBumpTransactionFrame:
         self.inner.result = _make_result(
             0, TransactionResultCode.txSUCCESS,
             [None] * len(self.inner.op_frames))
-        ok = self.inner.apply(ltx_parent, verifier)
+        ok = self.inner.apply(ltx_parent, verifier, stats=stats)
         code = (TransactionResultCode.txFEE_BUMP_INNER_SUCCESS if ok
                 else TransactionResultCode.txFEE_BUMP_INNER_FAILED)
         self.result = TransactionResult(

@@ -2,8 +2,11 @@
 
 Copied from `stellar_core_tpu/util/cache.py` (RandomEvictionCache at commit
 6685f6a, LRUCache at commit 02f8fbd); carry a fix in either copy to the
-other. LRUCache's `on_evict` hook is left out: only the close cockpit's
-eviction meter (`ledger/apply_stats.py`, not ported) drives it.
+other. LRUCache's `on_evict` hook feeds the close cockpit's eviction
+meter (`ledger/apply_stats.py`). Deliberately different: that hook is
+LRUCache's one eviction meter, so LRUCache keeps no `evictions` counter of
+its own, and the hook is called with no argument (nothing reads the
+victim's key).
 
 Role parity: reference `src/util/RandomEvictionCache.h` — O(1) insert/lookup,
 evicts a uniformly random victim when full (better worst-case than LRU under
@@ -14,7 +17,8 @@ from __future__ import annotations
 
 import random
 from collections import OrderedDict
-from typing import Dict, Generic, Hashable, List, TypeVar
+from typing import Callable, Dict, Generic, Hashable, List, Optional, \
+    TypeVar
 
 K = TypeVar("K", bound=Hashable)
 V = TypeVar("V")
@@ -105,16 +109,19 @@ class RandomEvictionCache(Generic[K, V]):
 class LRUCache(Generic[K, V]):
     """Bounded map with true least-recently-used eviction (the ledger
     root's entry cache: its access pattern is the txset working set,
-    where LRU beats random eviction). O(1) get/put via OrderedDict
-    move-to-end."""
+    where LRU beats random eviction and, critically, eviction is
+    OBSERVABLE: `on_evict` fires per victim so silent coverage loss shows
+    up as `ledger.apply.entry-cache.evicted` instead of as a mystery miss
+    rate). O(1) get/put via OrderedDict move-to-end."""
 
-    def __init__(self, max_size: int) -> None:
+    def __init__(self, max_size: int,
+                 on_evict: Optional[Callable[[], None]] = None) -> None:
         assert max_size > 0
         self._max = max_size
         self._od: "OrderedDict[K, V]" = OrderedDict()
         self.hits = 0
         self.misses = 0
-        self.evictions = 0
+        self._on_evict = on_evict
 
     def __len__(self) -> int:
         return len(self._od)
@@ -144,7 +151,8 @@ class LRUCache(Generic[K, V]):
             return
         while len(od) >= self._max:
             od.popitem(last=False)
-            self.evictions += 1
+            if self._on_evict is not None:
+                self._on_evict()
         od[k] = v
 
     def clear(self) -> None:

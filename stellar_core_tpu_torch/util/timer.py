@@ -1,8 +1,9 @@
 """The app clock: VirtualClock, VirtualTimer, and the sanctioned real clock.
 
 Copied (`ClockMode`, `real_monotonic`, `VirtualClock`, `VirtualTimer`)
-from `stellar_core_tpu/util/timer.py` at commit a29fd1b; carry a fix in
-either copy to the other.
+from `stellar_core_tpu/util/timer.py` at commit a29fd1b, and
+`real_perf_counter` (which the close cockpit's wall-time accounting reads)
+at commit a09415e; carry a fix in either copy to the other.
 
 `VirtualClock` either tracks real time or runs fully virtual,
 deterministic time (tests), with an event queue cranked from the main
@@ -32,6 +33,11 @@ def real_monotonic() -> float:
     """Wall-clock monotonic seconds: for code that measures real elapsed
     time with no app clock injected (breaker defaults, staging overlap)."""
     return _time.monotonic()
+
+
+def real_perf_counter() -> float:
+    """Wall-clock perf_counter; same contract as real_monotonic."""
+    return _time.perf_counter()
 
 
 class _Event:

@@ -3,8 +3,10 @@ not `chip_smoke.py`, imports JAX or anything of the JAX package.
 
 Three checks, over every subpackage (the history and catchup slice's
 `work`, `process`, `main`, `history`, `historywork` and `catchup`, and
-the SCP and herder slice's `scp` and `herder` modules among them, named
-in the first): every port module imported in a fresh interpreter leaves
+the SCP and herder slice's `scp` and `herder` modules, and the close
+cockpit's `ledger/apply_stats.py`, BucketDB's `bucket/bucket_index.py`,
+`invariant/` and `ledger/close_meta_stream.py` among them, named in the
+first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -79,7 +81,10 @@ def test_port_modules_import_no_jax():
               "herder.pending_envelopes", "herder.tx_lifecycle",
               "herder.ingress", "herder.tx_queue", "herder.herder",
               # the apply engine and codec slice
-              "ledger.native_apply"):
+              "ledger.native_apply",
+              # the close cockpit, BucketDB, invariants, close-meta slice
+              "ledger.apply_stats", "bucket.bucket_index", "invariant",
+              "invariant.invariants", "ledger.close_meta_stream"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, os, sys\n"

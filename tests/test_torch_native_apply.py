@@ -20,8 +20,8 @@ sides: the residual-bail case hands `native_apply_txset` a CpuSigVerifier
 where the reference's source passes None (the reference builds that same
 verifier; the port raises TypeError, held below), and the port's stub
 app carries the verifier and hasher its close requires. The port's
-managers get a small recorder as `apply_stats` (the port has no close
-cockpit yet) so the cases can read the engine's cluster telemetry.
+managers carry their own close cockpit (`apply_stats`), whose cluster
+telemetry the cases read as the reference's.
 
 Port-only cases: a failed engine build raises with the compiler's
 output; a verifier that raises inside the engine's callback fails the
@@ -46,30 +46,6 @@ from torch_mirror_harness import Mirror
 
 pytestmark = pytest.mark.skipif(
     _build.find_cc() is None, reason="no C compiler on this host")
-
-
-class ClusterStats:
-    """What the port's engine glue reports to a manager's `apply_stats`,
-    kept as the reference's ApplyStats keeps its `clusters`."""
-
-    def __init__(self):
-        self.clusters = {"parallel_closes": 0, "serial_closes": 0,
-                         "degraded": 0, "last_count": 0}
-        self.bails = []
-
-    def record_bail(self, reason):
-        self.bails.append(reason)
-
-    def record_cluster_degrade(self):
-        self.clusters["degraded"] += 1
-
-    def record_native_op_table(self, table):
-        pass
-
-    def record_clusters(self, count, width, workers, parallel, apply_ns=0):
-        key = "parallel_closes" if parallel else "serial_closes"
-        self.clusters[key] += 1
-        self.clusters["last_count"] = count
 
 
 def _blob(x):
@@ -155,22 +131,14 @@ def _ref_close(rmod, lm, blobs):
 
 
 def _hook(side, pkg, mods, log):
-    """Port side only: the stub app's verifier and hasher, a recorder
-    for `apply_stats`, and harnesses that also close every set on the
-    reference's engine and compare the close-level deltas."""
+    """Port side only: the stub app's verifier and hasher, and harnesses
+    that also close every set on the reference's engine and compare the
+    close-level deltas."""
     if side != "port":
         return
     mod = mods["test_native_apply.py"]
     mod._StubApp.sig_verifier = CpuSigVerifier()
     mod._StubApp.batch_hasher = make_hasher("cpu")
-    base_mk = mod.DiffHarness._mk
-
-    def _mk(native):
-        lm = base_mk(native)
-        lm.apply_stats = ClusterStats()
-        return lm
-
-    mod.DiffHarness._mk = staticmethod(_mk)
 
     def held(harness_cls, n_port):
         class Held(harness_cls):

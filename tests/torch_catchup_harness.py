@@ -1,13 +1,17 @@
 """A port node for the history and catchup tests, assembled as the
 reference's `Application` wires one (`main/application.py`, not ported):
 one of each manager the ledger, history and catchup layers reach through
-the app. It imports only the port, so the `cuda`-marked tests can use it
-where the JAX package is absent.
+the app. `wire_node` gives a node its ledger layer as the reference's
+Application does (`enable_buckets`, the invariant manager and the
+close-meta stream); every port node of the tests and of `chip_smoke.py`
+is wired by it. It imports only the port, so the `cuda`-marked tests can
+use it where the JAX package is absent.
 """
 
 import time
 from types import SimpleNamespace
 
+from stellar_core_tpu_torch.bucket.bucket_index import BucketDbStats
 from stellar_core_tpu_torch.bucket.bucket_manager import BucketManager
 from stellar_core_tpu_torch.catchup.catchup_manager import CatchupManager
 from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
@@ -16,6 +20,8 @@ from stellar_core_tpu_torch.crypto.hashing import sha256
 from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.database.database import Database
 from stellar_core_tpu_torch.herder.txset import TxSetFrame
+from stellar_core_tpu_torch.invariant.invariants import InvariantManager
+from stellar_core_tpu_torch.ledger.close_meta_stream import CloseMetaStream
 from stellar_core_tpu_torch.history.archive import HistoryArchive
 from stellar_core_tpu_torch.history.history_manager import HistoryManager
 from stellar_core_tpu_torch.ledger.ledger_manager import (
@@ -50,15 +56,68 @@ def archive_config(archives, writable: bool) -> dict:
     return out
 
 
+def enable_buckets(app, bucket_dir, background_merges=True) -> None:
+    """The reference's `Application.enable_buckets`
+    (`main/application.py:428-451`): the node's BucketManager on its
+    ledger manager's close cockpit (`stats=lm.apply_stats`), with a
+    BucketDbStats on the node's metrics, tracer and clock, the node's
+    faults, BUCKETDB_BLOOM_BITS_PER_KEY and `eager_index=BUCKETDB_READS`;
+    the SQL root then reads through its BucketDB when BUCKETDB_READS
+    holds and the root has no header yet, that is before genesis or a
+    restart (a restart detaches again when the restored list does not
+    cover the SQL state; a bucket-apply re-attaches)."""
+    cfg = app.config
+    lm = app.ledger_manager
+    clock = getattr(app, "clock", None)
+    app.bucket_manager = BucketManager(
+        bucket_dir, background_merges=background_merges,
+        stats=lm.apply_stats,
+        bucketdb_stats=BucketDbStats(
+            metrics=getattr(app, "metrics", None),
+            tracer=getattr(app, "tracer", None),
+            now_fn=clock.now if clock is not None else None),
+        faults=getattr(app, "faults", None),
+        bloom_bits_per_key=cfg.BUCKETDB_BLOOM_BITS_PER_KEY,
+        eager_index=cfg.BUCKETDB_READS)
+    root = lm.root
+    if cfg.BUCKETDB_READS and hasattr(root, "attach_bucketdb") and \
+            root._header is None:
+        root.attach_bucketdb(app.bucket_manager.bucketdb)
+
+
+def invariants_and_stream(app) -> None:
+    """What the reference's Application constructor builds for the close
+    (`main/application.py:134-145`): the InvariantManager of
+    INVARIANT_CHECKS and the CloseMetaStream of METADATA_OUTPUT_STREAM
+    (None when it is empty)."""
+    cfg = app.config
+    app.invariant_manager = InvariantManager(getattr(app, "metrics", None))
+    for pattern in cfg.INVARIANT_CHECKS:
+        app.invariant_manager.enable(pattern)
+    app.close_meta_stream = (CloseMetaStream(cfg.METADATA_OUTPUT_STREAM)
+                             if cfg.METADATA_OUTPUT_STREAM else None)
+
+
+def wire_node(app, bucket_dir=None, background_merges=True) -> None:
+    """A node's ledger layer as the reference's Application builds it:
+    `invariants_and_stream`, then `enable_buckets` over `bucket_dir`
+    (None for a list in memory only). Call it once the LedgerManager is
+    built and before the node starts."""
+    invariants_and_stream(app)
+    enable_buckets(app, bucket_dir, background_merges)
+
+
 def make_port_app(bucket_dir, n: int = 0, archives=(), writable=False,
                   freq: int = 64, db_file=None, verifier=None,
                   hasher=None, faults=None, metrics=None, tracer=None,
                   flight_recorder=None, config=None,
                   background_merges=True):
     """A started port node: `Config.test_config(n)` over sqlite (a file
-    when `db_file` is named, else `:memory:`), buckets in `bucket_dir`,
-    the given archives, and the verifier and hasher it is handed (the
-    C verifier and `make_hasher("cpu")` when none is). Like
+    when `db_file` is named, else `:memory:`), buckets in `bucket_dir`
+    (`wire_node`: the SQL root reads through BucketDB unless the config
+    pins BUCKETDB_READS off), the given archives, and the verifier and
+    hasher it is handed (the C verifier and `make_hasher("cpu")` when
+    none is). Like
     `Application.start`, it restores the last known ledger from the SQL
     store and the bucket directory, or starts a new one, then publishes
     any queued checkpoint."""
@@ -77,13 +136,12 @@ def make_port_app(bucket_dir, n: int = 0, archives=(), writable=False,
         faults=faults if faults is not None else FaultInjector(),
         sig_verifier=verifier or CpuSigVerifier(),
         batch_hasher=hasher or make_hasher("cpu"),
-        bucket_manager=BucketManager(str(bucket_dir),
-                                     background_merges=background_merges),
         status_manager=StatusManager(),
         network_root_key=lambda: SecretKey.from_seed(
             sha256(cfg.network_id)))
     app.state_commitment = StateCommitmentEngine(app)
     app.ledger_manager = LedgerManager(app)
+    wire_node(app, str(bucket_dir), background_merges)
     app.work_scheduler = WorkScheduler(clock)
     app.process_manager = ProcessManager(clock,
                                          cfg.MAX_CONCURRENT_SUBPROCESSES)
@@ -127,6 +185,8 @@ def run_work(app, work, timeout_s: float = 120.0):
 def stop(app) -> None:
     app.process_manager.shutdown()
     app.bucket_manager.shutdown()
+    if app.close_meta_stream is not None:
+        app.close_meta_stream.close()
     app.history_manager.publish_queue_dir.remove()
     app.database.close()
 

@@ -12,7 +12,6 @@ from types import SimpleNamespace
 
 import stellar_core_tpu_torch.xdr as PX
 from stellar_core_tpu_torch import testing as T
-from stellar_core_tpu_torch.bucket.bucket_manager import BucketManager
 from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
 from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
 from stellar_core_tpu_torch.crypto.keys import SecretKey
@@ -43,23 +42,30 @@ def config(pkg_secret_key, database: str):
         GENESIS_TOTAL_COINS=T.GENESIS_TOTAL_COINS,
         TESTING_UPGRADE_DESIRED_FEE=100, TESTING_UPGRADE_RESERVE=5_000_000,
         TESTING_UPGRADE_MAX_TX_SET_SIZE=10_000, network_id=NET,
-        NODE_SEED=pkg_secret_key(NODE_SEED), STATE_CHECKPOINT_INTERVAL=4)
+        NODE_SEED=pkg_secret_key(NODE_SEED), STATE_CHECKPOINT_INTERVAL=4,
+        BUCKETDB_READS=True, BUCKETDB_BLOOM_BITS_PER_KEY=10,
+        INVARIANT_CHECKS=[], METADATA_OUTPUT_STREAM="")
 
 
 def make_port_side(bucket_dir: str, database: str, verifier=None,
                    hasher=None):
     """The port's LedgerManager app: `sig_verifier`, `batch_hasher`,
-    `bucket_manager`, `state_commitment`, `database`, started at genesis."""
+    `state_commitment`, `database`, and the ledger layer of
+    `torch_catchup_harness.wire_node` (the bucket manager, merges on the
+    closing thread, whose BucketDB a SQL root reads through; the
+    invariant manager and close-meta stream of the config, none), started
+    at genesis."""
+    from torch_catchup_harness import wire_node
     cfg = config(SecretKey, database)
     app = SimpleNamespace(
         config=cfg, network_root_key=T.root_secret_key,
         sig_verifier=verifier or CpuSigVerifier(),
         batch_hasher=hasher or make_hasher("cpu"),
-        bucket_manager=BucketManager(bucket_dir, background_merges=False),
         database=None if database == "in-memory" else Database(),
         metrics=None, tracer=None, flight_recorder=None)
     app.state_commitment = PSC.StateCommitmentEngine(app)
-    lm = PLM.LedgerManager(app)
+    lm = app.ledger_manager = PLM.LedgerManager(app)
+    wire_node(app, bucket_dir, background_merges=False)
     lm.start_new_ledger()
     return lm
 
@@ -122,10 +128,11 @@ def observe(lm, frames) -> dict:
 
 class Workload:
     """The closes' transactions, built and signed with the port's
-    TestAccount against the port side's state."""
+    TestAccount against the port side's state (or against `shim`, any
+    object with Shim's `network_id`, `header`, `seq_num` and `balance`)."""
 
-    def __init__(self, lm):
-        self.shim = Shim(lm)
+    def __init__(self, lm, shim=None):
+        self.shim = shim or Shim(lm)
         self.root = T.TestAccount(self.shim, T.root_secret_key())
 
         def acct(tag, i):
