@@ -15,7 +15,9 @@ three paths, the ledger that runs on the hash path, the ledger manager's
 close that runs on both (its fee and apply phases in the apply engine,
 which verifies each close's candidate signatures in one `prewarm_many`),
 the catchup that replays published checkpoints through that close, and a
-network of herder nodes reaching consensus on the values that close.
+network of herder nodes reaching consensus on the values that close,
+first through a relay, then over the port's overlay: authenticated
+loopback peers and localhost TCP.
 Every close node runs as the reference's default node: its SQL root's
 point reads served from the bucket list by BucketDB, the close cockpit
 (`ledger/apply_stats.py`) on, the apply engine; the CPU twins and the
@@ -423,8 +425,8 @@ S1. 21 validators, pubnet's tier-1 shape (7 organisations of 3; each
    3), each on `make_verifier("cuda")` and `make_hasher("cuda")`, and a
    CPU twin (one port `LedgerManager` on the C verifier and
    `make_hasher("cpu")`, its closes in the Python phases, its root
-   reading SQL, closing the value each slot externalized): 8 slots, 6
-   loaded. Checks: every node's root reads through BucketDB and its
+   reading SQL, closing the value each slot externalized): 4 slots, 2
+   loaded (the relay's numbers, beside O1's over the real overlay). Checks: every node's root reads through BucketDB and its
    every close runs in the apply engine; all 21 nodes externalize
    one value a slot;
    at every height every node's lcl hash, bucket-list hash and
@@ -464,6 +466,56 @@ S2. 4 validators in a 3-of-4 quorum, each on `make_verifier("cuda-async")`
    the CPU. Prints `crypto.verify.latency` p50 and p99 and S1's count
    beside the launches.
 
+The overlay (`stellar_core_tpu_torch/overlay/`): the herder's nodes
+reach each other only through the port's `OverlayManager`, each envelope
+relayed by a node only when its verifier passed it (`overlay/peer.py`'s
+on-verified relay), so the card's verify sits on every hop of a flood:
+
+O1. S1's 21 validators, quorum, card stacks, BucketDB, apply engine, CPU
+   twin and traffic, with the relay taken out
+   (`tests/torch_sim_harness.py::OverlayNet`): each node linked to 8
+   peers over authenticated loopback pipes (node i dials i+1 .. i+4 mod
+   21; 84 links, each a full Hello/Auth handshake with its AuthCert
+   verified on the host, the reference's `TARGET_PEER_CONNECTIONS`), the
+   transactions submitted at node 0 (`submit_transaction`: admission on
+   the card, a flood on status 0) and flooded to every node before each
+   slot's trigger; 4 slots, 2 loaded; after the last, node 0 sends node 1,
+   over their link, its last envelope with one signature byte flipped.
+   Checks: every link authenticated on both ends, before and after; every
+   slot externalizes and closes, every node == the twin at every height,
+   every close in the apply engine; the corrupted transactions reach
+   node 0's queue only and no floodgate; every accepted transaction
+   reaches every node's queue; node 1 refuses the forged envelope on the
+   card's False (`overlay.envelope.rejected` 1 there, 0 elsewhere) and no
+   other node sees it; verify launches by site == one per distinct
+   envelope originated, the forged one and one per transaction's first
+   admission (a node that hears an envelope from 8 peers verifies it
+   once; the cache is the process's); SHA-256 as derived; decisions ==
+   the C verifier's, none sent to the card verified on the CPU. Prints per
+   loaded slot the flood and trigger -> all externalized / closed
+   seconds, frames and bytes received by message type, the flood
+   duplication ratio and fanout, the TX_SET frames, the propagation
+   cockpit's receipt -> relay and origin -> receipt delays (host clock),
+   the herders' envelope intake on the host clock with and without a
+   launch beside the cockpit's virtual-clock verify latency, launches by
+   site, each node's verify demand, the busy share and the collections;
+O2. 4 validators in a 3-of-4 quorum, each a `torch_app_harness.
+   Application` on a REAL_TIME clock with `make_verifier("cuda-async")`,
+   `make_hasher("cuda")` and BucketDB, RUN_STANDALONE off, each door on a
+   port the kernel picks, every other node's port in its peer book, the
+   nodes closing on their own timers; a CPU twin closes node 0's every
+   value. Traffic: the funding, arming and 2 loaded rounds of the same mix
+   submitted at node 0, each cranked until applied on every node.
+   Checks: every node authenticates its 3 peers over TCP; every height ==
+   on all four and the twin; every envelope a node verified was verified
+   on the card, and every relay of an envelope followed its verify's True
+   (the relay waits for the async batch); launches <= S2's per-receiver
+   bound (each of 3 receivers once per envelope, each transaction once);
+   SHA-256 as derived; decisions == the C verifier's. Prints
+   `overlay.envelope.verify-latency.<backend>` p50 and p99 per node (a
+   real clock here), the send-queue depth maximum, bytes sent over the
+   sockets per round and the receipt -> relay delays.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -474,10 +526,11 @@ per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, a
 `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's, C2-C5p's, R2-R5's and S1-S2's, the
-sha256 entry's the hash main path's, L2-L4's, C1-C5p's, R2-R5's and
-S1-S2's, each split in `launches_by_path`, R2, R2p and R3-R5 under
-`catchup`, S1 and S2 under `herder S1` and `herder S2`)
+launches are the verify main path's, C2-C5p's, R2-R5's, S1-S2's and
+O1-O2's, the sha256 entry's the hash main path's, L2-L4's, C1-C5p's,
+R2-R5's, S1-S2's and O1-O2's, each split in `launches_by_path`, R2, R2p and R3-R5
+under `catchup`, S1 and S2 under `herder S1` and `herder S2`, O1 and O2
+under `overlay O1` and `overlay O2`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -637,9 +690,19 @@ R_PASSPHRASE = "Test SDF Network ; September 2015"
 # S2 is S2_NODES validators in a 3-of-4 quorum on the async verify stack,
 # S2_LOADED loaded slots. S1 had 10 loaded slots until the close phases'
 # payments reached the deep levels; on a slow host the whole run then
-# took about 1,110 s, so S1 gave up 4 of them.
-S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 6
+# took about 1,110 s, so S1 gave up 4 of them, and 4 more when the overlay
+# phases came (S1 stays as the relay's numbers beside O1's).
+S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 2
 S2_NODES, S2_LOADED = 4, 5
+# the overlay phases (O1, O2): O1 is S1's network and traffic with the
+# relay taken out, each node linked to O1_DEGREE peers over authenticated
+# loopback pipes (the reference's TARGET_PEER_CONNECTIONS); O2 is
+# O2_NODES validators over localhost TCP, O2_LOADED loaded slots each
+O1_DEGREE, O1_LOADED = 8, 2
+O2_NODES, O2_LOADED = 4, 2
+# seconds a round of O2 may take to apply everywhere: on the card a
+# stalled round took up to 103 s (PERF.md §6, overlay)
+O2_ROUND_S = 300
 
 
 def p99(samples) -> float:
@@ -2890,8 +2953,9 @@ def harness(name: str):
     rule, `engine_candidates` and `engine_launches`),
     `torch_catchup_harness` (`wire_node`, `enable_buckets`,
     `invariants_and_stream`: a node's ledger layer as the reference's
-    Application builds it) and `torch_herder_harness` (the relay that
-    stands in for overlay, the node builder, the traffic)."""
+    Application builds it), `torch_herder_harness` (the relay, the node
+    builder, the traffic), `torch_sim_harness` (`OverlayNet`: the relay's
+    network over the real overlay) and `torch_app_harness` (O2's nodes)."""
     import importlib
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests")
@@ -5178,6 +5242,658 @@ def herder_path(S, E, K, SC, card: str) -> dict:
             "sha256": {"herder S1": s1["sha256"], "herder S2": s2["sha256"]}}
 
 
+# ------------------------------------------------------------------ overlay
+
+def overlay_totals(nodes) -> dict:
+    """Frames and bytes every node received, by message type, summed over
+    `nodes` (their overlay cockpits, `overlay_stats.to_json`)."""
+    out: Counter = Counter()
+    for n in nodes:
+        for name, t in n.app.overlay_manager.stats.to_json()[
+                "by_type"].items():
+            out[(name, "msgs")] += t["recv_msgs"]
+            out[(name, "bytes")] += t["recv_bytes"]
+    return out
+
+
+def by_type_line(before: Counter, after: Counter) -> str:
+    names = sorted({k[0] for k in after})
+    parts = []
+    for name in names:
+        m = after[(name, "msgs")] - before[(name, "msgs")]
+        if m:
+            parts.append("%s %d (%d B)" % (name, m, after[(name, "bytes")]
+                                           - before[(name, "bytes")]))
+    return ", ".join(parts)
+
+
+def flood_line(nodes) -> str:
+    """The flood duplication ratio (duplicate receipts over first ones)
+    and mean fanout of a broadcast, over every node's floodgate."""
+    u = d = b = f = 0
+    for n in nodes:
+        fl = n.app.overlay_manager.stats.to_json()["flood"]
+        u, d = u + fl["unique"], d + fl["duplicates"]
+        b, f = b + fl["broadcasts"], f + fl["fanout_total"]
+    return ("flood: %d first receipts, %d duplicates (duplication ratio "
+            "%.3f), %d broadcasts, mean fanout %.2f"
+            % (u, d, d / u if u else 0.0, b, f / b if b else 0.0))
+
+
+def hop_delays(nodes, types=("scp-message",)) -> dict:
+    """From every node's propagation cockpit (host perf-counter stamps of
+    each hop): per node and message, first receipt -> first relay (the
+    node's verify and processing on the way), and per message, its origin
+    -> its first receipt at each other node; seconds."""
+    relay, reach = [], []
+    origin = {}
+    recvs = []
+    for n in nodes:
+        prop = n.app.overlay_manager.prop_stats
+        for hx, rec in prop.fleet_json()["hashes"].items():
+            if rec["type"] not in types:
+                continue
+            hops = rec["hops"]
+            o = [h["pc"] for h in hops if h["dir"] == "origin"]
+            if o:
+                origin[hx] = o[0]
+            r = [h["pc"] for h in hops if h["dir"] == "recv"]
+            s = [h["pc"] for h in hops if h["dir"] == "send"]
+            if r:
+                recvs.append((hx, r[0]))
+                if s and s[0] >= r[0]:
+                    relay.append(s[0] - r[0])
+    for hx, t in recvs:
+        if hx in origin:
+            reach.append(t - origin[hx])
+    return {"relay": relay, "reach": reach}
+
+
+def pct_line(what: str, xs: list, scale: float = 1e3,
+             unit: str = "ms") -> str:
+    if not xs:
+        return "%s: none" % what
+    return "%s p50 %.3f %s, p99 %.3f %s, max %.3f %s (%d)" % (
+        what, float(np.percentile(xs, 50)) * scale, unit,
+        float(np.percentile(xs, 99)) * scale, unit, max(xs) * scale, unit,
+        len(xs))
+
+
+class IntakeClock:
+    """Host perf-counter seconds of every `recv_scp_envelope` of a
+    network's herders, split by whether the call launched the verify
+    kernel (a cache miss verified on the card) or not: the overlay
+    cockpit's `overlay.envelope.verify-latency` reads the node's virtual
+    clock, which stands still while a synchronous verify runs."""
+
+    def __init__(self, E, nodes) -> None:
+        self.launched, self.cached = [], []
+        for n in nodes:
+            h = n.app.herder
+            orig = h.recv_scp_envelope
+
+            def recv(env, on_verified=None, _orig=orig):
+                c0, t0 = E.LAUNCHES, time.perf_counter()
+                try:
+                    return _orig(env, on_verified=on_verified)
+                finally:
+                    dt = time.perf_counter() - t0
+                    (self.launched if E.LAUNCHES > c0
+                     else self.cached).append(dt)
+
+            h.recv_scp_envelope = recv
+
+
+class SeenBy:
+    """Per node, the hashes of every transaction its herder was handed,
+    every envelope its herder took in and every message its floodgate
+    recorded."""
+
+    def __init__(self, nodes) -> None:
+        from stellar_core_tpu_torch.crypto.hashing import sha256
+        self.txs = [set() for _ in nodes]
+        self.envs = [set() for _ in nodes]
+        self.flooded = [set() for _ in nodes]
+        for i, n in enumerate(nodes):
+            h, fg = n.app.herder, n.app.overlay_manager.floodgate
+            rt, re_, ar = h.recv_transaction, h.recv_scp_envelope, \
+                fg.add_record
+
+            def recv_tx(frame, _o=rt, _s=self.txs[i]):
+                _s.add(frame.full_hash())
+                return _o(frame)
+
+            def recv_env(env, on_verified=None, _o=re_, _s=self.envs[i]):
+                _s.add(sha256(env.to_xdr()))
+                return _o(env, on_verified=on_verified)
+
+            def add_record(msg, *a, _o=ar, _s=self.flooded[i], **kw):
+                _s.add(sha256(msg.to_xdr()))
+                return _o(msg, *a, **kw)
+
+            h.recv_transaction, h.recv_scp_envelope = recv_tx, recv_env
+            fg.add_record = add_record
+
+
+def o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+    """O1 of the module docstring; returns the launches by kernel."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    n = S1_ORGS * S1_PER_ORG
+    keys = [H.node_seed(i).public_key for i in range(n)]
+    qset = H.tier1_qset(X, keys, S1_ORGS, S1_PER_ORG)
+    t0 = time.perf_counter()
+    net = None
+    for i in range(n):
+        cfg = H.node_config(i, qset, i == 0, CLOSE_MAX_TX_SET_SIZE)
+        app = H.make_port_node(os.path.join(tmp, "o1-%d" % i), cfg,
+                               BV.make_verifier("cuda"),
+                               BH.make_hasher("cuda"))
+        if net is None:
+            net = SH.OverlayNet(cfg.network_id)
+        net.join("o%d" % i, app)
+    degree = net.nodes[0].app.config.TARGET_PEER_CONNECTIONS
+    check(degree == O1_DEGREE, "O1: each node targets %d peers, the "
+          "reference's default" % O1_DEGREE)
+    twin_cfg = H.node_config(n, qset, False, CLOSE_MAX_TX_SET_SIZE)
+    twin_cfg.BUCKETDB_READS = False
+    twin = H.make_port_app(os.path.join(tmp, "o1-twin"), config=twin_cfg,
+                           verifier=CpuSigVerifier(),
+                           hasher=make_hasher("cpu"))
+    twin.ledger_manager.use_native_apply = False
+    check(all(nd.app.ledger_manager.root.bucket_backed()
+              for nd in net.nodes), "O1: every node reads through BucketDB")
+    network_hashes(net, twin)
+    built_s = time.perf_counter() - t0
+    # node i dials i+1 .. i+degree/2 (mod n): each node has `degree` peers
+    t0 = time.perf_counter()
+    for i in range(n):
+        for d in range(1, degree // 2 + 1):
+            net.link(i, (i + d) % n)
+    check(net.crank_until(net.authenticated, 50)
+          and len(net.links) == n * degree // 2
+          and all(nd.app.overlay_manager.get_authenticated_peers_count()
+                  == degree for nd in net.nodes),
+          "O1: all %d links authenticated on both ends, %d peers a node"
+          % (n * degree // 2, degree))
+    hs_s = time.perf_counter() - t0
+    log("O1: %d validators and a CPU twin built in %.1f s on %s; %d "
+        "loopback links (node i dials i+1..i+%d mod %d), each a full "
+        "Hello/Auth handshake (X25519, HKDF, one AuthCert verify on the "
+        "host per end), authenticated in %.3f s of host time"
+        % (n, built_s, card, len(net.links), degree // 2, n, hs_s))
+    tr = H.Traffic(net.nodes[0].app.ledger_manager, net.network_id,
+                   net.nodes[0].app.network_root_key(), CLOSE_TXS,
+                   CLOSE_SIGS, corrupt_every=CLOSE_CORRUPT_EVERY)
+    K.flush_verify_cache()
+    seen = SeenBy(net.nodes)
+    clock_probe = IntakeClock(E, net.nodes)
+    probe = HerderProbe(H, S, E, K, SC, net)
+    probe.install()
+    E.LAUNCHES = S.LAUNCHES = 0
+    n_txs, loaded, lines, bad_msgs = 0, [], [], set()
+    from stellar_core_tpu_torch.herder.tx_queue import TxQueueResult
+
+    def one_slot(seq: int, blobs: list, label: str) -> dict:
+        nonlocal n_txs
+        before = overlay_totals(net.nodes)
+        t0 = time.perf_counter()
+        for blob in blobs:
+            got = net.submit(0, blob)
+            bad = sha256(blob) in tr.corrupted
+            want = TxQueueResult.ADD_STATUS_ERROR if bad \
+                else TxQueueResult.ADD_STATUS_PENDING
+            check(got == want, "O1 slot %d: node 0 answers %s" % (
+                seq, "ERROR" if bad else "PENDING"))
+            if bad:
+                bad_msgs.add(sha256(X.StellarMessage(
+                    X.MessageType.TRANSACTION,
+                    X.TransactionEnvelope.from_xdr(blob)).to_xdr()))
+        n_txs += len(blobs)
+        # the accepted transactions flood to every node before the slot
+        net.settle()
+        flood_s = time.perf_counter() - t0
+        r = net.close_slot(seq)
+        twin_close(twin.ledger_manager, net.nodes[0], seq)
+        network_hashes(net, twin)
+        after = overlay_totals(net.nodes)
+        r["flood_s"] = flood_s
+        lines.append("O1 slot %d (%s): frames received %d (%d B): %s"
+                     % (seq, label, sum(v for k, v in after.items()
+                                        if k[1] == "msgs")
+                        - sum(v for k, v in before.items()
+                              if k[1] == "msgs"),
+                        sum(v for k, v in after.items() if k[1] == "bytes")
+                        - sum(v for k, v in before.items()
+                              if k[1] == "bytes"),
+                        by_type_line(before, after)))
+        return r
+
+    forged = None
+    try:
+        with GcPauses() as gc_pauses:
+            one_slot(2, tr.fund(), "funds")
+            one_slot(3, tr.arm(), "arms")
+
+            def run_loaded():
+                for k in range(O1_LOADED):
+                    seq = 4 + k
+                    loaded.append(one_slot(seq, tr.payments(seq),
+                                           "loaded"))
+                return loaded
+
+            prof = profile_drain(run_loaded, "ed25519_verify_kernel",
+                                 cpu=False)
+            # node 0's last envelope, one signature byte flipped, sent to
+            # node 1 over their authenticated link
+            raw = [r for i, _s, r in net.envelopes if i == 0][-1]
+            forged = raw[:-5] + bytes([raw[-5] ^ 0x01]) + raw[-4:]
+            net.peer(0, 1).send_message(X.StellarMessage(
+                X.MessageType.SCP_MESSAGE, X.SCPEnvelope.from_xdr(forged)))
+            net.settle()
+    finally:
+        probe.uninstall()
+    top = 3 + O1_LOADED
+    check(all(nd.app.ledger_manager.last_closed_ledger_num() == top
+              for nd in net.nodes), "O1: every node closed %d" % top)
+    check(probe.paths == Counter({"native": n * (top - 1)}),
+          "O1: every node's every close ran in the apply engine (%s)"
+          % dict(probe.paths))
+    check(net.authenticated(), "O1: every link still authenticated")
+    # the transactions: the corrupted ones stop at node 0
+    corrupted = set(tr.corrupted)
+    check(corrupted and corrupted <= seen.txs[0]
+          and not any(corrupted & s for s in seen.txs[1:]),
+          "O1: the %d corrupted transactions reached node 0's queue only"
+          % len(corrupted))
+    check(len(bad_msgs) == len(corrupted)
+          and not any(bad_msgs & s for s in seen.flooded),
+          "O1: no floodgate recorded a corrupted transaction")
+    # every accepted transaction reached every node's queue
+    good = seen.txs[0] - corrupted
+    check(all(good <= s for s in seen.txs[1:]),
+          "O1: every accepted transaction reached every node's queue")
+    # the forged envelope: refused on the card at node 1, never relayed
+    env = X.SCPEnvelope.from_xdr(forged)
+    st = env.statement
+    triple = (st.nodeID.key_bytes, env.signature,
+              net.nodes[1].app.herder.scp_driver._envelope_sign_bytes(st))
+    fh = sha256(forged)
+    rejected = [nd.app.overlay_manager.stats.to_json()["envelope"][
+        "rejected"] for nd in net.nodes]
+    check(probe.decisions.get(triple) is False
+          and triple in probe.card_triples
+          and fh in seen.envs[1]
+          and not any(fh in s for k, s in enumerate(seen.envs) if k != 1)
+          and rejected[1] == 1 and sum(rejected) == 1,
+          "O1: the forged envelope was refused on the card's False at "
+          "node 1 (overlay.envelope.rejected 1 there, 0 elsewhere) and "
+          "reached no other node")
+    n_env = len(net.envelopes)
+    env_distinct = len({raw for _i, _s, raw in net.envelopes})
+    check(env_distinct == n_env, "O1: every originated envelope distinct")
+    v, h = probe.vsites.by_site, probe.hsites.by_site
+    want_v = {"envelope": n_env + 1, "admission": n_txs}
+    got_v = {k: c for k, c in v.items() if c}
+    check(got_v == want_v and E.LAUNCHES == n_env + 1 + n_txs,
+          "O1: verify launches by site %s == derived %s (one per distinct "
+          "envelope, the forged one, one per transaction's first admission "
+          "at node 0; %d in all)" % (dict(got_v), want_v, E.LAUNCHES))
+    got_h = {k: c for k, c in h.items() if c}
+    check(got_h == ({"close": probe.sha_owed} if probe.sha_owed else {})
+          and S.LAUNCHES == probe.sha_owed,
+          "O1: SHA-256 launches by site %s == %d derived from each node's "
+          "bucket list (closes that differ: %s)"
+          % (dict(got_h), probe.sha_owed, probe.sha_off[:8]))
+    n_dec = probe.check_decisions("O1")
+    host = set(probe.cpu_triples)
+    check(host <= H.value_sig_triples(net),
+          "O1: the C verifier decided only nominated values' signatures")
+    # txsets: built from the flooded transactions or fetched (TX_SET)
+    fetched = sum(nd.app.overlay_manager.stats.to_json()["by_type"].get(
+        "tx-set", {}).get("recv_msgs", 0) for nd in net.nodes)
+    for seq in range(2, top + 1):
+        sv = X.StellarValue.from_xdr(net.nodes[0].externalized[seq])
+        check(all(nd.app.herder.pending.get_tx_set(sv.txSetHash) is not None
+                  or nd.app.ledger_manager.last_closed_ledger_num() >= seq
+                  for nd in net.nodes),
+              "O1: slot %d's txset reached every node" % seq)
+    ext = [r["externalize_s"] for r in loaded]
+    cls = [r["close_s"] for r in loaded]
+    fl = [r["flood_s"] for r in loaded]
+    log("O1 (%s): %d slots (2 funds %d senders, 3 arms them, %d loaded of "
+        "%d %d-signature payments submitted at node 0, every %dth "
+        "corrupted and refused there), every node == the CPU twin at every "
+        "height; per loaded slot: submission + flood to every node p50 "
+        "%.3f s, max %.3f s; trigger -> all %d externalized p50 %.3f s, "
+        "max %.3f s; -> all closed p50 %.3f s, max %.3f s"
+        % (card, top - 1, CLOSE_TXS, O1_LOADED, CLOSE_TXS, CLOSE_SIGS,
+           CLOSE_CORRUPT_EVERY, float(np.percentile(fl, 50)), max(fl), n,
+           float(np.percentile(ext, 50)), max(ext),
+           float(np.percentile(cls, 50)), max(cls)))
+    for line in lines:
+        log(line)
+    log("O1: %s; TX_SET frames received %d (a node whose queue holds the "
+        "flooded transactions builds the same txset itself)"
+        % (flood_line(net.nodes), fetched))
+    d = hop_delays(net.nodes)
+    log("O1: host clock, %s; %s" % (
+        pct_line("an envelope's receipt -> relay at one node (its verify "
+                 "and processing)", d["relay"]),
+        pct_line("origin -> first receipt at each other node",
+                 d["reach"])))
+    dt = hop_delays(net.nodes, ("transaction",))
+    log("O1: host clock, %s" % pct_line(
+        "a transaction's receipt -> relay at one node (its admission)",
+        dt["relay"]))
+    m = net.nodes[1].app.overlay_manager.stats.to_json()["envelope"]
+    log("O1: overlay.envelope.verify-latency (the node's virtual clock, "
+        "which stands still during a synchronous verify): node 1 %d "
+        "envelopes, %.6f s in all; host clock, recv_scp_envelope: %s; %s"
+        % (m["count"], m["verify_seconds"],
+           pct_line("with a launch", clock_probe.launched),
+           pct_line("from the cache", clock_probe.cached)))
+    log("O1: verify launches by site %s (derived %s), SHA-256 by site %s "
+        "(derived %d); %d distinct triples decided, == the C verifier; %d "
+        "value signatures checked on the host"
+        % (dict(got_v), want_v, dict(got_h), probe.sha_owed, n_dec,
+           len(host)))
+    log("O1: verify demand per node (enqueue + prewarm_many triples, cache "
+        "hits included): %s" % sorted(probe.demand.values()))
+    log_profile("O1 loaded slots", prof, "ed25519_verify_kernel")
+    log("O1: %s" % gc_pauses.line())
+    net.stop()
+    for node in net.nodes:
+        H.stop(node.app)
+    H.stop(twin)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+class TcpNet:
+    """O2's nodes (`torch_app_harness.Application`s on REAL_TIME clocks,
+    their overlay on localhost TCP), cranked in turn by one thread as
+    `tests/test_overlay_tcp.py` cranks its nodes, in the shape
+    `HerderProbe` reads: `nodes` (the relay's `Node`s, which stamp each
+    externalized value) and `step`, one `Application.crank` of every
+    node. A crank longer than a quarter second is kept: on the async
+    stack a node's multi-second validation holds every other node's next
+    envelope back, and the nomination timers then outrun the validations
+    (PERF.md §6, overlay)."""
+
+    def __init__(self, H, apps) -> None:
+        from stellar_core_tpu_torch import xdr as X
+        from stellar_core_tpu_torch.herder.txset import TxSetFrame
+        from stellar_core_tpu_torch.transactions.transaction_frame import (
+            TransactionFrame,
+        )
+        self.nodes = [H.Node(self, "t%d" % i, a, X, TxSetFrame,
+                             TransactionFrame) for i, a in enumerate(apps)]
+        self.envelopes = []
+        self.queue_max = 0
+        # the longest single cranks: (s, node index, perf-counter end)
+        self.long_cranks = []
+
+    def step(self) -> int:
+        n = 0
+        for k, node in enumerate(self.nodes):
+            t0 = time.perf_counter()
+            n += node.app.crank(False)
+            t1 = time.perf_counter()
+            if t1 - t0 > 0.25:
+                self.long_cranks.append((t1 - t0, k, t1))
+            total, _b = node.app.overlay_manager.send_queue_depth()
+            self.queue_max = max(self.queue_max, total)
+        return n
+
+    def crank_until(self, pred, timeout_s: float) -> bool:
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            if pred():
+                return True
+            if not self.step():
+                time.sleep(0.001)
+        return pred()
+
+
+def o2_tcp(H, A, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+    """O2 of the module docstring; returns the launches by kernel."""
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
+    from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
+    from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
+    keys = [H.node_seed(i).public_key for i in range(O2_NODES)]
+    qset = H.flat_qset(X, keys, O2_NODES - 1)
+    reg = MetricsRegistry(now_fn=time.perf_counter)
+    apps = []
+    for i in range(O2_NODES):
+        cfg = H.node_config(i, qset, True, CLOSE_MAX_TX_SET_SIZE)
+        cfg.MANUAL_CLOSE = False
+        cfg.RUN_STANDALONE = False
+        cfg.PEER_PORT = 0
+        app = A.Application(
+            VirtualClock(ClockMode.REAL_TIME), cfg,
+            verifier=lambda a: BV.make_verifier("cuda-async", clock=a.clock,
+                                                metrics=reg),
+            hasher=BH.make_hasher("cuda"))
+        app.enable_buckets(os.path.join(tmp, "o2-%d" % i))
+        apps.append(app)
+    net = TcpNet(H, apps)
+    # each close's hashes and applied transactions, per node and height
+    closed = [dict() for _ in apps]
+    applied = [set() for _ in apps]
+    for k, app in enumerate(apps):
+        lm = app.ledger_manager
+        orig = lm.value_externalized
+
+        def value_externalized(lcd, _o=orig, _lm=lm, _app=app, _k=k):
+            _o(lcd)
+            applied[_k].update(f.full_hash() for f in lcd.tx_set.frames)
+            closed[_k][lcd.ledger_seq] = (
+                _lm.lcl_hash, _app.bucket_manager.get_hash(),
+                _app.state_commitment.root)
+
+        lm.value_externalized = value_externalized
+        om = app.overlay_manager
+        me = app.config.node_id()
+        bcast = om.broadcast_message
+
+        def broadcast_message(msg, force=False, _o=bcast, _me=me, _k=k):
+            if msg.disc == X.MessageType.SCP_MESSAGE:
+                e = msg.value
+                if e.statement.nodeID == _me:
+                    raw = e.to_xdr()
+                    if all(raw != r for _i, _s, r in net.envelopes[-64:]):
+                        net.envelopes.append(
+                            (_k, e.statement.slotIndex, raw))
+                else:
+                    # a relay: the envelope's verify must have landed
+                    t = (e.statement.nodeID.key_bytes, e.signature,
+                         apps[0].herder.scp_driver._envelope_sign_bytes(
+                             e.statement))
+                    relays.append(probe.decisions.get(t))
+            return _o(msg, force)
+
+        om.broadcast_message = broadcast_message
+    relays = []
+    twin_cfg = H.node_config(O2_NODES, qset, False, CLOSE_MAX_TX_SET_SIZE)
+    twin_cfg.BUCKETDB_READS = False
+    twin = H.make_port_app(os.path.join(tmp, "o2-twin"), config=twin_cfg,
+                           verifier=CpuSigVerifier(),
+                           hasher=make_hasher("cpu"))
+    twin.ledger_manager.use_native_apply = False
+    tr = H.Traffic(apps[0].ledger_manager, apps[0].config.network_id,
+                   apps[0].network_root_key(), CLOSE_TXS, CLOSE_SIGS,
+                   corrupt_every=CLOSE_CORRUPT_EVERY)
+    K.flush_verify_cache()
+    probe = HerderProbe(H, S, E, K, SC, net)
+    probe.install()
+    E.LAUNCHES = S.LAUNCHES = 0
+    n_txs = 0
+    t0 = time.perf_counter()
+    frames0 = overlay_totals(net.nodes)
+    try:
+        for app in apps:
+            app.start()
+        ports = [a.config.PEER_PORT for a in apps]
+        for i, app in enumerate(apps):
+            app.config.KNOWN_PEERS = ["127.0.0.1:%d" % p
+                                      for j, p in enumerate(ports) if j != i]
+            for j, p in enumerate(ports):
+                if j != i:
+                    app.overlay_manager.peer_manager.ensure_exists(
+                        "127.0.0.1", p)
+        check(net.crank_until(lambda: all(
+            a.overlay_manager.get_authenticated_peers_count()
+            == O2_NODES - 1 for a in apps), 60),
+            "O2: every node authenticated its %d peers over TCP"
+            % (O2_NODES - 1))
+        auth_s = time.perf_counter() - t0
+        slots = []
+        for label in ["funds", "arms"] + ["loaded"] * O2_LOADED:
+            blobs = tr.fund() if label == "funds" else tr.arm() \
+                if label == "arms" else tr.payments(len(slots) + 10)
+            good = set()
+            for blob in blobs:
+                f = TransactionFrame.make_from_wire(
+                    apps[0].config.network_id,
+                    X.TransactionEnvelope.from_xdr(blob))
+                st = apps[0].submit_transaction(f)
+                bad = sha256(blob) in tr.corrupted
+                check((st != 0) == bad, "O2: node 0 refuses exactly the "
+                      "corrupted transactions")
+                if not bad:
+                    good.add(f.full_hash())
+            n_txs += len(blobs)
+            b0 = sum(a.overlay_manager.stats.to_json()["totals"][
+                "send_bytes"] for a in apps)
+            s0 = time.perf_counter()
+            check(net.crank_until(
+                lambda: all(good <= a for a in applied), O2_ROUND_S),
+                "O2: the %s slot's transactions applied on every node"
+                % label)
+            slots.append({"label": label, "s": time.perf_counter() - s0,
+                          "seq": max(a.ledger_manager
+                                     .last_closed_ledger_num()
+                                     for a in apps),
+                          "bytes": sum(a.overlay_manager.stats.to_json()[
+                              "totals"]["send_bytes"] for a in apps) - b0})
+    finally:
+        probe.uninstall()
+    top = min(a.ledger_manager.last_closed_ledger_num() for a in apps)
+    # the twin closes node 0's every value; every node == the twin
+    node0 = net.nodes[0]
+    for seq in range(2, top + 1):
+        twin_close(twin.ledger_manager, node0, seq)
+        tw = (twin.ledger_manager.lcl_hash, twin.bucket_manager.get_hash(),
+              twin.state_commitment.root)
+        check(all(closed[k].get(seq) == tw for k in range(O2_NODES)),
+              "O2: height %d equal on all %d nodes and the CPU twin"
+              % (seq, O2_NODES))
+    n_env = len(net.envelopes)
+    envs = set()
+    for _i, _s, raw in net.envelopes:
+        e = X.SCPEnvelope.from_xdr(raw)
+        envs.add((e.statement.nodeID.key_bytes, e.signature,
+                  apps[0].herder.scp_driver._envelope_sign_bytes(
+                      e.statement)))
+    # an envelope that reaches a node already past its slot, or is still
+    # on the wire when the run ends, is dropped unverified
+    verified = envs & set(probe.decisions)
+    check(verified and verified <= set(probe.card_triples),
+          "O2: every envelope a node verified (%d of the %d flooded) was "
+          "verified on the card" % (len(verified), len(envs)))
+    check(relays and all(ok is True for ok in relays),
+          "O2: every relayed envelope (%d) was relayed after its verify "
+          "landed True" % len(relays))
+    bound = (O2_NODES - 1) * n_env + n_txs
+    check(0 < E.LAUNCHES <= bound,
+          "O2: %d verify launches <= %d derived (%d receivers x %d "
+          "envelopes + %d transactions)"
+          % (E.LAUNCHES, bound, O2_NODES - 1, n_env, n_txs))
+    check(S.LAUNCHES == probe.sha_owed, "O2: SHA-256 launches == %d "
+          "derived from the bucket lists" % probe.sha_owed)
+    n_dec = probe.check_decisions("O2")
+    check("crypto.verify.requeued" not in reg.to_json(),
+          "O2: no dispatch requeued")
+    check(probe.paths == Counter({"native": O2_NODES * (top - 1)})
+          or set(probe.paths) == {"native"},
+          "O2: every close ran in the apply engine (%s)" % dict(probe.paths))
+    mj = [a.metrics.to_json() for a in apps]
+    name = "overlay.envelope.verify-latency.%s" % apps[0].sig_verifier.name
+    lat = [m[name] for m in mj if name in m]
+    d = hop_delays(net.nodes)
+    log("O2 (%s): %d validators on make_verifier('cuda-async') over "
+        "localhost TCP (REAL_TIME clocks, each door on a port the kernel "
+        "picked), quorum %d of %d: authenticated in %.3f s; %d ledgers "
+        "closed, each == on all nodes and the CPU twin; slots: %s"
+        % (card, O2_NODES, O2_NODES - 1, O2_NODES, auth_s, top - 1,
+           ", ".join("%s %.3f s to applied everywhere (ledger %d, %d B "
+                     "sent over the sockets)" % (s["label"], s["s"],
+                                                 s["seq"], s["bytes"])
+                     for s in slots)))
+    log("O2: %s (real clock), per node: %s; send-queue depth max %d B"
+        % (name, "; ".join("p50 %.3f ms p99 %.3f ms (%d)"
+                           % (x["median"] * 1e3, x["p99"] * 1e3, x["count"])
+                           for x in lat), net.queue_max))
+    t_start = min(min(n.t_closed.values()) for n in net.nodes)
+    log("O2: each node's closes, s after its first: %s" % "; ".join(
+        "%s %s" % (n.name, " ".join("%d@%.2f" % (q, t - t_start)
+                                    for q, t in sorted(n.t_closed.items())))
+        for n in net.nodes))
+    log("O2: cranks over 0.25 s (s, node, s after the first close): %s; "
+        "verifier meters %s" % (
+            ", ".join("%.2f/t%d/%.2f" % (d_, k, t - t_start)
+                      for d_, k, t in sorted(net.long_cranks)[-8:]),
+            {k: v.get("count") for k, v in reg.to_json().items()
+             if "requeued" in k or "failed" in k or "queue" in k}))
+    log("O2: frames received over the run: %s"
+        % by_type_line(frames0, overlay_totals(net.nodes)))
+    log("O2: host clock, %s; %s" % (
+        pct_line("an envelope's receipt -> relay at one node",
+                 d["relay"]),
+        pct_line("origin -> first receipt at each other node", d["reach"])))
+    log("O2: verify launches %d <= %d derived; SHA-256 %d as derived; %d "
+        "distinct triples == the C verifier; %d of %d flooded envelopes "
+        "verified, all on the card; %d relays, each after its verify "
+        "landed True; %s"
+        % (E.LAUNCHES, bound, S.LAUNCHES, n_dec, len(verified), len(envs),
+           len(relays), flood_line(net.nodes)))
+    for a in apps:
+        a.stop()
+    for node in net.nodes:
+        node.app.database.close()
+    H.stop(twin)
+    return {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+
+
+def overlay_path(S, E, K, SC, card: str) -> dict:
+    """O1 and O2 of the module docstring; returns the launches by kernel
+    and phase."""
+    from stellar_core_tpu_torch.crypto import batch_hasher as BH
+    from stellar_core_tpu_torch.crypto import batch_verifier as BV
+    H = harness("torch_herder_harness")
+    SH = harness("torch_sim_harness")
+    A = harness("torch_app_harness")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_") as tmp:
+        t0 = time.perf_counter()
+        o1 = o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp, card)
+        log("O1: %.1f s in all" % (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        o2 = o2_tcp(H, A, S, E, K, SC, BV, BH, tmp, card)
+        log("O2: %.1f s in all" % (time.perf_counter() - t0))
+    return {"verify": {"overlay O1": o1["verify"],
+                       "overlay O2": o2["verify"]},
+            "sha256": {"overlay O1": o1["sha256"],
+                       "overlay O2": o2["sha256"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5457,6 +6173,9 @@ def smoke(torch, args, flight_dir: str) -> int:
     # --- SCP and the herder: a tier-1 quorum reaching consensus ------------
     herder = herder_path(S, E, K, SC, card)
 
+    # --- overlay: the same quorum over authenticated peers, and TCP -------
+    overlay = overlay_path(S, E, K, SC, card)
+
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
     main_f = fleet["shard"][DRAIN_CHUNK]
@@ -5465,11 +6184,12 @@ def smoke(torch, args, flight_dir: str) -> int:
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519.py:328",
         "launches": launches + sum(closes["verify"].values())
-        + catchup["verify"] + sum(herder["verify"].values()),
+        + catchup["verify"] + sum(herder["verify"].values())
+        + sum(overlay["verify"].values()),
         "launches_by_path": {"verify main path": launches,
                              **closes["verify"],
                              "catchup": catchup["verify"],
-                             **herder["verify"]},
+                             **herder["verify"], **overlay["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -5482,11 +6202,12 @@ def smoke(torch, args, flight_dir: str) -> int:
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
         "launches": hash_launches + ledger_launches
         + sum(closes["sha256"].values()) + catchup["sha256"]
-        + sum(herder["sha256"].values()),
+        + sum(herder["sha256"].values())
+        + sum(overlay["sha256"].values()),
         "launches_by_path": {"hash main path": hash_launches,
                              **ledger["launches"], **closes["sha256"],
                              "catchup": catchup["sha256"],
-                             **herder["sha256"]},
+                             **herder["sha256"], **overlay["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

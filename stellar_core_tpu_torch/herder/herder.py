@@ -14,14 +14,13 @@ Role parity: reference `src/herder/HerderImpl.{h,cpp}` +
   ledger manager, update the tx queue, re-arm the trigger timer.
 
 Copied from `stellar_core_tpu/herder/herder.py` at commit 94afec1; carry
-a fix in either copy to the other. Nothing is left out. Its hooks into
-modules the port does not have yet stay as the reference reaches them,
-through `getattr(app, ...)`, and lie idle until those modules land:
-overlay's `broadcast_message`, `random_authenticated_peers`,
-`ledger_closed` and `stats.record_envelope` (ROADMAP Queue 1 item 7;
-until then a caller's relay object can stand in for
-`app.overlay_manager`), and the application's `out_of_sync_recovery`
-hook (item 8). Deliberately different: the herder needs the app's
+a fix in either copy to the other. Nothing is left out. It reaches
+overlay as the reference does, through `getattr(app, "overlay_manager")`:
+`broadcast_message`, `random_authenticated_peers`, `ledger_closed` and
+`stats.record_envelope` are live on the port's `overlay/OverlayManager`
+(a test's relay object may still stand in for it). The application's
+`out_of_sync_recovery` hook lies idle until `main/application.py` is
+ported (ROADMAP Queue 1 item 8). Deliberately different: the herder needs the app's
 `sig_verifier` and raises TypeError without one (the reference's
 envelope and admission checks fall back to a CpuSigVerifier), and a
 failed drain fails the envelope or the admission with nothing verified

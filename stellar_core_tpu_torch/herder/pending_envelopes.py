@@ -2,10 +2,10 @@
 
 Copied from `stellar_core_tpu/herder/pending_envelopes.py` at commit
 a09415e; carry a fix in either copy to the other. Nothing is left out.
-Its fetchers are injected (`set_fetchers`); the port has no overlay
-`ItemFetcher` yet (ROADMAP Queue 1 item 7), so a node's caller satisfies
-missing txsets and quorum sets itself, as the reference's loopback
-simulation does.
+Its fetchers are injected (`set_fetchers`): the port's
+`overlay/OverlayManager` wires its two `ItemFetcher`s in, and a caller
+without overlay may satisfy missing txsets and quorum sets itself, as the
+reference's loopback simulation does.
 
 Role parity: reference `src/herder/PendingEnvelopes.{h,cpp}:26-153` —
 per-slot state sets (discarded/fetching/ready/processed), LRU caches of

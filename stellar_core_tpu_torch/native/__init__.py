@@ -1,6 +1,7 @@
 """Native (C) code of the port, loaded through ctypes.
 
-- `ed25519c.c`: the CPU signer and the CPU verifier (`ed25519_native`).
+- `ed25519c.c`: the CPU signer, the CPU verifier and the X25519 ladder
+  (`ed25519_native`; overlay's session keys through crypto/curve25519.py).
 - `prep.c`: the verify boundary's batched host prep (`prep_lib`,
   `prepare_batch_native`, `cache_keys_native`): SHA-512 and mod L per
   signature, the canonicality prechecks and bit-slicing in one C call per
@@ -103,6 +104,11 @@ class _Ed25519Native:
             out.ctypes.data_as(ctypes.c_void_p))
         return out.astype(bool).tolist()
 
+    def x25519(self, scalar: bytes, u: bytes) -> bytes:
+        out = ctypes.create_string_buffer(32)
+        self._lib.sct_x25519(scalar, u, out)
+        return out.raw
+
 
 def ed25519_native() -> Optional[_Ed25519Native]:
     """Build + load the native ed25519 library; None only when the host
@@ -128,6 +134,8 @@ def ed25519_native() -> Optional[_Ed25519Native]:
             lib.sct_ed25519_verify_batch.argtypes = [
                 ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            lib.sct_x25519.argtypes = [
+                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p]
             if lib.sct_ed25519_init() != 0:
                 raise RuntimeError("sct_ed25519_init failed")
             _ED_LIB = _Ed25519Native(lib)

@@ -5,8 +5,9 @@ Three checks, over every subpackage (the history and catchup slice's
 `work`, `process`, `main`, `history`, `historywork` and `catchup`, and
 the SCP and herder slice's `scp` and `herder` modules, and the close
 cockpit's `ledger/apply_stats.py`, BucketDB's `bucket/bucket_index.py`,
-`invariant/` and `ledger/close_meta_stream.py` among them, named in the
-first): every port module imported in a fresh interpreter leaves
+`invariant/` and `ledger/close_meta_stream.py`, and the overlay slice's
+`overlay/` modules, `crypto/curve25519.py` and `util/fleet.py` among
+them, named in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -84,7 +85,16 @@ def test_port_modules_import_no_jax():
               "ledger.native_apply",
               # the close cockpit, BucketDB, invariants, close-meta slice
               "ledger.apply_stats", "bucket.bucket_index", "invariant",
-              "invariant.invariants", "ledger.close_meta_stream"):
+              "invariant.invariants", "ledger.close_meta_stream",
+              # the overlay slice
+              "crypto.curve25519", "crypto.fallback", "util.fleet",
+              "util.rnd", "overlay", "overlay.transport",
+              "overlay.peer_auth", "overlay.peer_manager",
+              "overlay.floodgate", "overlay.item_fetcher",
+              "overlay.overlay_stats", "overlay.propagation_stats",
+              "overlay.flood_control", "overlay.load_manager",
+              "overlay.survey_manager", "overlay.peer",
+              "overlay.overlay_manager"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, os, sys\n"

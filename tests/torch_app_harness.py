@@ -10,10 +10,17 @@ not carry; a test sets it), the database of `config.DATABASE`, the C
 verifier and the host hasher, the invariant manager and close-meta stream
 (`torch_catchup_harness.invariants_and_stream`), the LedgerManager, the
 state commitment, a Herder (manual closes, FORCE_SCP bootstrap), the work
-scheduler, process manager, history and catchup managers.
-`enable_buckets` is `torch_catchup_harness.enable_buckets`; `start`,
-`crank`, `crank_until`, `stop`, `manual_close` and `submit_transaction`
-do what the reference's do, less overlay and maintenance (not ported).
+scheduler, process manager, history and catchup managers, and the
+port's `OverlayManager` after the herder, as the reference's constructor
+builds it (`main/application.py:159-165`). A caller may hand it the
+node's verifier and hasher (`verifier` may be a callable of the app, for
+a stack that needs the node's clock); the tracer is enabled when the
+config carries `TRACE_ENABLED` (a knob the port's Config does not carry;
+a test sets it). `enable_buckets` is `torch_catchup_harness.
+enable_buckets`; `start` starts overlay unless RUN_STANDALONE, `stop`
+shuts it down, `submit_transaction` broadcasts an accepted transaction,
+and `crank`, `crank_until` and `manual_close` do what the reference's
+do; maintenance is not ported.
 The mirrored tests' sources name this class where they name the
 reference's (`APP_SUBS`, for `torch_mirror_harness.Mirror`'s `subs`).
 """
@@ -31,6 +38,7 @@ from stellar_core_tpu_torch.ledger.state_commitment import (
     StateCommitmentEngine,
 )
 from stellar_core_tpu_torch.main.persistent_state import PersistentState
+from stellar_core_tpu_torch.overlay.overlay_manager import OverlayManager
 from stellar_core_tpu_torch.process.process_manager import ProcessManager
 from stellar_core_tpu_torch.testing import TestAccount
 from stellar_core_tpu_torch.util.faults import FaultInjector
@@ -39,7 +47,9 @@ from stellar_core_tpu_torch.util.slot_timeline import SlotTimeline
 from stellar_core_tpu_torch.util.status_manager import StatusManager
 from stellar_core_tpu_torch.util.tracing import Tracer
 from stellar_core_tpu_torch.work.scheduler import WorkScheduler
-from stellar_core_tpu_torch.xdr import LedgerKey, TransactionResultCode
+from stellar_core_tpu_torch.xdr import (
+    LedgerKey, MessageType, StellarMessage, TransactionResultCode,
+)
 
 import torch_catchup_harness as CH
 
@@ -64,12 +74,14 @@ class Faults(FaultInjector):
 
 
 class Application:
-    def __init__(self, clock, config) -> None:
+    def __init__(self, clock, config, verifier=None, hasher=None) -> None:
         self.clock = clock
         self.config = cfg = config
         self.metrics = MetricsRegistry(now_fn=clock.now)
         self.status_manager = StatusManager()
         self.tracer = Tracer()
+        if getattr(cfg, "TRACE_ENABLED", False):
+            self.tracer.enable()
         self.flight_recorder = None
         self.slot_timeline = SlotTimeline(now_fn=clock.now, max_slots=64)
         self.faults = Faults(metrics=self.metrics, tracer=self.tracer)
@@ -86,8 +98,12 @@ class Application:
             self.database = Database(cfg.DATABASE, self.metrics)
         self.persistent_state = (PersistentState(self.database)
                                  if self.database else None)
-        self.sig_verifier = CpuSigVerifier()
-        self.batch_hasher = make_hasher("cpu")
+        if callable(verifier):
+            verifier = verifier(self)
+        self.sig_verifier = verifier if verifier is not None \
+            else CpuSigVerifier()
+        self.batch_hasher = hasher if hasher is not None \
+            else make_hasher("cpu")
         CH.invariants_and_stream(self)
         self.bucket_manager = None       # wired in enable_buckets()
         self.overlay_manager = None
@@ -96,6 +112,7 @@ class Application:
         if cfg.QUORUM_SET is None:
             cfg.QUORUM_SET = cfg.self_qset()
         self.herder = Herder(self)
+        self.overlay_manager = OverlayManager(self)
         self.work_scheduler = WorkScheduler(clock)
         self.process_manager = ProcessManager(
             clock, cfg.MAX_CONCURRENT_SUBPROCESSES)
@@ -113,6 +130,8 @@ class Application:
         if not lm.load_last_known_ledger():
             lm.start_new_ledger()
         self.herder.restore_scp_state()
+        if not self.config.RUN_STANDALONE:
+            self.overlay_manager.start()
         self.history_manager.publish_queued_history()
         if self.config.FORCE_SCP and self.config.NODE_IS_VALIDATOR:
             self.herder.bootstrap()
@@ -130,6 +149,7 @@ class Application:
         return pred()
 
     def stop(self) -> None:
+        self.overlay_manager.shutdown()
         self.process_manager.shutdown()
         if self.bucket_manager is not None:
             self.bucket_manager.shutdown()
@@ -144,7 +164,12 @@ class Application:
             pass
 
     def submit_transaction(self, frame) -> int:
-        return self.herder.recv_transaction(frame)
+        status = self.herder.recv_transaction(frame)
+        if status == 0:
+            self.overlay_manager.broadcast_message(
+                StellarMessage(MessageType.TRANSACTION, frame.envelope),
+                False)
+        return status
 
 
 class AppLedgerAdapter:

@@ -1,5 +1,11 @@
-"""A network of herder nodes in one process, and the relay that stands in
-for overlay (`overlay/` and `main/application.py` are not ported yet).
+"""A network of herder nodes in one process, and a relay that stands in
+for overlay.
+
+The relay now stands beside the port's real overlay (`overlay/`):
+`chip_smoke.py`'s S1 keeps it, so its numbers stand beside O1's, and the
+relay-based mixed quorum of `tests/test_torch_herder.py` uses it; O1
+does not (`torch_sim_harness.OverlayNet` keeps the relay's crank and
+slot helpers and takes the relay out).
 
 A port node is `torch_catchup_harness.make_port_app`'s namespace app (its
 own `LedgerManager` over sqlite, a `BucketManager`, a
