@@ -270,8 +270,9 @@ C2. three closes build the senders as `replay_bench` does: the root
    creates 200 in two 100-operation transactions, then one close arms
    them (senders 0-99: 19 more signers and a medium threshold of 20;
    100-199: one more signer and 2);
-C3. 64 closes of 100 payments, each signed by 20 keys, every 7th with one
-   signature corrupted, every 5th paying an account restored in C1 and
+C3. 32 closes (64 until the operator's node, M1, came) of 100
+   payments, each signed by 20 keys, every 7th with one signature
+   corrupted, every 5th paying an account restored in C1 and
    not paid before (one each of levels 4-9, the rest of level 10, so
    that the close reads the deep levels) and the rest the root, each run
    as a node runs it:
@@ -369,10 +370,12 @@ R2. a fresh card node catches up complete: SUCCESS at 127; every ledger's
    card's busy share over the drains from a profiled replay of them, and
    each checkpoint's prefetch summary line (`_log_checkpoint_summary`:
    the checkpoint's keys covered by its one batched BucketDB pass);
-R2p. a second fresh card node replays the same archive with its closes in
-   the Python phases (`use_native_apply` False), with R2's checks: the
-   same launches, drain for drain (31), none in a close. Prints both
-   replays' ledgers/s and mean `catchup.apply_ledger`;
+R2p. a second fresh card node replays the same archive's first
+   checkpoint (a complete catchup to 63; the whole archive until the
+   operator's node, M1, came) with its closes in the Python phases
+   (`use_native_apply` False), with R2's checks to 63: the launches of
+   R2's first checkpoint, drain for drain (1 and 14), none in a close.
+   Prints both replays' ledgers/s and mean `catchup.apply_ledger`;
 R3. a node restarted over R2's SQL file, bucket directory and persistent
    state: LCL 127 and a bucket list that hashes to its header's; the
    commitment's first root, computed on the card, equals the
@@ -404,6 +407,47 @@ R5. faults, each on a fresh card node over its own copy of the archive,
    (`verify.device-lost` would not fail it: on one card the fleet has one
    member, whose loss the fault point leaves alone, and on more members
    it degrades the fleet.) Times nothing.
+
+The operator's node (M1, after R5, while R1's archive is there), driven
+with the counts set to 0 just before it and read just after: each step is
+a process of its own, `python -m stellar_core_tpu_torch <command> --conf
+node.toml`, from the checkout's root, on a TOML config with a sqlite
+database and a bucket directory in a temporary directory, R1's archive as
+HISTORY, R1's network passphrase and genesis, MANUAL_CLOSE,
+RUN_STANDALONE, a free HTTP_PORT, and no backend named (so the node's
+verifier and hasher are the default card stacks, "cuda-resilient"). The
+processes' kernel launches are read from their own counts (the
+`verifier` and `hasher` endpoints' `counters.kernel_launches`, and the
+`catchup` command's launch line), this process launching nothing:
+
+M1. `new-db` prints the publisher's genesis hash; `catchup 127/max`
+   exits 0 and prints `catchup SUCCESS at ledger 127`, every header hash
+   1-127 in the node's database == the publisher's, its verify drains on
+   the card as derived from the archive (R2's), its SHA-256 launches R2's
+   (derived from the bucket list close by close), each kernel's launches
+   its drains' plus its warmup's; a CPU twin (the C verifier,
+   `make_hasher("cpu")`) starts from a copy of the node's files; then
+   `force-scp`, and `run` in the background: `info` at LCL 127, synced;
+   4 closes of 100 payments of R1's mix (20 signatures, every 7th
+   corrupted) from its senders at their next sequence numbers, each
+   submitted through `tx?blob=`, each valid one answering PENDING and each
+   corrupted one ERROR (the card's admission verify said False), each
+   close through `manualclose`, its externalized set exactly the valid
+   payments submitted before it, the twin closing the value read back
+   from the node's database with the same header hash, bucket-list hash
+   and commitment root; the `verifier` endpoint's drains all served by
+   the card's stack and its launches as derived from the data (one per
+   admission whose candidate triples miss the process's cache, plus a
+   close whose engine candidates miss it), the `hasher` endpoint's as
+   derived from the twin's bucket list (every bucket at the process's
+   first close, whose commitment engine starts empty); one read each of
+   `metrics?format=prometheus`, `footprint` and `health`; SIGINT: exit 0
+   and the warmup plan saved; `run` again: `info` at 131, 100 more
+   payments and `manualclose` close 132 (as derived, from an empty
+   cache), SIGINT, exit 0; `offline-info` prints 132. A step that exits
+   non-zero, an endpoint that answers other than 200 or does not parse,
+   and a `run` alive after its stop (killed, then raised) fail M1. Prints
+   each step's seconds, each process's start-up included.
 
 SCP and the herder (after R5), each driven with the counts set to 0 just
 before it and read just after. Nodes are port herder nodes in this
@@ -479,7 +523,7 @@ O1. S1's 21 validators, quorum, card stacks, BucketDB, apply engine, CPU
    verified on the host, the reference's `TARGET_PEER_CONNECTIONS`), the
    transactions submitted at node 0 (`submit_transaction`: admission on
    the card, a flood on status 0) and flooded to every node before each
-   slot's trigger; 4 slots, 2 loaded; after the last, node 0 sends node 1,
+   slot's trigger; 3 slots, 1 loaded; after the last, node 0 sends node 1,
    over their link, its last envelope with one signature byte flipped.
    Checks: every link authenticated on both ends, before and after; every
    slot externalizes and closes, every node == the twin at every height,
@@ -499,9 +543,9 @@ O1. S1's 21 validators, quorum, card stacks, BucketDB, apply engine, CPU
    the herders' envelope intake on the host clock with and without a
    launch beside the cockpit's virtual-clock verify latency, launches by
    site, each node's verify demand, the busy share and the collections;
-O2. 4 validators in a 3-of-4 quorum, each a `torch_app_harness.
-   Application` on a REAL_TIME clock with `make_verifier("cuda-async")`,
-   `make_hasher("cuda")` and BucketDB, RUN_STANDALONE off, each door on a
+O2. 4 validators in a 3-of-4 quorum, each the port's `Application` on a
+   REAL_TIME clock with SIG_VERIFY_BACKEND "cuda-async", HASH_BACKEND
+   "cuda" (no warmup) and BucketDB, RUN_STANDALONE off, each door on a
    port the kernel picks, every other node's port in its peer book, the
    nodes closing on their own timers; a CPU twin closes node 0's every
    value. Traffic: the funding, arming and 2 loaded rounds of the same mix
@@ -524,13 +568,14 @@ beside the bound's, both kernels' SASS opcode counts (cuobjdump, where
 the toolkit has it) and, for the SHA-256 kernel, each warp role's loop
 per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
-timed alone, the profiled drains' device busy share, a
-`{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's, C2-C5p's, R2-R5's, S1-S2's and
-O1-O2's, the sha256 entry's the hash main path's, L2-L4's, C1-C5p's,
-R2-R5's, S1-S2's and O1-O2's, each split in `launches_by_path`, R2, R2p and R3-R5
-under `catchup`, S1 and S2 under `herder S1` and `herder S2`, O1 and O2
-under `overlay O1` and `overlay O2`)
+timed alone, the profiled drains' device busy share, each path's wall
+seconds on one line, a `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
+launches are the verify main path's, C2-C5p's, R2-R5's, M1's, S1-S2's
+and O1-O2's, the sha256 entry's the hash main path's, L2-L4's,
+C1-C5p's, R2-R5's, M1's, S1-S2's and O1-O2's, each split in
+`launches_by_path`, R2, R2p and R3-R5 under `catchup`, M1 under `main
+M1`, S1 and S2 under `herder S1` and `herder S2`, O1 and O2 under
+`overlay O1` and `overlay O2`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -666,7 +711,8 @@ CLOSE_STATE = 1 << 18
 GENESIS_TOTAL_COINS = 10 ** 17
 CLOSE_MAX_TX_SET_SIZE = 10_000
 CLOSE_SENDERS, CLOSE_TXS, CLOSE_SIGS = 200, 100, 20
-C3_CLOSES, C4_CLOSES = 64, 32
+# (C3 had 64 closes until the operator's node, M1, came)
+C3_CLOSES, C4_CLOSES = 32, 32
 CLOSE_CORRUPT_EVERY = 7
 CLOSE_DEEP_EVERY = 5
 # the catchup phases (R1-R5): replay_bench's multisig mix (bench.py:339-470,
@@ -696,13 +742,24 @@ S1_ORGS, S1_PER_ORG, S1_LOADED = 7, 3, 2
 S2_NODES, S2_LOADED = 4, 5
 # the overlay phases (O1, O2): O1 is S1's network and traffic with the
 # relay taken out, each node linked to O1_DEGREE peers over authenticated
-# loopback pipes (the reference's TARGET_PEER_CONNECTIONS); O2 is
-# O2_NODES validators over localhost TCP, O2_LOADED loaded slots each
-O1_DEGREE, O1_LOADED = 8, 2
+# loopback pipes (the reference's TARGET_PEER_CONNECTIONS), O1_LOADED
+# loaded slots (2 until the operator's node, M1, came); O2 is O2_NODES
+# validators over localhost TCP, O2_LOADED loaded slots each
+O1_DEGREE, O1_LOADED = 8, 1
 O2_NODES, O2_LOADED = 4, 2
 # seconds a round of O2 may take to apply everywhere: on the card a
-# stalled round took up to 103 s (PERF.md §6, overlay)
+# round stalled for up to 135 s before the herder kept each txset's
+# verdict (ROADMAP Queue 3 item 11)
 O2_ROUND_S = 300
+# the operator's node (M1): M1_ROUNDS loaded closes of R1's multisig mix
+# through the admin API, a restart, one more; the payments' amounts are
+# offset by M1_AMOUNT_BASE so that no payment repeats one of R1's
+M1_ROUNDS = 4
+M1_AMOUNT_BASE = 1000
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the node's processes run from the checkout's root, unbuffered so their
+# output reaches its files as it is printed
+M1_ENV = dict(os.environ, PYTHONUNBUFFERED="1")
 
 
 def p99(samples) -> float:
@@ -2955,7 +3012,7 @@ def harness(name: str):
     `invariants_and_stream`: a node's ledger layer as the reference's
     Application builds it), `torch_herder_harness` (the relay, the node
     builder, the traffic), `torch_sim_harness` (`OverlayNet`: the relay's
-    network over the real overlay) and `torch_app_harness` (O2's nodes)."""
+    network over the real overlay)."""
     import importlib
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests")
@@ -3844,8 +3901,10 @@ def r_node(tmp: str, name: str, archive: str, verifier, hasher,
            writable: bool = False, recent: int = 0, metrics=None,
            tracer=None, recorder=None, faults=None,
            bucket_reads: bool = True):
-    """A started port node, wired as the reference's Application wires
-    one (`main/application.py` is not ported): sqlite in `tmp`/`name`.db,
+    """A started port node, wired by hand as the reference's Application
+    wires one, so that each phase hands it its own verifier, hasher and
+    probes (M1 starts the port's `Application` through the command
+    line): sqlite in `tmp`/`name`.db,
     buckets in `tmp`/`name`-buckets (so a second node of the same name
     restarts over the first one's files) through
     `torch_catchup_harness.wire_node`, its SQL root reading through
@@ -3984,8 +4043,10 @@ def archive_ledgers(archive: str, checkpoint: int) -> dict:
                     for e in ins.read_all(TransactionHistoryEntry)}
 
 
-def r_drains(archive: str, first: int, chunk: int) -> list:
-    """The catchup's verify drains from ledger `first` to R_TIP, derived
+def r_drains(archive: str, first: int, chunk: int,
+             last: int = R_TIP) -> list:
+    """The catchup's verify drains from ledger `first` to `last` (a
+    checkpoint), derived
     from the archive alone: (signatures, launches) per drain. A
     checkpoint drains every signature whose signer exists when it starts;
     the senders' extra signers exist from ledger 3 on (its transactions
@@ -3994,7 +4055,7 @@ def r_drains(archive: str, first: int, chunk: int) -> list:
     signatures of ledgers 4-63. A drain launches once per `chunk` (the
     verifier's largest bucket) or part of one."""
     drains = []
-    for c in range(R_FREQ - 1, R_TIP + 1, R_FREQ):
+    for c in range(R_FREQ - 1, last + 1, R_FREQ):
         if c < first:
             continue
         led = archive_ledgers(archive, c)
@@ -4276,7 +4337,7 @@ def r1_publish(S, E, K, tmp: str, card: str) -> dict:
            len(has.bucket_hashes()), gcp.line()))
     header = r_header(pub, R_TIP)
     return {"pub": pub, "archive": archive, "root": roots[R_TIP],
-            "bucket_list": header.bucketListHash}
+            "bucket_list": header.bucketListHash, "roots": roots}
 
 
 def x1_routes(what: str, t, values: list, card: str) -> dict:
@@ -4381,9 +4442,12 @@ def r_header(app, seq: int):
 def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
                 card: str, native: bool = True) -> dict:
     """R2 of the module docstring: a complete catchup on the card, its
-    closes in the apply engine; R2p (`native` False) the same on a second
-    fresh node whose closes run the Python phases."""
+    closes in the apply engine; R2p (`native` False) a complete catchup
+    to the first checkpoint on a second fresh node whose closes run the
+    Python phases."""
     phase, name = ("R2", "r2") if native else ("R2p", "r2p")
+    top = R_TIP if native else R_FREQ - 1
+    points = range(R_FREQ - 1, top + 1, R_FREQ)
     from stellar_core_tpu_torch.catchup import CatchupConfiguration
     from stellar_core_tpu_torch.crypto.batch_verifier import CudaSigVerifier
     from stellar_core_tpu_torch.util.metrics import MetricsRegistry
@@ -4398,7 +4462,7 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     node.ledger_manager.use_native_apply = native
     check(node.ledger_manager.root.bucket_backed(),
           "%s: the card node's root reads through BucketDB" % phase)
-    want = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1])
+    want = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1], top)
     K.flush_verify_cache()
     E.LAUNCHES = S.LAUNCHES = 0
     tr.enable(capacity=1 << 16)
@@ -4406,27 +4470,27 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     with RProbe(S, E, K, SC, node) as pr, GcPauses() as gcp, \
             LogLines("stellar.History", "prefetch coverage") as summary:
         work = node.catchup_manager.start_catchup(
-            CatchupConfiguration.complete())
+            CatchupConfiguration.complete() if native
+            else CatchupConfiguration(top))
         check(r_crank_until(node, work.is_done, 900.0),
               "%s: the catchup finished" % phase)
     wall = time.perf_counter() - t0
     tr.disable()
     lm = node.ledger_manager
-    check(lm.root.bucket_backed() and len(summary.lines) == 2,
+    check(lm.root.bucket_backed() and len(summary.lines) == len(points),
           "%s: the root still reads through BucketDB; one prefetch "
           "summary a checkpoint (%d)" % (phase, len(summary.lines)))
     for line in summary.lines:
         log("%s prefetch (%s): %s" % (phase, card, line))
     check(work.state == State.SUCCESS and lm.is_synced()
-          and lm.last_closed_ledger_num() == R_TIP,
-          "%s: SUCCESS at LCL %d" % (phase, R_TIP))
-    check(r_hashes(node.database, 1, R_TIP) == r_hashes(pub.database, 1,
-                                                        R_TIP),
+          and lm.last_closed_ledger_num() == top,
+          "%s: SUCCESS at LCL %d" % (phase, top))
+    check(r_hashes(node.database, 1, top) == r_hashes(pub.database, 1, top),
           "%s: every replayed ledger's hash == the publisher's" % phase)
-    check(node.bucket_manager.get_hash() == r1["bucket_list"]
-          and node.state_commitment.root == r1["root"],
+    check(node.bucket_manager.get_hash() == r_header(pub, top).bucketListHash
+          and node.state_commitment.root == r1["roots"][top],
           "%s: the bucket-list hash and commitment root == the "
-          "publisher's at %d" % (phase, R_TIP))
+          "publisher's at %d" % (phase, top))
     drains = pr.checkpoint_drains()
     launches = [d["launches"] for d in drains]
     check([len(d["triples"]) for d in drains]
@@ -4437,11 +4501,11 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
     check(len(pr.card_triples) == len(set(pr.card_triples)),
           "%s: every distinct triple verified on the card exactly once "
           "(%d)" % (phase, len(pr.card_triples)))
-    check(not any(pr.close_launches(2, R_TIP)),
+    check(not any(pr.close_launches(2, top)),
           "%s: no verify launch inside a replayed close" % phase)
-    paths = {pr.closes[q][6] for q in range(2, R_TIP + 1)}
+    paths = {pr.closes[q][6] for q in range(2, top + 1)}
     if native:
-        check(pr.engine_as_derived(2, R_TIP),
+        check(pr.engine_as_derived(2, top),
               "R2: every replayed close ran in the apply engine, its "
               "candidates all in the cache (none derived to launch)")
     else:
@@ -4451,8 +4515,8 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
           % phase)
     check(pr.sha_as_derived(), "%s: SHA-256 launches per close as derived "
           "from the bucket list (%d in all)" % (phase, S.LAUNCHES))
-    ledgers = R_TIP - 1
-    per_tx = [v for c in (R_FREQ - 1, R_TIP)
+    ledgers = top - 1
+    per_tx = [v for c in points
               for v in archive_ledgers(archive, c).values()]
     txs, sigs = sum(len(v) for v in per_tx), sum(sum(v) for v in per_tx)
     drain_n = len(pr.card_triples)
@@ -4462,12 +4526,13 @@ def r2_complete(S, E, K, SC, tmp: str, r1: dict, flight_dir: str,
                 if "catchup.apply_ledger" in d]
     apply_mean = sum(ms for ms, _n in apply_ms) / max(
         sum(n for _ms, n in apply_ms), 1)
-    log("%s complete catchup (%s), closes in the %s: %d ledgers in %.1f s "
+    log("%s complete catchup to %d (%s), closes in the %s: %d ledgers in "
+        "%.1f s "
         "= %.2f ledgers/s, %.0f transactions/s, %.0f signatures/s end to "
         "end; catchup.apply_ledger mean %.1f ms; verify launches %d "
         "(drains %s), none in the %d replayed closes; SHA-256 launches %d; "
         "the drains %d triples in %.2f s = %.0f sigs/s; %s"
-        % (phase, card, "apply engine" if native else "Python phases",
+        % (phase, top, card, "apply engine" if native else "Python phases",
            ledgers, wall, ledgers / wall, txs / wall, sigs / wall,
            apply_mean, E.LAUNCHES, launches, len(pr.closes), S.LAUNCHES,
            drain_n, drain_s, drain_n / drain_s, gcp.line()))
@@ -4764,6 +4829,434 @@ def r5_faults(S, E, K, SC, tmp: str, r1: dict, flight_dir: str) -> dict:
     return out
 
 
+
+# ------------------------------------------- main: the operator's node (M1)
+
+def m1_http(port: int, path: str):
+    """One admin request to the M1 node; a reply other than 200 raises
+    (urllib's HTTPError), a body that does not parse raises. Returns the
+    JSON body, or the text of the Prometheus exposition."""
+    import urllib.request
+    with urllib.request.urlopen("http://127.0.0.1:%d/%s" % (port, path),
+                                timeout=120) as r:
+        check(r.status == 200, "M1: %s answered %d" % (path, r.status))
+        ctype = r.headers.get("Content-Type", "")
+        body = r.read().decode()
+    if ctype.startswith("text/plain"):
+        return body
+    return json.loads(body)
+
+
+def m1_cli(steps: list, what: str, *args) -> str:
+    """`python -m stellar_core_tpu_torch <args>` from the checkout's root
+    in a process of its own; a non-zero exit fails M1. Records the step's
+    seconds (the process's start-up, torch's import and the built kernels'
+    load included) and returns its standard output."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "stellar_core_tpu_torch"]
+                       + list(args), cwd=REPO, env=M1_ENV,
+                       capture_output=True, text=True, timeout=900)
+    steps.append((what, time.perf_counter() - t0))
+    if p.returncode != 0:
+        log("M1 %s stderr: %s" % (what, p.stderr[-4000:]))
+    check(p.returncode == 0, "M1: `%s` exits 0 (%d)"
+          % (" ".join(args[:1]), p.returncode))
+    return p.stdout
+
+
+class M1Node:
+    """A background `python -m stellar_core_tpu_torch run` of M1's config,
+    its output in files beside it. `stop` sends SIGINT and waits for exit
+    0; a process still alive after that (or after an error) is killed and
+    M1 fails."""
+
+    def __init__(self, d: str, conf: str, port: int, tag: str) -> None:
+        self.port = port
+        self.out = open(os.path.join(d, "run-%s.out" % tag), "w")
+        self.err = open(os.path.join(d, "run-%s.err" % tag), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "stellar_core_tpu_torch", "run",
+             "--conf", conf], cwd=REPO, env=M1_ENV, stdout=self.out,
+            stderr=self.err)
+        self.err_path = self.err.name
+
+    def wait_port(self, timeout_s: float = 300.0) -> float:
+        import socket
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            check(self.proc.poll() is None, "M1: `run` still running "
+                  "while its admin port opens")
+            try:
+                with socket.create_connection(("127.0.0.1", self.port),
+                                              0.5):
+                    return time.perf_counter() - self.t0
+            except OSError:
+                time.sleep(0.05)
+        check(False, "M1: the admin port %d opened" % self.port)
+
+    def stop(self) -> float:
+        import signal
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, "M1: `run` exits 0 on SIGINT (%s)" % rc)
+        return time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+            self.out.close()
+            self.err.close()
+            with open(self.err_path) as fh:
+                log("M1 run stderr: %s" % fh.read()[-4000:])
+            raise RuntimeError("M1: a `run` process outlived its stop")
+        self.out.close()
+        self.err.close()
+
+
+def m1_launches(body: dict, kind: str) -> tuple:
+    """(drains served, kernel launches, warmup launches, backends that
+    served drains) from the `verifier` or `hasher` endpoint's body."""
+    if kind == "verify":
+        served = body["counters"]["batches_dispatched"]
+        warmed = len(body["warmup"].get("buckets", {}))
+    else:
+        served = sum(d["dispatches"] for d in body["buckets"].values())
+        warmed = len(body["warmup"].get("shapes", {}))
+    return (served, body["counters"]["kernel_launches"], warmed,
+            sorted(k for k, d in body["drains"]["by_backend"].items()
+                   if d.get("drains", 0)))
+
+
+def m1_counts(port: int) -> tuple:
+    """The `verifier` and `hasher` endpoints once both warmups are done
+    (a warmup launch is counted by the kernel's wrapper before the cockpit
+    records its bucket)."""
+    deadline = time.perf_counter() + 300
+    while True:
+        v, h = m1_http(port, "verifier"), m1_http(port, "hasher")
+        if v["warmup"].get("state") == h["warmup"].get("state") == "done":
+            return v, h
+        check(time.perf_counter() < deadline and "failed" not in (
+            v["warmup"].get("state"), h["warmup"].get("state")),
+              "M1: both warmups finish (%s, %s)"
+              % (v["warmup"].get("state"), h["warmup"].get("state")))
+        time.sleep(0.2)
+
+
+def m1_check_card(what: str, v: dict, h: dict, want_v: int,
+                  want_h: int) -> tuple:
+    """Every drain served by the card's stack and none on a CPU backend,
+    the drains' launches as derived, and each kernel's launches the drains'
+    plus its warmup's. Returns (verify, SHA-256) kernel launches."""
+    vs, vk, vw, vb = m1_launches(v, "verify")
+    hs, hk, hw, hb = m1_launches(h, "hash")
+    check(v["verifier"] == "resilient" and "breaker" in v
+          and v["breaker"]["state"] == "closed"
+          and v["configured_backend"] == "cuda-resilient"
+          and h["configured_backend"] == "cuda-resilient",
+          "%s: the node's stacks are the card's, named by default"
+          " (%s / %s)" % (what, v["configured_backend"],
+                          h["configured_backend"]))
+    check(vb in ([], ["cuda"]) and hb and "cpu" not in hb
+          and "cpu" not in vb,
+          "%s: every drain served by the card (verify %s, hash %s)"
+          % (what, vb, hb))
+    check(vs == want_v and vk == vs + vw,
+          "%s: verify launches by drains %d == %d derived from the data "
+          "(kernel %d = drains + %d warmup)" % (what, vs, want_v, vk, vw))
+    check(hs == want_h and hk == hs + hw,
+          "%s: SHA-256 launches by drains %d == %d derived from the bucket "
+          "list (kernel %d = drains + %d warmup)"
+          % (what, hs, want_h, hk, hw))
+    return vk, hk
+
+
+def m1_round(port: int, twin, traffic, seq: int, seen: set, st: dict,
+             S, SC, db_path: str) -> tuple:
+    """One loaded close of M1: CLOSE_TXS payments of R1's mix from the
+    senders at their next sequence numbers (from the twin's state), every
+    CLOSE_CORRUPT_EVERY-th corrupted, through `tx?blob=`, then
+    `manualclose`; the twin closes the value read back from the node's
+    database. Returns the verify launches derived for it (admissions whose
+    candidates miss `seen`, the node's cache, and the close's engine
+    candidates that miss it), the SHA-256 launches derived from the bucket
+    list, the admission seconds and the number of valid payments."""
+    import sqlite3
+    from stellar_core_tpu_torch import xdr as X
+    from stellar_core_tpu_torch.ledger.ledgertxn import LedgerTxn
+    from stellar_core_tpu_torch.transactions.transaction_frame import (
+        TransactionFrame,
+    )
+    CH = harness("torch_close_harness")
+    lm = twin.ledger_manager
+    blobs = traffic.multisig(seq + M1_AMOUNT_BASE)
+    launches = 0
+    ok_blobs = []
+    # the derivation on the twin first, so that the admissions' seconds
+    # are the `tx` requests' alone
+    bads = []
+    for b in blobs:
+        frame = TransactionFrame.make_from_wire(
+            LEDGER_NETWORK_ID, X.TransactionEnvelope.from_xdr(b))
+        ltx = LedgerTxn(lm.ltx_root())
+        try:
+            cands = frame.candidate_sig_triples(ltx)
+        finally:
+            ltx.rollback()
+        misses = [t for t in cands if t not in seen]
+        launches += -(-len(misses) // 8192)
+        seen.update(cands)
+        bads.append(frame.contents_hash() in traffic.corrupted)
+    admit_s = 0.0
+    for b, bad in zip(blobs, bads):
+        t0 = time.perf_counter()
+        got = m1_http(port, "tx?blob=" + b.hex())
+        admit_s += time.perf_counter() - t0
+        check(got["status"] == ("ERROR" if bad else "PENDING"),
+              "M1: ledger %d's %s payment answers %s (%s)"
+              % (seq, "corrupted" if bad else "valid",
+                 "ERROR" if bad else "PENDING", got))
+        if not bad:
+            ok_blobs.append(b)
+    got = m1_http(port, "manualclose")
+    check(got == {"status": "ok", "ledger": seq},
+          "M1: manualclose closes %d (%s)" % (seq, got))
+    db = sqlite3.connect(db_path)
+    try:
+        lcd = lcd_from_db(db, seq)
+        node_hash = r_hashes(db, seq, seq)[seq]
+        header = X.LedgerHeader.from_xdr(db.execute(
+            "SELECT data FROM ledgerheaders WHERE ledgerseq = ?",
+            (seq,)).fetchone()[0])
+    finally:
+        db.close()
+    check(sorted(f.envelope.to_xdr() for f in lcd.tx_set.frames)
+          == sorted(ok_blobs),
+          "M1: ledger %d's set holds exactly the %d valid payments "
+          "submitted before it" % (seq, len(ok_blobs)))
+    cands = CH.engine_candidates(lm.root, lcd.tx_set.sort_for_apply())
+    misses = [t for t in cands if t not in seen]
+    launches += -(-len(misses) // 8192)
+    seen.update(cands)
+    lm.value_externalized(lcd)
+    owed = fresh_slots(S, SC, st, twin.bucket_manager.bucket_list)
+    cp = m1_http(port, "checkpoint")
+    check(lm.last_closed_ledger_num() == seq
+          and lm.lcl_hash.hex() == node_hash
+          and twin.bucket_manager.get_hash() == header.bucketListHash
+          and cp["root"] == twin.state_commitment.root.hex(),
+          "M1: the twin's ledger %d == the card node's (header hash, "
+          "bucket-list hash, commitment root)" % seq)
+    return launches, owed, admit_s, len(ok_blobs)
+
+
+def m1_main(S, E, K, SC, tmp: str, r1: dict, r2: dict, card: str) -> dict:
+    """M1 of the module docstring; returns the launches by kernel."""
+    import socket
+    import sqlite3
+    from stellar_core_tpu_torch import _build
+    from stellar_core_tpu_torch import testing as T
+    from stellar_core_tpu_torch.crypto import strkey
+    from stellar_core_tpu_torch.crypto.batch_hasher import (
+        CudaBatchHasher, make_hasher,
+    )
+    from stellar_core_tpu_torch.crypto.batch_verifier import (
+        CpuSigVerifier, CudaSigVerifier,
+    )
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    from stellar_core_tpu_torch.history.archive import HistoryArchive
+    pub, archive = r1["pub"], r1["archive"]
+    d = os.path.join(tmp, "m1")
+    os.makedirs(d)
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    arch = HistoryArchive.local_dir("r", archive)
+    db_path = os.path.join(d, "node.db")
+    conf = os.path.join(d, "node.toml")
+    with open(conf, "w") as fh:
+        fh.write("\n".join([
+            "NETWORK_PASSPHRASE = %s" % json.dumps(R_PASSPHRASE),
+            "NODE_SEED = %s" % json.dumps(strkey.encode_seed(
+                SecretKey.from_seed(sha256(b"m1-node")).seed)),
+            "DATABASE = %s" % json.dumps("sqlite3://" + db_path),
+            "BUCKET_DIR_PATH = %s" % json.dumps(os.path.join(d, "buckets")),
+            "RUN_STANDALONE = true", "MANUAL_CLOSE = true",
+            "HTTP_PORT = %d" % port,
+            "FLIGHT_RECORDER_DIR = %s" % json.dumps(d),
+            "CHECKPOINT_FREQUENCY = %d" % R_FREQ,
+            "TESTING_UPGRADE_MAX_TX_SET_SIZE = %d" % CLOSE_MAX_TX_SET_SIZE,
+            "[HISTORY.r]", "get = %s" % json.dumps(arch.get_tmpl),
+            "mkdir = %s" % json.dumps(arch.mkdir_tmpl), ""]))
+    steps = []
+    t_all = time.perf_counter()
+    # 1. new-db: the publisher's genesis
+    out = m1_cli(steps, "new-db", "new-db", "--conf", conf)
+    genesis = r_hashes(pub.database, 1, 1)[1]
+    check(out.strip() == "new ledger: genesis %s" % genesis,
+          "M1: new-db prints the publisher's genesis hash (%s)"
+          % out.strip())
+    # 2. catchup over R1's archive, on the card
+    out = m1_cli(steps, "catchup", "catchup", "%d/max" % R_TIP, "--conf",
+                 conf).splitlines()
+    check(out[0] == "catchup SUCCESS at ledger %d" % R_TIP,
+          "M1: catchup prints its success at %d (%s)" % (R_TIP, out[0]))
+    check(out[1].startswith("catchup launches "),
+          "M1: catchup prints its launch counts")
+    cu = json.loads(out[1][len("catchup launches "):])
+    db = sqlite3.connect(db_path)
+    try:
+        same = r_hashes(db, 1, R_TIP) == r_hashes(pub.database, 1, R_TIP)
+    finally:
+        db.close()
+    check(same, "M1: every header hash 1-%d in the node's database == the "
+          "publisher's" % R_TIP)
+    want_drains = r_drains(archive, 2, CudaSigVerifier.BUCKETS[-1])
+    cv, ch = cu["verifier"], cu["hasher"]
+    check(sorted(k for k, n in cv["drains"].items() if n["drains"])
+          == ["cuda"] and "cpu" not in ch["drains"]
+          and cv["counters"]["batches_dispatched"]
+          == sum(n for _s, n in want_drains)
+          and cv["counters"]["kernel_launches"]
+          == cv["counters"]["batches_dispatched"] + cv["warmed"],
+          "M1 catchup: verify drains on the card %s, launches %d == %d "
+          "derived from the archive %s (kernel %d with %d warmup)"
+          % (cv["drains"], cv["counters"]["batches_dispatched"],
+             sum(n for _s, n in want_drains), want_drains,
+             cv["counters"]["kernel_launches"], cv["warmed"]))
+    hs = sum(ch["dispatches"].values())
+    check(hs == r2["sha256"] and ch["counters"]["kernel_launches"]
+          == hs + ch["warmed"],
+          "M1 catchup: SHA-256 launches by drains %d == R2's %d, derived "
+          "from the bucket list close by close (kernel %d with %d warmup)"
+          % (hs, r2["sha256"], ch["counters"]["kernel_launches"],
+             ch["warmed"]))
+    launches = {"verify": cv["counters"]["kernel_launches"],
+                "sha256": ch["counters"]["kernel_launches"]}
+    # the twin: a port node on the C verifier over a copy of the node's
+    # files after the catchup
+    shutil.copy2(db_path, os.path.join(d, "twin.db"))
+    shutil.copytree(os.path.join(d, "buckets"),
+                    os.path.join(d, "twin-buckets"))
+    twin = r_node(d, "twin", archive, CpuSigVerifier(), make_hasher("cpu"))
+    check(twin.ledger_manager.last_closed_ledger_num() == R_TIP,
+          "M1: the twin starts at %d" % R_TIP)
+    traffic = CloseTraffic(twin.ledger_manager,
+                           T.root_secret_key(LEDGER_NETWORK_ID),
+                           senders=CLOSE_TXS,
+                           corrupt_every=CLOSE_CORRUPT_EVERY)
+    lane_ref = CudaBatchHasher(device="cpu")
+    valid, admit_s = [], []
+    # 3. force-scp, then run
+    out = m1_cli(steps, "force-scp", "force-scp", "--conf", conf)
+    check(out.strip() == "force-scp set", "M1: force-scp sets the flag")
+    node = M1Node(d, conf, port, "1")
+    try:
+        steps.append(("run (to its admin port)", node.wait_port()))
+        info = m1_http(port, "info")
+        check(info["ledger"]["num"] == R_TIP and info["state"] == "Synced!"
+              and info["ledger"]["synced"],
+              "M1: info at LCL %d, synced (%s, %s)"
+              % (R_TIP, info["ledger"]["num"], info["state"]))
+        seen = set()
+        st = {"hasher": lane_ref, "seen": set(),
+              "slot_hashes": [SC.ZERO_HASH] * 22}
+        want_v = want_h = 0
+        t0 = time.perf_counter()
+        for k in range(M1_ROUNDS):
+            v_k, h_k, a_s, n_ok = m1_round(port, twin, traffic,
+                                           R_TIP + 1 + k, seen, st, S, SC,
+                                           db_path)
+            want_v += v_k
+            want_h += h_k
+            admit_s.append(a_s)
+            valid.append(n_ok)
+        steps.append(("%d loaded closes" % M1_ROUNDS,
+                      time.perf_counter() - t0))
+        v, h = m1_counts(port)
+        got = m1_check_card("M1 run", v, h, want_v, want_h)
+        launches["verify"] += got[0]
+        launches["sha256"] += got[1]
+        prom = m1_http(port, "metrics?format=prometheus")
+        check(isinstance(prom, str) and "# TYPE sct_" in prom
+              and "# HELP " in prom,
+              "M1: the Prometheus exposition parses")
+        fp = m1_http(port, "footprint")
+        check(fp["over_capacity"] == [] and fp["structs"],
+              "M1: footprint has no structure over capacity")
+        health = m1_http(port, "health")
+        check(health["breakers"]["verifier"]["state"] == "closed"
+              and health["breakers"]["hasher"]["state"] == "closed"
+              and health["synced"], "M1: health shows both breakers "
+              "closed and the node synced (%s)" % health["status"])
+        log("M1 endpoints (%s): verifier drains %s, hasher drains %s; "
+            "Prometheus %d series lines; footprint %d structures, RSS %s "
+            "MB, %s threads; health %s %s"
+            % (card, v["drains"]["by_backend"], h["drains"]["by_backend"],
+               sum(1 for l in prom.splitlines() if l and l[0] != "#"),
+               len(fp["structs"]), fp["process"]["rss_mb"],
+               fp["process"]["threads"], health["status"],
+               health["problems"]))
+        # 4. restart: SIGINT saves the warmup plan
+        plan = os.path.join(_build.BUILD_DIR, CudaSigVerifier.PLAN_BASENAME)
+        t_stop = time.time()
+        steps.append(("run stop (SIGINT)", node.stop()))
+    finally:
+        node.close()
+    check(os.path.exists(plan) and os.path.getmtime(plan) >= t_stop - 1,
+          "M1: the stop saved the warmup plan (%s)" % plan)
+    node = M1Node(d, conf, port, "2")
+    try:
+        steps.append(("run again (to its admin port)", node.wait_port()))
+        info = m1_http(port, "info")
+        top = R_TIP + M1_ROUNDS
+        check(info["ledger"]["num"] == top and info["state"] == "Synced!",
+              "M1: after the restart info at LCL %d, synced (%s)"
+              % (top, info["ledger"]["num"]))
+        seen2 = set()
+        st2 = {"hasher": lane_ref, "seen": set(),
+               "slot_hashes": [SC.ZERO_HASH] * 22}
+        t0 = time.perf_counter()
+        v_k, h_k, a_s, n_ok = m1_round(port, twin, traffic, top + 1, seen2,
+                                       st2, S, SC, db_path)
+        admit_s.append(a_s)
+        valid.append(n_ok)
+        steps.append(("1 loaded close", time.perf_counter() - t0))
+        v, h = m1_counts(port)
+        got = m1_check_card("M1 restart", v, h, v_k, h_k)
+        launches["verify"] += got[0]
+        launches["sha256"] += got[1]
+        steps.append(("run stop (SIGINT)", node.stop()))
+    finally:
+        node.close()
+    out = m1_cli(steps, "offline-info", "offline-info", "--conf", conf)
+    info = json.loads(out)
+    check(info["ledger"]["num"] == top + 1,
+          "M1: offline-info after the stop at %d (%s)"
+          % (top + 1, info["ledger"]["num"]))
+    r_stop(twin)
+    total = time.perf_counter() - t_all
+    log("M1 steps (%s), seconds with each process's start-up: %s; %.1f s "
+        "in all" % (card, ", ".join("%s %.2f" % kv for kv in steps),
+                    total))
+    per_tx = [s_ * 1e3 / CLOSE_TXS for s_ in admit_s]
+    log("M1 (%s): catchup 1-%d (%d ledgers) on the card, verify drains %s, "
+        "SHA-256 %d; %d + 1 loaded closes of %d payments (%s valid), every "
+        "header, bucket-list hash and commitment root == the C-verifier "
+        "twin's; admissions through `tx` %.2f ms a payment (mean of "
+        "rounds; each request's round trip alone, the twin's derivation "
+        "outside it); launches by kernel %s"
+        % (card, R_TIP, R_TIP - 1, want_drains, hs, M1_ROUNDS, CLOSE_TXS,
+           valid, float(np.mean(per_tx)), launches))
+    return launches
+
 def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
     """R1-R5 of the module docstring; returns the launches by kernel."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_catchup_") as tmp:
@@ -4773,16 +5266,18 @@ def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
         r2 = r2_complete(S, E, K, SC, tmp, r1, flight_dir, card)
         r2p = r2_complete(S, E, K, SC, tmp, r1, flight_dir, card,
                           native=False)
-        check(r2["drain_launches"] == r2p["drain_launches"]
+        first = r2p["drain_launches"]
+        check(r2["drain_launches"][:len(first)] == first
               and sum(r2["drain_launches"]) == r2["verify"]
-              == r2p["verify"],
-              "R2p: the same launches as R2 (%s, %d), all in the drains"
-              % (r2p["drain_launches"], r2p["verify"]))
+              and sum(first) == r2p["verify"],
+              "R2p: the launches of R2's first checkpoint (%s, %d), all in "
+              "the drains" % (first, r2p["verify"]))
         log("R2 against R2p (%s): %.2f against %.2f ledgers/s, "
             "catchup.apply_ledger mean %.1f against %.1f ms (apply engine "
-            "against Python phases), %d launches each"
+            "to %d against Python phases to %d), %d and %d launches"
             % (card, r2["ledgers_per_s"], r2p["ledgers_per_s"],
-               r2["apply_ms"], r2p["apply_ms"], r2["verify"]))
+               r2["apply_ms"], r2p["apply_ms"], R_TIP, R_FREQ - 1,
+               r2["verify"], r2p["verify"]))
         for got in (r2, r2p):
             for k in out:
                 out[k] += got[k]
@@ -4793,6 +5288,11 @@ def catchup_path(S, E, K, SC, flight_dir: str, card: str) -> dict:
         got = r5_faults(S, E, K, SC, tmp, r1, flight_dir)
         for k in out:
             out[k] += got[k]
+        # the operator's node, while R1's archive and publisher are here
+        E.LAUNCHES = S.LAUNCHES = 0
+        out["main M1"] = m1_main(S, E, K, SC, tmp, r1, r2, card)
+        check(E.LAUNCHES == S.LAUNCHES == 0, "M1: this process launched "
+              "nothing; the node's processes did")
         r_stop(r1["pub"])
     return out
 
@@ -5612,15 +6112,16 @@ def o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
 
 
 class TcpNet:
-    """O2's nodes (`torch_app_harness.Application`s on REAL_TIME clocks,
+    """O2's nodes (the port's `Application`s on REAL_TIME clocks,
     their overlay on localhost TCP), cranked in turn by one thread as
     `tests/test_overlay_tcp.py` cranks its nodes, in the shape
     `HerderProbe` reads: `nodes` (the relay's `Node`s, which stamp each
     externalized value) and `step`, one `Application.crank` of every
     node. A crank longer than a quarter second is kept: on the async
     stack a node's multi-second validation holds every other node's next
-    envelope back, and the nomination timers then outrun the validations
-    (PERF.md §6, overlay)."""
+    envelope back; before the herder kept each txset's verdict, the
+    nomination timers then outran the validations and a round stalled
+    for up to 135 s (ROADMAP Queue 3 item 11)."""
 
     def __init__(self, H, apps) -> None:
         from stellar_core_tpu_torch import xdr as X
@@ -5657,31 +6158,31 @@ class TcpNet:
         return pred()
 
 
-def o2_tcp(H, A, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+def o2_tcp(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
     """O2 of the module docstring; returns the launches by kernel."""
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
     from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
     from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.main.application import Application
     from stellar_core_tpu_torch.transactions.transaction_frame import (
         TransactionFrame,
     )
-    from stellar_core_tpu_torch.util.metrics import MetricsRegistry
     from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
     keys = [H.node_seed(i).public_key for i in range(O2_NODES)]
     qset = H.flat_qset(X, keys, O2_NODES - 1)
-    reg = MetricsRegistry(now_fn=time.perf_counter)
     apps = []
     for i in range(O2_NODES):
         cfg = H.node_config(i, qset, True, CLOSE_MAX_TX_SET_SIZE)
         cfg.MANUAL_CLOSE = False
         cfg.RUN_STANDALONE = False
         cfg.PEER_PORT = 0
-        app = A.Application(
-            VirtualClock(ClockMode.REAL_TIME), cfg,
-            verifier=lambda a: BV.make_verifier("cuda-async", clock=a.clock,
-                                                metrics=reg),
-            hasher=BH.make_hasher("cuda"))
+        # the node's own stacks: the async verifier on its clock, the bare
+        # hasher; no warmup, so every launch is the network's traffic
+        cfg.SIG_VERIFY_BACKEND, cfg.HASH_BACKEND = "cuda-async", "cuda"
+        cfg.SIG_VERIFY_WARMUP = False
+        cfg.FLIGHT_RECORDER_DIR = tmp
+        app = Application(VirtualClock(ClockMode.REAL_TIME), cfg)
         app.enable_buckets(os.path.join(tmp, "o2-%d" % i))
         apps.append(app)
     net = TcpNet(H, apps)
@@ -5820,12 +6321,12 @@ def o2_tcp(H, A, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
     check(S.LAUNCHES == probe.sha_owed, "O2: SHA-256 launches == %d "
           "derived from the bucket lists" % probe.sha_owed)
     n_dec = probe.check_decisions("O2")
-    check("crypto.verify.requeued" not in reg.to_json(),
+    mj = [a.metrics.to_json() for a in apps]
+    check(not any("crypto.verify.requeued" in m for m in mj),
           "O2: no dispatch requeued")
     check(probe.paths == Counter({"native": O2_NODES * (top - 1)})
           or set(probe.paths) == {"native"},
           "O2: every close ran in the apply engine (%s)" % dict(probe.paths))
-    mj = [a.metrics.to_json() for a in apps]
     name = "overlay.envelope.verify-latency.%s" % apps[0].sig_verifier.name
     lat = [m[name] for m in mj if name in m]
     d = hop_delays(net.nodes)
@@ -5851,8 +6352,9 @@ def o2_tcp(H, A, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
         "verifier meters %s" % (
             ", ".join("%.2f/t%d/%.2f" % (d_, k, t - t_start)
                       for d_, k, t in sorted(net.long_cranks)[-8:]),
-            {k: v.get("count") for k, v in reg.to_json().items()
-             if "requeued" in k or "failed" in k or "queue" in k}))
+            {k: v.get("count") for m in mj for k, v in m.items()
+             if k.startswith(("crypto.verify", "verifier.queue"))
+             and ("requeued" in k or "failed" in k or "queue" in k)}))
     log("O2: frames received over the run: %s"
         % by_type_line(frames0, overlay_totals(net.nodes)))
     log("O2: host clock, %s; %s" % (
@@ -5880,13 +6382,12 @@ def overlay_path(S, E, K, SC, card: str) -> dict:
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
     H = harness("torch_herder_harness")
     SH = harness("torch_sim_harness")
-    A = harness("torch_app_harness")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_") as tmp:
         t0 = time.perf_counter()
         o1 = o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp, card)
         log("O1: %.1f s in all" % (time.perf_counter() - t0))
         t0 = time.perf_counter()
-        o2 = o2_tcp(H, A, S, E, K, SC, BV, BH, tmp, card)
+        o2 = o2_tcp(H, S, E, K, SC, BV, BH, tmp, card)
         log("O2: %.1f s in all" % (time.perf_counter() - t0))
     return {"verify": {"overlay O1": o1["verify"],
                        "overlay O2": o2["verify"]},
@@ -5911,6 +6412,7 @@ def main() -> int:
 def smoke(torch, args, flight_dir: str) -> int:
     """The phases of the module docstring, in order; raises on a failed
     check."""
+    t_smoke = time.perf_counter()
     from stellar_core_tpu_torch import _build
     from stellar_core_tpu_torch.graft_entry import entry
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
@@ -6146,8 +6648,19 @@ def smoke(torch, args, flight_dir: str) -> int:
     async_scp_phase(BV, K, E, S, rng, burst_pool, cpu_ref[n_drain:])
     breaker_phase(BV, K, E, S, drain, got, flight_dir)
 
+    # each later path's wall seconds, for the budget (PERF.md §5)
+    path_s = {}
+    t_path = t_smoke
+
+    def lap(name: str) -> None:
+        nonlocal t_path
+        now = time.perf_counter()
+        path_s[name] = round(now - t_path, 1)
+        t_path = now
+
     fleet = fleet_path(torch, vectors, corpus, drain, cpu_ref[:n_drain],
                        props)
+    lap("build, verify and fleet")
 
     shapes, hash_launches, records, want_leaves = hash_path(torch, rng,
                                                            props)
@@ -6159,22 +6672,30 @@ def smoke(torch, args, flight_dir: str) -> int:
     hash_layer_drains(S, E, native, SC, records, want_leaves, rng,
                       flight_dir, card)
     hash_breaker_phase(S, E, SC, rng, flight_dir)
+    lap("hash")
 
     # --- the ledger: bucket list and state commitment over 2^20 entries ---
     ledger = ledger_path(S, E, rng, flight_dir, card)
     ledger_launches = sum(ledger["launches"].values())
+    lap("ledger")
 
     # --- the close: LedgerManager closes of signed multisig ledgers -------
     closes = close_path(S, E, K, rng, flight_dir, card)
+    lap("close")
 
     # --- catchup: publish, replay checkpoints on the card, restart ---------
     catchup = catchup_path(S, E, K, SC, flight_dir, card)
+    lap("catchup and M1")
 
     # --- SCP and the herder: a tier-1 quorum reaching consensus ------------
     herder = herder_path(S, E, K, SC, card)
+    lap("herder")
 
     # --- overlay: the same quorum over authenticated peers, and TCP -------
     overlay = overlay_path(S, E, K, SC, card)
+    lap("overlay")
+    log("paths' wall seconds (%s): %s; %.1f s in all"
+        % (card, json.dumps(path_s), time.perf_counter() - t_smoke))
 
     main_b = buckets[DRAIN_CHUNK]
     main_s = shapes[HASH_MAIN_SHAPE]
@@ -6184,11 +6705,13 @@ def smoke(torch, args, flight_dir: str) -> int:
         "source": "stellar_core_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "stellar_core_tpu/ops/ed25519.py:328",
         "launches": launches + sum(closes["verify"].values())
-        + catchup["verify"] + sum(herder["verify"].values())
+        + catchup["verify"] + catchup["main M1"]["verify"]
+        + sum(herder["verify"].values())
         + sum(overlay["verify"].values()),
         "launches_by_path": {"verify main path": launches,
                              **closes["verify"],
                              "catchup": catchup["verify"],
+                             "main M1": catchup["main M1"]["verify"],
                              **herder["verify"], **overlay["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
@@ -6202,11 +6725,13 @@ def smoke(torch, args, flight_dir: str) -> int:
         "replaces": "stellar_core_tpu/ops/sha256.py:112",
         "launches": hash_launches + ledger_launches
         + sum(closes["sha256"].values()) + catchup["sha256"]
+        + catchup["main M1"]["sha256"]
         + sum(herder["sha256"].values())
         + sum(overlay["sha256"].values()),
         "launches_by_path": {"hash main path": hash_launches,
                              **ledger["launches"], **closes["sha256"],
                              "catchup": catchup["sha256"],
+                             "main M1": catchup["main M1"]["sha256"],
                              **herder["sha256"], **overlay["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],

@@ -18,16 +18,24 @@ a fix in either copy to the other. Nothing is left out. It reaches
 overlay as the reference does, through `getattr(app, "overlay_manager")`:
 `broadcast_message`, `random_authenticated_peers`, `ledger_closed` and
 `stats.record_envelope` are live on the port's `overlay/OverlayManager`
-(a test's relay object may still stand in for it). The application's
-`out_of_sync_recovery` hook lies idle until `main/application.py` is
-ported (ROADMAP Queue 1 item 8). Deliberately different: the herder needs the app's
+(a test's relay object may still stand in for it). An application may
+install an `out_of_sync_recovery` hook, which overrides the herder's own
+recovery path, as in the reference (`tests/test_torch_node.py` runs
+both). Deliberately different: the herder needs the app's
 `sig_verifier` and raises TypeError without one (the reference's
 envelope and admission checks fall back to a CpuSigVerifier), and a
 failed drain fails the envelope or the admission with nothing verified
-on the CPU. Kept from the reference's design and slow: each envelope
-that arrives uncached is flushed on its own (`recv_scp_envelope`), one
-verify launch per envelope; and a nominated value's signature is
-checked through `PubKeyUtils.verify_sig`, on the host.
+on the CPU; and `validate_value` checks a nominated txset against the
+LCL once per (LCL hash, txset hash), keeping the verdict in
+`HerderSCPDriver.txset_valid_cache` as stellar-core's HerderSCPDriver
+keeps its txset validity cache, where the reference checks it again at
+each nomination that carries it: under load on the async verify stack
+those checks outran the nomination timers and stalled consensus for
+100 s and more (ROADMAP Queue 3 item 11). Kept from the reference's
+design and slow: each envelope that arrives uncached is flushed on its
+own (`recv_scp_envelope`), one verify launch per envelope; and a
+nominated value's signature is checked through `PubKeyUtils.verify_sig`,
+on the host.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 from ..crypto.hashing import sha256
 from ..scp.driver import SCPDriver, ValidationLevel
 from ..scp.scp import SCP
+from ..util.cache import RandomEvictionCache
 from ..util.log import get_logger
 from ..util.threads import main_thread_only
 from ..util.timer import VirtualTimer
@@ -52,6 +61,8 @@ from .txset import TxSetFrame, _xor
 from .upgrades import Upgrades
 
 log = get_logger("Herder")
+
+TXSET_VALID_CACHE_SIZE = 1000
 
 
 class HerderState:
@@ -72,6 +83,9 @@ class HerderSCPDriver(SCPDriver):
         # consensus cockpit: the envelope/round hook sites in scp/
         # read this attribute off the driver (Herder builds it first)
         self.scp_stats = getattr(herder, "scp_stats", None)
+        # a nominated txset's verdict against the LCL, by (LCL hash,
+        # txset hash): the LCL fixes the state it is checked against
+        self.txset_valid_cache = RandomEvictionCache(TXSET_VALID_CACHE_SIZE)
 
     # -- envelope signing ----------------------------------------------------
     def _envelope_sign_bytes(self, st) -> bytes:
@@ -135,9 +149,13 @@ class HerderSCPDriver(SCPDriver):
         if nomination:
             if txset.previous_ledger_hash != lm.lcl_hash:
                 return ValidationLevel.INVALID
-            ltx_root = lm.ltx_root()
-            ok, _removed = txset.check_or_trim(
-                ltx_root, self.herder.verifier, trim=False)
+            key = (lm.lcl_hash, sv.txSetHash)
+            ok = self.txset_valid_cache.maybe_get(key)
+            if ok is None:
+                ltx_root = lm.ltx_root()
+                ok, _removed = txset.check_or_trim(
+                    ltx_root, self.herder.verifier, trim=False)
+                self.txset_valid_cache.put(key, ok)
             if not ok:
                 return ValidationLevel.INVALID
         if not self._upgrades_valid(sv, nomination):

@@ -3,8 +3,7 @@
 
 Copied from `stellar_core_tpu/herder/ingress.py` at commit 02f8fbd;
 carry a fix in either copy to the other. Nothing is left out. Its admin
-surface (`ingress?action=...`) is the reference's command handler, not
-ported (ROADMAP Queue 1 item 8).
+surface (`ingress?action=...`) is `main/command_handler.py`'s.
 
 Role parity: the reference absorbs submission overload inside the pool
 (surge pricing + eviction) and per-peer flood buckets; DSig (PAPERS.md,

@@ -2,9 +2,8 @@
 
 Copied from `stellar_core_tpu/overlay/overlay_manager.py` at commit
 02f8fbd; carry a fix in either copy to the other. Nothing is left out.
-Until `main/application.py` is ported (ROADMAP Queue 1 item 8), the caller
-builds it after the node's herder and starts it unless RUN_STANDALONE, as
-the reference's Application does.
+`main/application.py` builds it after the node's herder and starts it
+unless RUN_STANDALONE.
 
 Role parity: reference `src/overlay/OverlayManagerImpl.{h,cpp}` — owns the
 listening door, the pending/authenticated peer sets, the periodic tick that

@@ -3,8 +3,8 @@
 
 Copied from `stellar_core_tpu/overlay/overlay_stats.py` at commit d7c5801;
 carry a fix in either copy to the other. Nothing is left out. Its `to_json`
-also serves the admin `overlaystats` endpoint and the Prometheus rendering,
-which come with `main/command_handler.py` (ROADMAP Queue 1 item 8).
+also serves the admin `overlaystats` endpoint and the Prometheus rendering
+(`main/command_handler.py`).
 
 One instance per OverlayManager, shared by every layer that touches the
 wire — `Peer` (per-message-type byte accounting on both directions,

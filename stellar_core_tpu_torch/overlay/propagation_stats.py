@@ -3,8 +3,8 @@
 
 Copied from `stellar_core_tpu/overlay/propagation_stats.py` at commit
 93d3a3a; carry a fix in either copy to the other. Nothing is left out. Its
-`to_json` also serves the admin `propagation` endpoint, which comes with
-`main/command_handler.py` (ROADMAP Queue 1 item 8).
+`to_json` also serves the admin `propagation` endpoint
+(`main/command_handler.py`).
 
 The sixth cockpit. Where OverlayStats answers "how many bytes moved",
 this one answers "which edges moved them, and which were wasted": every

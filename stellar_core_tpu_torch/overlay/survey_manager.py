@@ -4,8 +4,8 @@ Copied from `stellar_core_tpu/overlay/survey_manager.py` at commit d7c5801;
 carry a fix in either copy to the other. Nothing is left out. Request and
 response signatures are checked on the host through
 `PubKeyUtils.verify_sig`, as the reference does; the sealed boxes go
-through crypto/curve25519.py. The `getsurveyresult` admin command comes
-with `main/command_handler.py` (ROADMAP Queue 1 item 8).
+through crypto/curve25519.py. The `getsurveyresult` admin command is
+`main/command_handler.py`'s.
 
 Role parity: reference `src/overlay/SurveyManager.{h,cpp}` +
 `SurveyMessageLimiter.cpp` — a surveyor broadcasts ed25519-signed

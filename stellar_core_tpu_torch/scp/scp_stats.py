@@ -3,9 +3,8 @@
 
 Copied from `stellar_core_tpu/scp/scp_stats.py` at commit a6220d9; carry
 a fix in either copy to the other. Nothing is left out. Its readers
-outside the port's herder (the admin `scpstats` endpoint, the health
-rollup and `util/fleet.py`) are not ported; ROADMAP Queue 1 item 8
-brings them.
+outside the port's herder are the admin `scpstats` endpoint and the
+`health` rollup (`main/command_handler.py`) and `util/fleet.py`.
 
 The seventh cockpit. Six cockpits aim every subsystem *except the one
 the paper is about*: SCP itself had only the slot-timeline event

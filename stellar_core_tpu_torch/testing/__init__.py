@@ -1,8 +1,8 @@
 """Test DSL: in-memory ledger + account helpers for building/applying txs.
 
 Copied from `stellar_core_tpu/testing/__init__.py` at commit 378eae4;
-carry a fix in either copy to the other. `AppLedgerAdapter` is left out
-(it needs an `Application`, not ported yet). `TestLedger()` without a
+carry a fix in either copy to the other (`AppLedgerAdapter` runs over
+the port's `main/application.py`). `TestLedger()` without a
 verifier verifies on the card (`make_verifier()`); tests on the host pass
 `CpuSigVerifier()` or `CudaSigVerifier(device="cpu")`.
 
@@ -135,6 +135,52 @@ class TestLedger:
                 f.process_fee_seq_num(ltx, None)
             results = [f.apply(ltx, self.verifier) for f in frames]
         return results
+
+
+class AppLedgerAdapter:
+    """Adapts a full Application to the TestLedger account-DSL surface:
+    txs are submitted through the Herder and applied by consensus closes
+    (MANUAL_CLOSE)."""
+
+    def __init__(self, app) -> None:
+        self.app = app
+        self.network_id = app.config.network_id
+
+    def header(self) -> LedgerHeader:
+        return self.app.ledger_manager.lcl_header
+
+    def _root(self):
+        return self.app.ledger_manager.ltx_root()
+
+    def balance(self, account_id: PublicKey) -> int:
+        e = self._root().get_entry(LedgerKey.account(account_id))
+        assert e is not None, "no such account"
+        return e.data.value.balance
+
+    def account_exists(self, account_id: PublicKey) -> bool:
+        return self._root().get_entry(
+            LedgerKey.account(account_id)) is not None
+
+    def trust_balance(self, account_id, asset):
+        e = self._root().get_entry(
+            LedgerKey.trustline(account_id, asset))
+        assert e is not None
+        return e.data.value.balance
+
+    def seq_num(self, account_id: PublicKey) -> int:
+        e = self._root().get_entry(LedgerKey.account(account_id))
+        return e.data.value.seqNum if e is not None else 0
+
+    def apply_frame(self, frame) -> bool:
+        status = self.app.submit_transaction(frame)
+        if status != 0:
+            return False
+        self.app.manual_close()
+        from ..xdr import TransactionResultCode
+        return frame.result.code == TransactionResultCode.txSUCCESS
+
+    def root_account(self) -> "TestAccount":
+        return TestAccount(self, self.app.network_root_key())
 
 
 class TestAccount:

@@ -1,11 +1,8 @@
 """Deterministic fault injection: named fault points with seeded
 per-site schedules.
 
-Copied (`KNOWN_SITES`, `InjectedFault`, `FaultSite`, `FaultInjector`
-without its `SCT_FAULTS` spec parser and its `clear` / `configured`)
-from `stellar_core_tpu/util/faults.py` at commit 02ed56d, and
-`check_faults` (which the herder's ingress tier calls) at commit
-02f8fbd; carry a fix in either copy to the other. Each site
+Copied from `stellar_core_tpu/util/faults.py` at commit 02f8fbd; carry
+a fix in either copy to the other. Nothing is left out. Each site
 draws from its own `random.Random("<seed>:<site>")` in the same order as
 the reference, so one seed and one configuration fire on the same calls
 on both stacks.
@@ -15,6 +12,9 @@ on both stacks.
 - Every injection is counted in metrics (`fault.injected.<site>`) and,
   with an enabled tracer, tagged on the innermost open span and emitted
   as an instant.
+- Configured from Config.FAULTS (TOML table), the `SCT_FAULTS` env spec
+  (`configure_from_spec`), or at runtime through the admin
+  `faults?action=...` endpoint (`main/command_handler.py`).
 
 `should_fire(site)` on an unconfigured site is one dict miss.
 """
@@ -104,6 +104,47 @@ class FaultInjector:
         log.info("fault point %s armed: p=%g count=%s after=%d",
                  name, probability, count, after)
         return site
+
+    def configure_from_spec(self, spec: str) -> None:
+        """Parse `site:p=0.5,n=3,after=2;site2` (missing fields default to
+        p=1, unlimited, no skip) — the SCT_FAULTS env format. Operator
+        input: unknown site names raise, so a typo'd chaos run dies at
+        startup instead of soaking fault-free."""
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, argstr = part.partition(":")
+            if name.strip() not in KNOWN_SITES:
+                raise ValueError(
+                    "unknown fault site %r in SCT_FAULTS spec; known "
+                    "sites: %s" % (name.strip(),
+                                   ", ".join(sorted(KNOWN_SITES))))
+            kwargs: dict = {}
+            for kv in argstr.split(","):
+                kv = kv.strip()
+                if not kv:
+                    continue
+                k, _, v = kv.partition("=")
+                k = k.strip()
+                if k in ("p", "probability"):
+                    kwargs["probability"] = float(v)
+                elif k in ("n", "count"):
+                    kwargs["count"] = int(v)
+                elif k == "after":
+                    kwargs["after"] = int(v)
+                else:
+                    raise ValueError("unknown fault arg %r in %r" % (k, part))
+            self.configure(name.strip(), **kwargs)
+
+    def clear(self, name: Optional[str] = None) -> None:
+        if name is None:
+            self._sites.clear()
+        else:
+            self._sites.pop(name, None)
+
+    def configured(self) -> bool:
+        return bool(self._sites)
 
     # -- the hot check -------------------------------------------------------
     def should_fire(self, name: str) -> bool:

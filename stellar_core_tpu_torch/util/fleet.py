@@ -1,10 +1,10 @@
 """Fleet aggregation: N nodes' traces + slot timelines on one axis.
 
 Copied from `stellar_core_tpu/util/fleet.py` at commit a6220d9; carry a fix
-in either copy to the other. Nothing is left out. `add_http` reads a node's
-admin endpoints, which come with `main/command_handler.py` (ROADMAP Queue 1
-item 8); until then the in-process `add_app` is the port's way in. A node
-without a footprint census (`util/footprint.py`, item 8) exports none.
+in either copy to the other. Nothing is left out. `add_http` reads a live
+node's admin endpoints (`main/command_handler.py`), `add_app` a node in
+the same process; a node's footprint census (`util/footprint.py`, which
+`main/application.py` registers) rides along in both.
 
 Role parity: none in the reference — operators eyeball N dashboards.
 The committee-consensus measurement literature (arXiv:2302.00418, DSig

@@ -1,11 +1,14 @@
 """Metrics registry: counters, gauges, meters, timers, histograms.
 
-Copied (the registry and the parts of its metric types the verifier
-uses; not the Prometheus exposition or its HELP catalog) from
-`stellar_core_tpu/util/metrics.py` at commit 02ed56d; carry a fix in
-either copy to the other. Metric names and JSON
-shapes are the reference's, so `verifier.device.<i>.drains`,
-`verifier.device.<i>.breaker` and the rest read the same on both stacks.
+Copied from `stellar_core_tpu/util/metrics.py` at commit d7c5801; carry
+a fix in either copy to the other. Nothing is left out: the registry, its
+metric types, and the Prometheus exposition with its HELP catalog (the
+admin `metrics?format=prometheus` path). Deliberately different: the
+catalog is read from `docs/metrics.md` and `docs/metrics-torch.md`, which
+documents the metrics only the port registers (its card stacks refuse or
+requeue a drain where the reference falls back to the CPU). Metric names and JSON shapes are the
+reference's, so `verifier.device.<i>.drains`, `verifier.device.<i>.breaker`
+and the rest read the same on both stacks.
 
 Role parity: reference libmedida — a per-app registry exported as JSON.
 Rates come from a sliding window rather than EWMA; percentiles from a
@@ -14,10 +17,12 @@ bounded reservoir.
 
 from __future__ import annotations
 
+import os
+import re
 import threading
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -26,6 +31,9 @@ class Counter:
 
     def inc(self, n: int = 1) -> None:
         self.count += n
+
+    def dec(self, n: int = 1) -> None:
+        self.count -= n
 
     def set_count(self, n: int) -> None:
         self.count = n
@@ -43,6 +51,9 @@ class Gauge:
 
     def set(self, v: float) -> None:
         self.value = v
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
 
     def to_json(self) -> dict:
         return {"type": "gauge", "value": self.value}
@@ -126,6 +137,12 @@ class Histogram:
         idx = min(int(q * len(sorted_samples)), len(sorted_samples) - 1)
         return sorted_samples[idx]
 
+    def percentile(self, q: float) -> float:
+        return self._pick(sorted(self._samples), q)
+
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
     def snapshot(self) -> dict:
         """Atomic export: count/sum/min/max and the reservoir are
         captured under the update lock, then sorted outside it, so the
@@ -154,6 +171,21 @@ class Timer(Histogram):
     def __init__(self, now_fn: Callable[[], float] | None = None) -> None:
         super().__init__()
         self._now = now_fn or time.perf_counter
+
+    class _Ctx:
+        def __init__(self, t: "Timer") -> None:
+            self._t = t
+
+        def __enter__(self):
+            self._start = self._t._now()
+            return self
+
+        def __exit__(self, *exc):
+            self._t.update(self._t._now() - self._start)
+            return False
+
+    def time(self) -> "Timer._Ctx":
+        return Timer._Ctx(self)
 
     def to_json(self) -> dict:
         d = super().to_json()
@@ -206,3 +238,223 @@ class MetricsRegistry:
         return {name: m.to_json()
                 for name, m in sorted(items)
                 if prefix is None or name.startswith(prefix)}
+
+
+# -- Prometheus text exposition (docs/metrics.md#prometheus-exposition) ------
+#
+# `metrics?format=prometheus` renders the registry (plus the merged
+# crypto-boundary extras) in text exposition format 0.0.4 so real
+# deployments scrape nodes with stock Prometheus. The renderer consumes
+# the *JSON* export, not live metric objects: whatever the JSON endpoint
+# says is exactly what Prometheus sees, and the count/quantile pairs
+# come from one atomic Histogram.snapshot().
+
+def prometheus_name(name: str, prefix: str = "sct_") -> str:
+    """Name mangling: lowercase, every char outside [a-z0-9_] becomes
+    `_`, `sct_` namespace prefix, leading digits guarded. Documented in
+    docs/metrics.md — the drift-guard test keeps the catalog honest."""
+    out = "".join(c if (c.isascii() and (c.isalnum() or c == "_"))
+                  else "_" for c in name.lower())
+    if out and out[0].isdigit():
+        out = "_" + out
+    return prefix + out
+
+
+def _num(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    return repr(float(v))
+
+
+# -- HELP catalog (docs/metrics.md -> `# HELP` lines) -------------------------
+#
+# Real Prometheus/Grafana setups expect self-describing scrapes. The
+# HELP text is sourced from the docs/metrics.md catalog tables (the same
+# file the M1 drift guard keeps complete), parsed once per process:
+# exact names map directly, dynamic names (`fault.injected.<site>`) map
+# by the literal prefix before the first `<...>` placeholder.
+
+class HelpCatalog:
+    def __init__(self, exact: Dict[str, str],
+                 prefixes: List[Tuple[str, str, str]]) -> None:
+        self.exact = exact
+        # (prefix, suffix, text), most-specific-first: families that
+        # share a placeholder prefix (`overlay.recv.<type>.count` vs
+        # `.bytes`) are distinguished by the literal after the
+        # placeholder
+        self.prefixes = sorted(
+            prefixes, key=lambda kv: -(len(kv[0]) + len(kv[1])))
+
+    def lookup(self, name: str) -> Optional[str]:
+        t = self.exact.get(name)
+        if t is not None:
+            return t
+        for prefix, suffix, text in self.prefixes:
+            if name.startswith(prefix) and name.endswith(suffix) and \
+                    len(name) > len(prefix) + len(suffix):
+                return text
+        return None
+
+
+_HELP_CATALOG: Optional[HelpCatalog] = None
+
+
+def _strip_markdown(cell: str) -> str:
+    out = cell.replace("\\|", "|").replace("`", "")
+    out = re.sub(r"\[([^\]]*)\]\([^)]*\)", r"\1", out)   # [text](link)
+    return " ".join(out.split())
+
+
+def load_help_catalog(path: Optional[str] = None) -> HelpCatalog:
+    """Parse the catalog tables into {metric: help-text}: `docs/metrics.md`
+    and `docs/metrics-torch.md` (the metrics only the port registers), or
+    the one file at `path`. Cached after the first call (the docs ship
+    with the package); a missing or unreadable file degrades to an empty
+    catalog — the exposition then falls back to the metric name itself."""
+    global _HELP_CATALOG
+    if _HELP_CATALOG is not None and path is None:
+        return _HELP_CATALOG
+    cache = path is None
+    if path is None:
+        docs = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))), "docs")
+        paths = [os.path.join(docs, "metrics.md"),
+                 os.path.join(docs, "metrics-torch.md")]
+    else:
+        paths = [path]
+    exact: Dict[str, str] = {}
+    prefixes: List[Tuple[str, str, str]] = []
+    for p in paths:
+        try:
+            with open(p, encoding="utf-8") as fh:
+                text = fh.read()
+        except OSError:
+            text = ""
+        _parse_catalog(text, exact, prefixes)
+    catalog = HelpCatalog(exact, prefixes)
+    if cache:
+        _HELP_CATALOG = catalog
+    return catalog
+
+
+def _parse_catalog(text: str, exact: Dict[str, str],
+                   prefixes: List[Tuple[str, str, str]]) -> None:
+    for line in text.splitlines():
+        line = line.strip()
+        if not line.startswith("|"):
+            continue
+        cells = re.split(r"(?<!\\)\|", line.strip("|"))
+        if len(cells) < 3:
+            continue
+        names = re.findall(r"`([^`]+)`", cells[0])
+        meaning = _strip_markdown(cells[-1])
+        if not meaning or meaning.lower() == "meaning":
+            continue
+        for name in names:
+            name = name.strip()
+            if not name or name.startswith((".", "-")):
+                continue   # shorthand continuation like `-miss`
+            if "<" in name:
+                prefix = name.split("<", 1)[0]
+                suffix = name.rsplit(">", 1)[-1] if ">" in name else ""
+                prefixes.append((prefix, suffix, meaning))
+            else:
+                exact[name] = meaning
+
+
+def _help_text(s: str) -> str:
+    # exposition-format escaping for HELP lines
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def render_prometheus(metrics_json: Dict[str, dict],
+                      prefix: str = "sct_",
+                      help_catalog: Optional[HelpCatalog] = None) -> str:
+    """Registry JSON -> exposition text. Mapping:
+
+    - counter / gauge      -> gauge (medida counters can be set/decremented)
+    - meter                -> `<n>_total` counter + `<n>_rate{window="1m|5m|15m"}` gauges
+    - timer / histogram    -> summary (`quantile` labels, `_sum`, `_count`)
+                              + `<n>_min` / `<n>_max` gauges
+    - bare `{count: N}`    -> gauge (the merged crypto-boundary extras)
+
+    Two source names that mangle to the same series keep only the
+    first (sorted source order); the duplicate is emitted as a comment
+    so the collision is visible in the scrape body.
+
+    With `help_catalog` (the admin endpoint passes the docs/metrics.md
+    catalog), every `# TYPE` line is preceded by a `# HELP` line whose
+    text comes from the catalog where available, falling back to the
+    source metric name — real Prometheus/Grafana setups then get
+    self-describing scrapes.
+    """
+    lines: List[str] = []
+    emitted: set = set()
+    q_map = (("0.5", "median"), ("0.75", "p75"),
+             ("0.95", "p95"), ("0.99", "p99"))
+    for name in sorted(metrics_json):
+        m = metrics_json[name]
+        base = prometheus_name(name, prefix)
+        t = m.get("type")
+        help_text = None
+        if help_catalog is not None:
+            help_text = _help_text(help_catalog.lookup(name) or name)
+
+        def _help(series: str) -> None:
+            if help_text is not None:
+                lines.append("# HELP %s %s" % (series, help_text))
+        # reserve every series this metric will emit, not just the base:
+        # a counter named "foo.total" must not collide with meter "foo"'s
+        # generated `foo_total` either
+        if t == "meter":
+            series = {base + "_total", base + "_rate"}
+        elif t in ("timer", "histogram"):
+            series = {base, base + "_sum", base + "_count",
+                      base + "_min", base + "_max"}
+        else:
+            series = {base}
+        if series & emitted:
+            lines.append("# collision: %s maps onto already-emitted "
+                         "series %s (skipped)"
+                         % (name, sorted(series & emitted)))
+            continue
+        emitted |= series
+        if t == "meter":
+            _help(base + "_total")
+            lines.append("# TYPE %s_total counter" % base)
+            lines.append("%s_total %s" % (base, _num(m["count"])))
+            _help(base + "_rate")
+            lines.append("# TYPE %s_rate gauge" % base)
+            for w, k in (("1m", "1_min_rate"), ("5m", "5_min_rate"),
+                         ("15m", "15_min_rate")):
+                lines.append('%s_rate{window="%s"} %s'
+                             % (base, w, _num(m.get(k, 0.0))))
+        elif t in ("timer", "histogram"):
+            _help(base)
+            lines.append("# TYPE %s summary" % base)
+            for q, k in q_map:
+                lines.append('%s{quantile="%s"} %s'
+                             % (base, q, _num(m.get(k, 0.0))))
+            # sum reconstructed from the same snapshot's mean*count —
+            # still tear-free because both came from one snapshot()
+            lines.append("%s_sum %s" % (
+                base, _num(m.get("mean", 0.0) * m.get("count", 0))))
+            lines.append("%s_count %s" % (base, _num(m.get("count", 0))))
+            for k in ("min", "max"):
+                _help("%s_%s" % (base, k))
+                lines.append("# TYPE %s_%s gauge" % (base, k))
+                lines.append("%s_%s %s" % (base, k, _num(m.get(k, 0.0))))
+        elif t == "gauge":
+            _help(base)
+            lines.append("# TYPE %s gauge" % base)
+            lines.append("%s %s" % (base, _num(m.get("value", 0.0))))
+        elif "count" in m:   # counter or merged bare-count extra
+            _help(base)
+            lines.append("# TYPE %s gauge" % base)
+            lines.append("%s %s" % (base, _num(m["count"])))
+        # anything else (malformed entry) is skipped silently: the JSON
+        # endpoint remains the lossless export
+    return "\n".join(lines) + "\n"

@@ -1,8 +1,8 @@
 """Rolled-up per-subsystem status lines.
 
 Copied from `stellar_core_tpu/util/status_manager.py` at commit 183ecd9;
-carry a fix in either copy to the other. The `info` endpoint that renders
-the lines returns with the node's command handler.
+carry a fix in either copy to the other. The `info` endpoint renders the
+lines (`main/application.py`'s `get_info`).
 
 Role parity: reference `src/util/StatusManager.{h,cpp}` — a small
 category→message map; subsystems keep one human-readable line each

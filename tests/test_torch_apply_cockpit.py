@@ -2,9 +2,9 @@
 close, the frames, the SQL root, the bucket layer and the apply engine's
 glue) held against the JAX package's.
 
-Twelve of the fourteen cases of `tests/test_apply_cockpit.py` run on both
-packages from the reference's own source (`torch_mirror_harness.Mirror`),
-the port's node being `torch_app_harness.Application`. Every sealed
+Every case of `tests/test_apply_cockpit.py` (14) runs on both packages
+from the reference's own source (`torch_mirror_harness.Mirror`), the
+port's node being its own `main/application.py`. Every sealed
 close window (`ApplyStats.end_close`: path, bail, op counts, and the
 reads: SQL lookups by type, cache hits and misses, bucket reads, bulk-scan
 rows, read and write sets), every prefetch pass (`record_prefetch`),
@@ -14,11 +14,11 @@ and on the Python phases alike. The reference's `_drive_closes` makes
 its traffic with `LoadGenerator` (`simulation/`, not ported); both sides
 here take the next two closes of `tests/torch_close_harness.py`'s
 workload instead (funding, signers, trust lines, then the standard mix),
-built once as envelope bytes and submitted through each node's herder,
-and each case keeps its assertions. Left out: the two cases that read
-the admin endpoint and the Prometheus exposition
-(`test_applystats_endpoint_roundtrip`, `test_prometheus_series_roundtrip`;
-`main/command_handler.py`, ROADMAP Queue 1 item 8). The taxonomy case
+built once as envelope bytes and submitted through each node's herder
+(six closes for the exposition case, whose assertion reads a payment's
+count: the workload's first payments close sixth), and each case keeps
+its assertions, the admin endpoint's and the
+Prometheus exposition's included. The taxonomy case
 reads `docs/observability.md` through the reference's analysis package
 on both sides (the port has no `analysis/`). The only tolerance is the
 reference's own `_breakdown_sums` bound on the per-op parts' sum against
@@ -32,18 +32,17 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_close_harness as CH  # noqa: E402
-from torch_app_harness import APP_SUBS  # noqa: E402
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
 
 import stellar_core_tpu_torch.xdr as PX  # noqa: E402
 
 DRIVE = '''
-def _drive_closes(app, n_payments=6):
+def _drive_closes(app, n_payments=6, n_closes=2):
     import torch_close_harness as _CH
     from {pkg}.transactions.transaction_frame import TransactionFrame
     from {pkg}.xdr import TransactionEnvelope
     steps = _WORKLOADS.setdefault(id(app), _workload_steps(app))
-    for _ in range(2):
+    for _ in range(n_closes):
         for blob in next(steps):
             app.submit_transaction(TransactionFrame.make_from_wire(
                 app.config.network_id, TransactionEnvelope.from_xdr(blob)))
@@ -54,10 +53,15 @@ def _drive_closes(app, n_payments=6):
 _WORKLOADS = {}
 '''
 
-SUBS = APP_SUBS + (
+SUBS = (
     (r"from stellar_core_tpu_torch\.analysis\.crules import",
      "from stellar_core_tpu.analysis.crules import"),
     (r"(?ms)^def _drive_closes\(app, n_payments=6\):\n.*?\n\n\n", DRIVE),
+    # the exposition case reads a payment's op count: the workload's
+    # first payments close sixth (after funding, signers, trust lines,
+    # authorization and issuance)
+    (r"(?m)^(def test_prometheus_series_roundtrip\(app\):\n"
+     r"    _drive_closes\(app)\)", r"\1, n_closes=6)"),
 )
 
 
@@ -132,8 +136,7 @@ def _record_cockpit(pkg, log):
 
 MIRROR = Mirror(("test_apply_cockpit.py",), hook=_hook,
                 patch=_record_cockpit, subs=SUBS)
-CASES = MIRROR.cases(drop=("test_applystats_endpoint_roundtrip",
-                           "test_prometheus_series_roundtrip"))
+CASES = MIRROR.cases()
 
 
 # the cases that close no ledger: key collection, traits, the taxonomy
@@ -143,7 +146,8 @@ PURE = ("test_frame_traits_muxed_detection",
 
 
 def test_mirrors_twelve_cases():
-    assert len(CASES) == 12
+    """All fourteen, since the port has its admin endpoint."""
+    assert len(CASES) == 14
 
 
 @pytest.mark.parametrize("case", CASES, ids=Mirror.case_id)

@@ -2,19 +2,16 @@
 manager and the SQL root's bucket routing) held against the JAX
 package's.
 
-Eighteen of the twenty cases of `tests/test_bucketdb.py` run on both
-packages from the reference's own source (`torch_mirror_harness.Mirror`),
-the port's node being `torch_app_harness.Application`. Every point read
+Every case of `tests/test_bucketdb.py` (20) runs on both packages from
+the reference's own source (`torch_mirror_harness.Mirror`), the port's
+node being its own `main/application.py`. Every point read
 (`BucketDB.lookup`: key, served, entry bytes), every batched prefetch
 (`prefetch_batch`), every index BucketDB builds or loads (the SHA-256 of
 its sidecar bytes), and every read outcome and index build, load and
 load failure the cockpit counts (`BucketDbStats`) are recorded on both
 sides, and the two records are equal, in order (each side's bucket
 merges run on the closing thread here, so that the index builds happen in
-the data's order, not the merge workers'). Left out: the two cases that read
-the admin endpoint (`test_admin_endpoint_and_prometheus`,
-`test_endpoint_without_buckets`; `main/command_handler.py`, ROADMAP Queue
-1 item 8). Port-only: the port's `BucketIndex.to_bytes` equals the
+the data's order, not the merge workers'). Port-only: the port's `BucketIndex.to_bytes` equals the
 reference's for the same buckets, and each package loads the other's
 sidecar; `lookup` and `prefetch_batch` answer the same for every key of a
 seeded bucket list (live, tombstoned and absent keys) on both packages.
@@ -31,7 +28,6 @@ import sys
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_app_harness import APP_SUBS  # noqa: E402
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
 
 
@@ -75,21 +71,21 @@ def _record_bucketdb(pkg, log):
         yield
 
 
-MIRROR = Mirror(("test_bucketdb.py",), patch=_record_bucketdb,
-                subs=APP_SUBS)
-CASES = MIRROR.cases(drop=("test_admin_endpoint_and_prometheus",
-                           "test_endpoint_without_buckets"))
+MIRROR = Mirror(("test_bucketdb.py",), patch=_record_bucketdb)
+CASES = MIRROR.cases()
 # the cases that read no bucket list through BucketDB
 NO_READS = ("test_in_memory_db_root_not_attached",
             "test_prefetched_set_is_lru_bounded",
             "test_bloom_contains_every_added_key_and_reports_density",
             "test_index_sidecar_roundtrip_and_corruption",
             "test_index_offsets_match_the_on_disk_file",
-            "test_index_build_lookup_and_tombstones")
+            "test_index_build_lookup_and_tombstones",
+            "test_endpoint_without_buckets")
 
 
 def test_mirrors_eighteen_cases():
-    assert len(CASES) == 18
+    """All twenty, since the port has its admin endpoint."""
+    assert len(CASES) == 20
 
 
 @pytest.mark.parametrize("case", CASES, ids=Mirror.case_id)

@@ -1,13 +1,11 @@
 """The port's close-meta stream (`ledger/close_meta_stream.py` and the
 close's `_emit_close_meta`) held against the JAX package's.
 
-Six of the seven cases of `tests/test_close_meta_stream.py` run on both
-packages from the reference's own source (`torch_mirror_harness.Mirror`),
-the port's node being `torch_app_harness.Application`; every record a
-node writes (`CloseMetaStream.write_one`) is logged as its XDR bytes, and
-the two logs are equal record for record, byte for byte. Left out:
-`test_config_knob_roundtrip`, which needs `Config.from_toml` (ROADMAP
-Queue 1 item 8). Port-only: the same closes, on the apply engine and on
+Every case of `tests/test_close_meta_stream.py` (7) runs on both packages
+from the reference's own source (`torch_mirror_harness.Mirror`), the
+port's node being its own `main/application.py`; every record a node
+writes (`CloseMetaStream.write_one`) is logged as its XDR bytes, and the
+two logs are equal record for record, byte for byte. Port-only: the same closes, on the apply engine and on
 the Python phases, with a base-fee and a base-reserve upgrade, write the
 same stream file, byte for byte, on both packages; and the port's
 `read_close_meta_stream` reads the reference's file to the same values.
@@ -20,7 +18,6 @@ import sys
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_app_harness import APP_SUBS  # noqa: E402
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
 
 
@@ -33,13 +30,13 @@ def _record_stream(pkg, log):
     ])
 
 
-MIRROR = Mirror(("test_close_meta_stream.py",), patch=_record_stream,
-                subs=APP_SUBS)
-CASES = MIRROR.cases(drop=("test_config_knob_roundtrip",))
+MIRROR = Mirror(("test_close_meta_stream.py",), patch=_record_stream)
+CASES = MIRROR.cases()
 
 
 def test_mirrors_six_cases():
-    assert len(CASES) == 6
+    """All seven, since the port's Config reads TOML."""
+    assert len(CASES) == 7
 
 
 @pytest.mark.parametrize("case", CASES, ids=Mirror.case_id)
@@ -51,7 +48,8 @@ def test_port_equals_reference(case, tmp_path):
         sides[side] = MIRROR.run(side, case, {"tmp_path": d})
     assert sides["port"] == sides["ref"]
     _f, name, _i = case
-    if name != "test_dead_pipe_disables_stream_not_consensus":
+    if name not in ("test_dead_pipe_disables_stream_not_consensus",
+                    "test_config_knob_roundtrip"):
         assert sides["ref"], "the case wrote no record"
 
 
@@ -96,7 +94,8 @@ def test_stream_bytes_equal_reference(native, tmp_path):
     from stellar_core_tpu.main.application import Application as RApp
     from stellar_core_tpu.testing import AppLedgerAdapter as RAdapter
     from stellar_core_tpu_torch.ledger import close_meta_stream as PCMS
-    from torch_app_harness import AppLedgerAdapter, Application
+    from stellar_core_tpu_torch.main.application import Application
+    from stellar_core_tpu_torch.testing import AppLedgerAdapter
     rpath, ppath = str(tmp_path / "ref.xdr"), str(tmp_path / "port.xdr")
     rl = _closes("stellar_core_tpu", RApp, RAdapter, rpath, native)
     pl = _closes("stellar_core_tpu_torch", Application, AppLedgerAdapter,

@@ -30,6 +30,11 @@ around it held against the JAX package's.
 - No fallback: the herder and the queue raise TypeError without a
   verifier, and a failing drain fails the envelope and the admission
   with nothing verified on the CPU.
+- The txset validity cache, a deliberate difference (ROADMAP Queue 3
+  item 11): over the twin networks' slots each port node checks a
+  nominated txset against its LCL once, where the reference checks it
+  again at each nomination that carries it, and both externalize the
+  same values.
 """
 
 import hashlib
@@ -400,6 +405,60 @@ def cpu_verifies(monkeypatch):
     monkeypatch.setattr(PK, "raw_verify_batch",
                         lambda t: got.extend(t) or raw_batch(t))
     return got
+
+
+def count_nomination_checks(monkeypatch, mod_herder, mod_txset) -> dict:
+    """(node's LCL root, LCL hash, txset hash) -> the txset checks that a
+    package's `HerderSCPDriver.validate_value` made in nomination mode."""
+    counts, inside = {}, []
+    validate = mod_herder.HerderSCPDriver.validate_value
+    check = mod_txset.TxSetFrame.check_or_trim
+
+    def counted_validate(self, slot_index, value, nomination):
+        inside.append(nomination)
+        try:
+            return validate(self, slot_index, value, nomination)
+        finally:
+            inside.pop()
+
+    def counted_check(self, ltx_parent, verifier=None, trim=False):
+        if inside and inside[-1]:
+            k = (id(ltx_parent), self.previous_ledger_hash,
+                 self.get_contents_hash())
+            counts[k] = counts.get(k, 0) + 1
+        return check(self, ltx_parent, verifier, trim)
+
+    monkeypatch.setattr(mod_herder.HerderSCPDriver, "validate_value",
+                        counted_validate)
+    monkeypatch.setattr(mod_txset.TxSetFrame, "check_or_trim",
+                        counted_check)
+    return counts
+
+
+def test_nominated_txset_checked_once(tmp_path, networks, monkeypatch):
+    """Each port node checks a nominated txset against its LCL once
+    (`HerderSCPDriver.txset_valid_cache`); the reference checks it again
+    at each nomination that carries it. The values externalized are the
+    same."""
+    import stellar_core_tpu.herder.herder as RH
+    import stellar_core_tpu.herder.txset as RT
+    import stellar_core_tpu_torch.herder.herder as PH
+    import stellar_core_tpu_torch.herder.txset as PT
+    ref_checks = count_nomination_checks(monkeypatch, RH, RT)
+    port_checks = count_nomination_checks(monkeypatch, PH, PT)
+    ref = network("rrrr", tmp_path / "r", networks)
+    port = network("pppp", tmp_path / "p", networks)
+    tr = port_traffic(port)
+    for seq in SLOTS:
+        for k, blob in enumerate(slot_blobs(tr, seq)):
+            assert ref.submit(k % 4, blob) == port.submit(k % 4, blob)
+        ref.close_slot(seq)
+        port.close_slot(seq)
+        for a, b in zip(ref.nodes, port.nodes):
+            assert a.externalized[seq] == b.externalized[seq]
+    assert port_checks and set(port_checks.values()) == {1}
+    assert len(ref_checks) == len(port_checks)
+    assert sum(ref_checks.values()) > sum(port_checks.values())
 
 
 def test_herder_and_queue_raise_without_verifier(tmp_path):

@@ -6,8 +6,11 @@ Three checks, over every subpackage (the history and catchup slice's
 the SCP and herder slice's `scp` and `herder` modules, and the close
 cockpit's `ledger/apply_stats.py`, BucketDB's `bucket/bucket_index.py`,
 `invariant/` and `ledger/close_meta_stream.py`, and the overlay slice's
-`overlay/` modules, `crypto/curve25519.py` and `util/fleet.py` among
-them, named in the first): every port module imported in a fresh interpreter leaves
+`overlay/` modules, `crypto/curve25519.py` and `util/fleet.py`, and the
+main slice's `main/application.py`, `main/command_handler.py`,
+`main/commandline.py`, `main/maintainer.py`, `util/footprint.py`,
+`history/inferred_quorum.py` and the package's `__main__`, among them,
+named in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -94,7 +97,11 @@ def test_port_modules_import_no_jax():
               "overlay.overlay_stats", "overlay.propagation_stats",
               "overlay.flood_control", "overlay.load_manager",
               "overlay.survey_manager", "overlay.peer",
-              "overlay.overlay_manager"):
+              "overlay.overlay_manager",
+              # the main slice: the node, its admin API and command line
+              "main.application", "main.command_handler",
+              "main.commandline", "main.maintainer", "util.footprint",
+              "history.inferred_quorum", "__main__"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, os, sys\n"

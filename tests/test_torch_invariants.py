@@ -7,9 +7,8 @@ both packages from the reference's own source
 `check_on_operation`, and the manager's `enabled_names`, are recorded on
 both sides, and the two records are equal: each delta raises, or does
 not, with the same message on both. The end-to-end case closes a real
-ledger on each package's node, the port's being
-`torch_app_harness.Application` (a port node wired as the reference's
-Application wires one); an operation that mints lumens aborts the close
+ledger on each package's node (the port's
+`main/application.py`); an operation that mints lumens aborts the close
 on both with `InvariantDoesNotHold`. Port-only: a node whose invariant
 trips keeps its LCL and writes no close-meta record; and the bucket-apply
 check of `BucketListIsConsistentWithDatabase`, which raises
@@ -24,7 +23,6 @@ import sys
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_app_harness import APP_SUBS  # noqa: E402
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
 
 
@@ -40,8 +38,7 @@ def _record_invariants(pkg, log):
     return record_calls(log, targets)
 
 
-MIRROR = Mirror(("test_invariants.py",), patch=_record_invariants,
-                subs=APP_SUBS)
+MIRROR = Mirror(("test_invariants.py",), patch=_record_invariants)
 CASES = MIRROR.cases()
 
 
@@ -76,7 +73,8 @@ def test_tripped_invariant_keeps_lcl_and_writes_no_meta(tmp_path):
         PaymentOpFrame, PaymentResultCode,
     )
     from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
-    from torch_app_harness import AppLedgerAdapter, Application
+    from stellar_core_tpu_torch.main.application import Application
+    from stellar_core_tpu_torch.testing import AppLedgerAdapter
 
     path = str(tmp_path / "meta.xdr")
     cfg = Config.test_config(0)

@@ -7,10 +7,13 @@ T1 (threads), E1 (swallowed exceptions in consensus code), S1 (set order
 feeding consensus) and FL1 (floats in consensus code). The allowlist is
 the reference's own (`stellar_core_tpu/analysis/allowlist.txt`), each
 entry's path rewritten to the port's copy of the file, keeping the
-entries whose file the port has. Every finding must be covered by such
+entries whose file the port has and, where an entry names a function or
+class, whose file defines it (the port leaves out the `simulate`
+command until ROADMAP Queue 1 item 9). Every finding must be covered by such
 an entry, no file may fail to parse, and no entry may cover nothing:
 since the overlay slice brought `ShortHash` back, the port leaves out no
-allowlisted code.
+allowlisted code. The main slice's command line brings its finding with
+it (the key generation of `gen-seed`), covered by the reference's entry.
 """
 
 import os
@@ -20,6 +23,14 @@ from stellar_core_tpu.analysis.engine import LintConfig, run_analysis
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RULES = ("D1", "D2", "T1", "E1", "S1", "FL1")
+
+
+def defines(path, qual) -> bool:
+    """Whether the file at `path` defines the last name of `qual`."""
+    with open(path, encoding="utf-8") as fh:
+        return re.search(r"(?m)^\s*(def|class)\s+%s\b"
+                         % re.escape(qual.split(".")[-1]),
+                         fh.read()) is not None
 
 
 def port_allowlist(path) -> int:
@@ -34,8 +45,9 @@ def port_allowlist(path) -> int:
                      line.strip())
         if m is None or m.group(1) not in RULES:
             continue
-        if os.path.exists(os.path.join(REPO, "stellar_core_tpu_torch",
-                                       m.group(2))):
+        port = os.path.join(REPO, "stellar_core_tpu_torch", m.group(2))
+        if os.path.exists(port) and (m.group(3) is None or defines(
+                port, m.group(3)[1:])):
             kept.append(line.strip().replace(
                 "stellar_core_tpu/", "stellar_core_tpu_torch/", 1))
     with open(path, "w", encoding="utf-8") as fh:
@@ -66,3 +78,8 @@ def test_port_is_clean_under_the_reference_allowlist(tmp_path):
     paths = {f.path for f in res.findings}
     assert "stellar_core_tpu_torch/overlay/transport.py" in paths
     assert "stellar_core_tpu_torch/crypto/hashing.py" in paths
+    # the main slice's command line: the key generation of `gen-seed`
+    # (D2), allowlisted as in the reference; the admin API has no finding
+    main = sorted((f.rule, f.qualname) for f in res.findings
+                  if f.path.startswith("stellar_core_tpu_torch/main/"))
+    assert main == [("D2", "cmd_gen_seed")]

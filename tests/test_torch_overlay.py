@@ -2,20 +2,18 @@
 (`util/fleet.py`) held against the JAX package's.
 
 Every case of `tests/test_overlay.py` (17, the two `slow`-marked
-consensus cases included), of `tests/test_survey_load.py` (6) and the
-four in-process cases of `tests/test_fleet.py` runs on both packages from
-the reference's own source (`torch_mirror_harness.Mirror`); the port's
-side builds its nodes with `torch_sim_harness` (`Simulation`,
-`topologies`) and `torch_app_harness` (`Application`,
-`AppLedgerAdapter`). On both sides every handshake's outcome
+consensus cases included), of `tests/test_survey_load.py` (6) and nine of
+the ten of `tests/test_fleet.py` runs on both packages from the
+reference's own source (`torch_mirror_harness.Mirror`); the port's side
+builds its nodes with `torch_sim_harness` (`Simulation`, `topologies`)
+and its own `main/application.py` and `testing.AppLedgerAdapter`. On both sides every handshake's outcome
 (`accept_authenticated_peer`: who accepted whom), every peer drop and its
 reason, every floodgate record and broadcast, every envelope the herder
 took in and every close (sequence and ledger hash) are recorded, and the
-two records are equal, in order. Left out of `test_fleet.py`: the
-Prometheus, admin-endpoint and bench cases (`main/command_handler.py`
-and `util/metrics.py`'s exposition, ROADMAP Queue 1 item 8); the file's
-module-level import of the exposition helpers is cut from both sides'
-source. Tolerance: none.
+two records are equal, in order. Left out of `test_fleet.py`:
+`test_bench_multi_node_leg_emits_fleet_block`, which runs the JAX
+package's `bench.py` (the port's bench is ROADMAP Queue 1 item 12).
+Tolerance: none.
 """
 
 import os
@@ -24,35 +22,23 @@ import sys
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_app_harness import APP_SUBS  # noqa: E402
 from torch_mirror_harness import Mirror  # noqa: E402
 from torch_sim_harness import SIM_SUBS  # noqa: E402
 import torch_overlay_records as R  # noqa: E402
 
-FLEET_SUBS = (
-    (r"from (\w+)\.util\.metrics import \(\n    MetricsRegistry, "
-     r"prometheus_name, render_prometheus,\n\)",
-     r"from \1.util.metrics import MetricsRegistry"),
-)
-
 MIRROR = Mirror(("test_overlay.py", "test_survey_load.py", "test_fleet.py"),
                 patch=R.record_overlay,
-                subs=APP_SUBS + SIM_SUBS + FLEET_SUBS)
-CASES = MIRROR.cases(drop=(
-    "test_fleet_aggregator_against_live_http_node",
-    "test_prometheus_round_trips_through_exposition_parser",
-    "test_prometheus_endpoint_serves_whole_registry",
-    "test_prometheus_exposition_is_fully_typed_and_helped",
-    "test_prometheus_name_mangling_rules",
-    "test_bench_multi_node_leg_emits_fleet_block"))
+                subs=SIM_SUBS)
+CASES = MIRROR.cases(drop=("test_bench_multi_node_leg_emits_fleet_block",))
 
 
 def test_mirrors_twenty_seven_cases():
+    """Thirty-two, since the port has its admin endpoints."""
     by_file = {}
     for f, _n, _i in CASES:
         by_file[f] = by_file.get(f, 0) + 1
     assert by_file == {"test_overlay.py": 17, "test_survey_load.py": 6,
-                       "test_fleet.py": 4}
+                       "test_fleet.py": 9}
 
 
 @pytest.mark.parametrize("case", CASES, ids=Mirror.case_id)

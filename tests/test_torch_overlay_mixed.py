@@ -21,7 +21,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import torch_app_harness as PA  # noqa: E402
 import torch_sim_harness as PS  # noqa: E402
 
 from stellar_core_tpu import xdr as RX  # noqa: E402
@@ -36,6 +35,7 @@ from stellar_core_tpu.simulation.simulation import (  # noqa: E402
 from stellar_core_tpu.testing import AppLedgerAdapter as RAdapter  # noqa: E402
 from stellar_core_tpu_torch import xdr as PX  # noqa: E402
 from stellar_core_tpu_torch.crypto.keys import SecretKey as PSecretKey  # noqa: E402,E501
+from stellar_core_tpu_torch.testing import AppLedgerAdapter as PAdapter  # noqa: E402,E501
 from stellar_core_tpu_torch.overlay.transport import (  # noqa: E402
     LoopbackTransport as PLoopback,
 )
@@ -144,7 +144,7 @@ def test_mixed_overlay_network_agrees_and_carries_transactions():
 
     # a transaction at a port node applies at the reference nodes
     p2 = nodes[2]
-    proot = PA.AppLedgerAdapter(p2.app).root_account()
+    proot = PAdapter(p2.app).root_account()
     alice = PSecretKey.from_seed(sha256(b"mixed-alice"))
     frame = proot.tx([proot.op_create_account(alice.public_key, 10 ** 9)])
     assert p2.app.submit_transaction(frame) == 0

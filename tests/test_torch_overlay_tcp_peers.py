@@ -9,7 +9,7 @@ clock, so they are split over `test_torch_overlay_tcp*.py` to keep each
 file short; `torch_overlay_records.TCP_GROUPS` names the split, and the
 first file checks that it covers all thirteen. Each case runs on both
 packages from the reference's own source (`torch_mirror_harness.Mirror`),
-the port's nodes being `torch_app_harness.Application`s on REAL_TIME
+the port's nodes being its own `main/application.py` on REAL_TIME
 clocks. A real-time run's event order depends on the host's timing, so
 what is recorded on each side is what the run decides whatever the timing
 (`torch_overlay_records.record_tcp`): the pairs that authenticated and

@@ -100,11 +100,10 @@ def tcp_mirror(base_port: int):
     up (the reference's own file listens from 23400 and may run at the
     same time in another worker; each of the mirror's files takes a range
     of its own)."""
-    from torch_app_harness import APP_SUBS
     from torch_mirror_harness import Mirror
     return Mirror(("test_overlay_tcp.py",), patch=record_tcp,
-                  subs=APP_SUBS + ((r"(?m)^BASE_PORT = 23400$",
-                                    "BASE_PORT = %d" % base_port),))
+                  subs=((r"(?m)^BASE_PORT = 23400$",
+                         "BASE_PORT = %d" % base_port),))
 
 
 def tcp_sides(mirror, case, tmp_path) -> None:

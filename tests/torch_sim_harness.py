@@ -4,7 +4,8 @@ network of herder nodes for `chip_smoke.py`.
 `simulation/` is not ported yet (ROADMAP Queue 1 item 9); this module is a
 stand-in that goes when it is. `Simulation` follows
 `stellar_core_tpu/simulation/simulation.py:84-206` and `:250-436`: each
-node is a `torch_app_harness.Application` on its own virtual clock,
+node is the port's `Application` (verifying and hashing on the CPU) on
+its own virtual clock,
 joined either by the real overlay over in-process pipes (`OVER_PEERS`:
 `LoopbackTransport` pairs, wrapped in `ChaosTransport` when asked, each
 end attached with `OverlayManager.add_loopback_peer`) or by
@@ -31,11 +32,11 @@ from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_app_harness import Application  # noqa: E402
 from torch_herder_harness import Node, Relay  # noqa: E402
 
 from stellar_core_tpu_torch.crypto.hashing import sha256  # noqa: E402
 from stellar_core_tpu_torch.crypto.keys import SecretKey  # noqa: E402
+from stellar_core_tpu_torch.main.application import Application  # noqa: E402,E501
 from stellar_core_tpu_torch.main.config import Config  # noqa: E402
 from stellar_core_tpu_torch.overlay.overlay_manager import (  # noqa: E402
     OverlayManager,
@@ -151,6 +152,8 @@ class Simulation:
         cfg.DATABASE = "in-memory"
         cfg.INVARIANT_CHECKS = [".*"]
         cfg.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = True
+        # the reference's defaults; the port's Config names the card
+        cfg.SIG_VERIFY_BACKEND = cfg.HASH_BACKEND = "cpu"
         if cfg_tweak:
             cfg_tweak(cfg)
         app = Application(VirtualClock(ClockMode.VIRTUAL_TIME), cfg)
