@@ -517,7 +517,7 @@ on-verified relay), so the card's verify sits on every hop of a flood:
 
 O1. S1's 21 validators, quorum, card stacks, BucketDB, apply engine, CPU
    twin and traffic, with the relay taken out
-   (`tests/torch_sim_harness.py::OverlayNet`): each node linked to 8
+   (`tests/torch_herder_harness.py::OverlayNet`): each node linked to 8
    peers over authenticated loopback pipes (node i dials i+1 .. i+4 mod
    21; 84 links, each a full Hello/Auth handshake with its AuthCert
    verified on the host, the reference's `TARGET_PEER_CONNECTIONS`), the
@@ -560,6 +560,58 @@ O2. 4 validators in a 3-of-4 quorum, each the port's `Application` on a
    real clock here), the send-queue depth maximum, bytes sent over the
    sockets per round and the receipt -> relay delays.
 
+The simulation (`stellar_core_tpu_torch/simulation/`, the scenario lab
+`testing/scenarios.py`, the fuzzer `main/fuzz.py` and the hash-seed
+probe), after O2, each phase driven with the counts set to 0 just before
+it and read just after. A fleet built with no backend named is a fleet
+of card nodes: every node its own `Application` with its own
+`"cuda-resilient"` verifier and hasher, warming both kernels on its own
+threads at every start (a restart too), all in this one process and its
+one verify cache:
+
+G1. the scenario lab's six scenarios (churn, flood, partition, surge,
+   overload, checkpoint), `run_scenario(name, seed=1, scale="tier1")` on
+   the card's stacks, then each again with `backend="cpu"` as the twin
+   (the C verifier behind the card stack's own queue, and hashlib behind
+   the card hasher's routing, each counting what the card would launch
+   for the same calls). Checks: every assertion the scenario makes as it
+   runs; the card's block == the twin's less the fields that read the
+   host's clock (`tests/torch_sim_harness.py::comparable`: the fleet
+   view's slot latencies and skews, taken on the slot journal's
+   perf-counter stamps, the light clients' verify timings, and the churn
+   scenario's schedule, which follows its archive's `cp` subprocesses);
+   the header hash at every (node, height) both runs closed == the
+   twin's; every drain served by the card; each kernel's launches == the
+   nodes' drains plus one warmup per node start; the drains == the
+   twin's counts (churn excepted: its schedule follows the host's
+   clock). Prints each scenario's card and twin seconds, its launches,
+   its peak card memory and its slot latency p50 in virtual ms beside the
+   block's host-clock one; for overload also the priority goodput and
+   the applied p95 ratio. Past G1_CUT_AFTER_S seconds of the script
+   before G1, G1 runs only overload, churn and checkpoint, and says so;
+G2. the operator's commands, one process each (`python -m
+   stellar_core_tpu_torch`; the two `simulate`s beside `gen-fuzz`, then
+   the `run` node driven while the fuzzers and G3's probes run), with TOML
+   configs that name no backend:
+   `simulate --ledgers 8 --txs 100` (a fixed NODE_SEED) ends on the same
+   ledger hash as a second `simulate` whose config names "cpu", its verify
+   drains one at 128 lanes for each of its 900 admissions and none in a
+   close; a `run` node with ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING serves
+   `generateload?accounts=100&txs=0`, `manualclose`,
+   `generateload?accounts=0&txs=400` and three more `manualclose`s: its
+   `verifier` endpoint's drains == the 401 admissions, its `hasher`
+   endpoint's == the commitment's launches derived from a C-verifier
+   twin's bucket list, and the twin closing the node's values read back
+   from its SQL reaches the same header hash at every height;
+   `gen-fuzz --mode tx`, `fuzz --mode tx --input` and `fuzz --mode
+   overlay --iterations 300` exit 0, no handler raising; each command's
+   second line gives its launches, every drain the card's, each kernel's
+   launches == the drains plus the warmups;
+G3. the hash-seed probe (`python -m
+   stellar_core_tpu_torch.testing.hashseed_probe`, the card's stacks)
+   under PYTHONHASHSEED 1 and 2, side by side: byte-identical outputs;
+   its standard error's launch line as in G2.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -570,12 +622,13 @@ per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, each path's wall
 seconds on one line, a `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
-launches are the verify main path's, C2-C5p's, R2-R5's, M1's, S1-S2's
-and O1-O2's, the sha256 entry's the hash main path's, L2-L4's,
-C1-C5p's, R2-R5's, M1's, S1-S2's and O1-O2's, each split in
+launches are the verify main path's, C2-C5p's, R2-R5's, M1's, S1-S2's,
+O1-O2's and G1-G3's, the sha256 entry's the hash main path's, L2-L4's,
+C1-C5p's, R2-R5's, M1's, S1-S2's, O1-O2's and G1-G3's, each split in
 `launches_by_path`, R2, R2p and R3-R5 under `catchup`, M1 under `main
 M1`, S1 and S2 under `herder S1` and `herder S2`, O1 and O2 under
-`overlay O1` and `overlay O2`)
+`overlay O1` and `overlay O2`, G1-G3 under `simulation G1` to
+`simulation G3`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -697,8 +750,9 @@ LEDGER_NETWORK_ID = hashlib.sha256(
     b"Test SDF Network ; September 2015").digest()
 # the close phases (C1-C5): a state of CLOSE_STATE entries of the same mix
 # plus the network root account, restored at LEDGER_START through the
-# bucket applicator (2^18: at 2^19 C1 took 95.0 s on an H100's host, over
-# the 90 s a restore is given here); CLOSE_SENDERS senders, the first
+# bucket applicator (2^17 since the simulation path came: with 2^18 the
+# whole script ran 1,254 s on one H100's host, over the 1,200 s limit; at
+# 2^19 C1 took 95.0 s, over the 90 s a restore is given here); CLOSE_SENDERS senders, the first
 # CLOSE_TXS with CLOSE_SIGS signatures a payment (replay_bench's
 # txs_per_ledger=100, sigs_per_tx=20, bench.py:339-341), the rest with 2;
 # C3_CLOSES closes of the multisig mix, C4_CLOSES of the standard mix's
@@ -707,7 +761,7 @@ LEDGER_NETWORK_ID = hashlib.sha256(
 # an account restored in C1 and not yet paid, drawn so that each close
 # pays one account of each of levels 4-9 and the rest from level 10: the
 # close's reads of those accounts reach the deep levels' buckets.
-CLOSE_STATE = 1 << 18
+CLOSE_STATE = 1 << 17
 GENESIS_TOTAL_COINS = 10 ** 17
 CLOSE_MAX_TX_SET_SIZE = 10_000
 CLOSE_SENDERS, CLOSE_TXS, CLOSE_SIGS = 200, 100, 20
@@ -756,6 +810,24 @@ O2_ROUND_S = 300
 # offset by M1_AMOUNT_BASE so that no payment repeats one of R1's
 M1_ROUNDS = 4
 M1_AMOUNT_BASE = 1000
+# the simulation path (G1-G3): the scenario lab's six scenarios at their
+# tier-1 scale and seed 1, each on the card's stacks and again on the
+# CPU's; G1's card half is cut to G1_CUT when the script has already run
+# G1_CUT_AFTER_S seconds before it (the limit is 1,200 s)
+G1_SCENARIOS = ("churn", "flood", "partition", "surge", "overload",
+                "checkpoint")
+G1_CUT = ("overload", "churn", "checkpoint")
+G1_CUT_AFTER_S = 900
+# G2: `simulate` (the port's funds 100 senders where the reference's
+# stops at about 60; ROADMAP Queue 3 item 12), the `run` node's
+# `generateload` (accounts, then payments, then closes), and the overlay
+# fuzzer's iterations
+G2_LEDGERS, G2_TXS = 8, 100
+G2_ACCOUNTS, G2_PAYMENTS, G2_CLOSES = 100, 400, 4
+G2_FUZZ_ITERATIONS = 300
+# gen-fuzz's seed: its mutated envelope still decodes, so `fuzz --input`
+# takes it through the frame, the fee and sequence checks and the apply
+G2_FUZZ_SEED = 15
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the node's processes run from the checkout's root, unbuffered so their
 # output reaches its files as it is printed
@@ -3011,8 +3083,9 @@ def harness(name: str):
     `torch_catchup_harness` (`wire_node`, `enable_buckets`,
     `invariants_and_stream`: a node's ledger layer as the reference's
     Application builds it), `torch_herder_harness` (the relay, the node
-    builder, the traffic), `torch_sim_harness` (`OverlayNet`: the relay's
-    network over the real overlay)."""
+    builder, the traffic, and `OverlayNet`: the relay's network over the
+    real overlay), `torch_sim_harness` (`comparable`: a scenario block
+    without its host-clock fields)."""
     import importlib
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests")
@@ -4849,19 +4922,14 @@ def m1_http(port: int, path: str):
 
 def m1_cli(steps: list, what: str, *args) -> str:
     """`python -m stellar_core_tpu_torch <args>` from the checkout's root
-    in a process of its own; a non-zero exit fails M1. Records the step's
-    seconds (the process's start-up, torch's import and the built kernels'
-    load included) and returns its standard output."""
-    t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "stellar_core_tpu_torch"]
-                       + list(args), cwd=REPO, env=M1_ENV,
-                       capture_output=True, text=True, timeout=900)
-    steps.append((what, time.perf_counter() - t0))
-    if p.returncode != 0:
-        log("M1 %s stderr: %s" % (what, p.stderr[-4000:]))
-    check(p.returncode == 0, "M1: `%s` exits 0 (%d)"
-          % (" ".join(args[:1]), p.returncode))
-    return p.stdout
+    in a process of its own (`g_cli`); a non-zero exit fails M1. Records
+    the step's seconds (the process's start-up, torch's import and the
+    built kernels' load included) and returns its standard output."""
+    [(out, _err)] = g_cli(steps, [("M1 " + what,
+                                   ["stellar_core_tpu_torch"] + list(args),
+                                   None)])
+    steps[-1] = (what, steps[-1][1])
+    return "\n".join(out) + ("\n" if out else "")
 
 
 class M1Node:
@@ -5875,7 +5943,7 @@ class SeenBy:
             fg.add_record = add_record
 
 
-def o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
+def o1_overlay(H, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
     """O1 of the module docstring; returns the launches by kernel."""
     from stellar_core_tpu_torch import xdr as X
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
@@ -5892,7 +5960,7 @@ def o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp: str, card: str) -> dict:
                                BV.make_verifier("cuda"),
                                BH.make_hasher("cuda"))
         if net is None:
-            net = SH.OverlayNet(cfg.network_id)
+            net = H.OverlayNet(cfg.network_id)
         net.join("o%d" % i, app)
     degree = net.nodes[0].app.config.TARGET_PEER_CONNECTIONS
     check(degree == O1_DEGREE, "O1: each node targets %d peers, the "
@@ -6381,10 +6449,9 @@ def overlay_path(S, E, K, SC, card: str) -> dict:
     from stellar_core_tpu_torch.crypto import batch_hasher as BH
     from stellar_core_tpu_torch.crypto import batch_verifier as BV
     H = harness("torch_herder_harness")
-    SH = harness("torch_sim_harness")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_overlay_") as tmp:
         t0 = time.perf_counter()
-        o1 = o1_overlay(H, SH, S, E, K, SC, BV, BH, tmp, card)
+        o1 = o1_overlay(H, S, E, K, SC, BV, BH, tmp, card)
         log("O1: %.1f s in all" % (time.perf_counter() - t0))
         t0 = time.perf_counter()
         o2 = o2_tcp(H, S, E, K, SC, BV, BH, tmp, card)
@@ -6393,6 +6460,619 @@ def overlay_path(S, E, K, SC, card: str) -> dict:
                        "overlay O2": o2["verify"]},
             "sha256": {"overlay O1": o1["sha256"],
                        "overlay O2": o2["sha256"]}}
+
+
+class RecordedApps:
+    """While entered, every port `Application` a `Simulation` builds is
+    kept (`apps`, in order of construction; a restart is a new one), each
+    close it makes is recorded under (its index, sequence) with the
+    header hash (`closes`), and `restarted_at` is the highest LCL of the
+    fleet when a node is first restarted (None without a restart)."""
+
+    def __init__(self) -> None:
+        self.apps = []
+        self.closes = {}
+        self.restarted_at = None
+
+    def __enter__(self):
+        from stellar_core_tpu_torch.main.application import Application
+        from stellar_core_tpu_torch.simulation import simulation
+        rec = self
+        restart = simulation.Simulation.restart_node
+
+        def restart_node(sim, name):
+            if rec.restarted_at is None:
+                rec.restarted_at = max(
+                    n.app.ledger_manager.last_closed_ledger_num()
+                    for n in sim.nodes.values())
+            return restart(sim, name)
+
+        self._restart = restart
+        simulation.Simulation.restart_node = restart_node
+
+        class Recorded(Application):
+            def __init__(self, clock, config):
+                super().__init__(clock, config)
+                idx = len(rec.apps)
+                rec.apps.append(self)
+                lm = self.ledger_manager
+                close = lm.value_externalized
+
+                def value_externalized(lcd):
+                    out = close(lcd)
+                    rec.closes[(idx, lm.last_closed_ledger_num())] = \
+                        lm.lcl_hash.hex()
+                    return out
+
+                lm.value_externalized = value_externalized
+
+        self._mod, self._orig = simulation, simulation.Application
+        simulation.Application = Recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.Application = self._orig
+        self._mod.Simulation.restart_node = self._restart
+
+
+class TwinStacks:
+    """While entered, an `Application` whose config names "cpu" gets the
+    C verifier behind the card stack's own queue (`enqueue` probes the
+    process's cache and queues, `flush` and `prewarm_many` drain through
+    `verify_many`) and hashlib behind the card hasher's routing, and each
+    counts what the card's stacks would launch for the same calls: one
+    verify launch per 8,192-signature chunk of a drain, one SHA-256
+    launch per 4,096-message chunk of a `hash_many`'s messages of at most
+    16 blocks (`counts`). The twin's drains are the card's launches."""
+
+    def __init__(self) -> None:
+        self.counts = {"verify": 0, "sha256": 0}
+
+    def __enter__(self):
+        from stellar_core_tpu_torch.crypto import batch_hasher as BH
+        from stellar_core_tpu_torch.crypto import batch_verifier as BV
+        from stellar_core_tpu_torch.main import application as A
+        counts = self.counts
+        chunk = BV.CudaSigVerifier.BUCKETS[-1]
+        lanes = BH.CudaBatchHasher.LANE_BUCKETS[-1]
+        blocks = BH.CudaBatchHasher.BLOCK_BUCKETS[-1]
+
+        class Twin(BV.CpuSigVerifier):
+            # not "cpu": catchup then drains each checkpoint as on the
+            # card, where the C verifier's name skips that drain
+            name = "twin"
+            wants_prewarm = True
+
+            def warmup(self, wait: bool = False) -> None:
+                pass      # the C verifier has no kernel to warm
+
+            def enqueue(self, key, sig, msg):
+                return self._batch_enqueue(key, sig, msg)
+
+            def flush(self) -> None:
+                self._batch_flush()
+
+            def pending(self) -> int:
+                return len(self._pending)
+
+            def verify_many(self, triples):
+                counts["verify"] += -(-len(triples) // chunk)
+                return super().verify_many(triples)
+
+        class TwinHasher(BH.CpuBatchHasher):
+            def hash_many(self, msgs, site="other"):
+                n = sum(1 for m in msgs if (len(m) + 72) // 64 <= blocks)
+                counts["sha256"] += -(-n // lanes)
+                return super().hash_many(msgs, site=site)
+
+        make_v, make_h = A.make_verifier, BH.make_hasher
+
+        def make_verifier(backend, *a, **kw):
+            v = make_v(backend, *a, **kw)
+            if backend != "cpu":
+                return v
+            t = Twin()
+            t.__dict__.update(v.__dict__)
+            t._pending = []
+            t._max_pending = a[0] if a else kw.get("max_pending", 8192)
+            return t
+
+        def make_hasher(backend, *a, **kw):
+            h = make_h(backend, *a, **kw)
+            if backend != "cpu":
+                return h
+            t = TwinHasher()
+            t.__dict__.update(h.__dict__)
+            return t
+
+        self._saved = ((A, "make_verifier", make_v),
+                       (BH, "make_hasher", make_h))
+        A.make_verifier, BH.make_hasher = make_verifier, make_hasher
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def app_launches(app) -> dict:
+    """A node's drains and warmup launches, from its `verifier` and
+    `hasher` endpoints (the cockpits M1 reads over HTTP)."""
+    vs, _vk, vw, vb = m1_launches(app.command_handler.cmd_verifier({}),
+                                  "verify")
+    h = app.command_handler.cmd_hasher({})
+    hs, _hk, hw, _hb = m1_launches(h, "hash")
+    return {"verify": vs, "verify_warmup": vw, "verify_backends": vb,
+            "sha256": hs, "sha256_warmup": hw,
+            "hash_backends": sorted(k for k, d in h["drains"]
+                                    ["by_backend"].items()
+                                    if d.get("drains", 0))}
+
+
+def virtual_slot_p50_ms(apps) -> float:
+    """p50 over every node and slot of externalize - nominate.trigger on
+    the node's app clock (virtual in a simulation), in ms."""
+    lat = []
+    for app in apps:
+        tl = app.slot_timeline
+        for slot in list(tl._slots):
+            a, b = tl.first(slot, "nominate.trigger"), \
+                tl.first(slot, "externalize")
+            if a is not None and b is not None:
+                lat.append((b["t"] - a["t"]) * 1e3)
+    return float(np.percentile(lat, 50)) if lat else float("nan")
+
+
+def g1_scenario(SCN, SH, E, S, torch, name: str, card: str) -> dict:
+    """One scenario of G1 on the card and on its twin; returns the card's
+    launches by kernel and what the log line prints."""
+    from stellar_core_tpu_torch.crypto import keys as K
+    E.LAUNCHES = S.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    K.flush_verify_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_g1_") as wd:
+        t0 = time.perf_counter()
+        with RecordedApps() as rec:
+            block = SCN.run_scenario(name, seed=1, scale="tier1",
+                                     workdir=wd)
+        card_s = time.perf_counter() - t0
+    for app in rec.apps:
+        app.wait_for_warmups()
+    launches = {"verify": E.LAUNCHES, "sha256": S.LAUNCHES}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    per = [app_launches(app) for app in rec.apps]
+    drains = {"verify": sum(p["verify"] for p in per),
+              "sha256": sum(p["sha256"] for p in per)}
+    warm = {"verify": sum(p["verify_warmup"] for p in per),
+            "sha256": sum(p["sha256_warmup"] for p in per)}
+    check(all(p["verify_backends"] in ([], ["cuda"])
+              and set(p["hash_backends"]) <= {"cuda", "host-stream"}
+              for p in per),
+          "G1 %s: every drain of its %d nodes served by the card (%s)"
+          % (name, len(per), sorted({b for p in per for b in
+                                     p["verify_backends"]
+                                     + p["hash_backends"]})))
+    for k in ("verify", "sha256"):
+        check(launches[k] == drains[k] + warm[k],
+              "G1 %s: %s launches %d == the nodes' drains %d + %d warmup "
+              "launches (%d node starts)" % (name, k, launches[k],
+                                             drains[k], warm[k],
+                                             len(per)))
+    check(warm["verify"] >= len(per) and warm["sha256"] >= len(per),
+          "G1 %s: every node start warmed both kernels" % name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_g1t_") as wd:
+        K.flush_verify_cache()
+        t0 = time.perf_counter()
+        with TwinStacks() as twin, RecordedApps() as trec:
+            tblock = SCN.run_scenario(name, seed=1, scale="tier1",
+                                      workdir=wd, backend="cpu")
+        twin_s = time.perf_counter() - t0
+    check(E.LAUNCHES == launches["verify"]
+          and S.LAUNCHES == launches["sha256"],
+          "G1 %s: the twin launched nothing" % name)
+    check(SH.comparable(block) == SH.comparable(tblock),
+          "G1 %s: the card's block == the twin's, less the host-clock "
+          "fields" % name)
+    common = set(rec.closes) & set(trec.closes)
+    # after churn's restart the victim rejoins through its archive's `cp`
+    # subprocesses, and the close times that follow depend on the host's
+    # clock: each run's nodes agree among themselves (the scenario
+    # asserts it), card and twin only up to the restart
+    top = rec.restarted_at if name == "churn" else None
+    held = sorted(k for k in common if top is None or k[1] <= top)
+    differ = sorted(k for k in common if rec.closes[k] != trec.closes[k])
+    check(len(held) >= 2 and not [k for k in differ if k in held],
+          "G1 %s: every header hash at the %d (node, height) pairs both "
+          "runs closed%s == the twin's (differing: %s)"
+          % (name, len(held), "" if top is None else
+             " up to the restart at %d" % top, differ[:12]))
+    if name != "churn":
+        check(drains == twin.counts,
+              "G1 %s: the card's drains %s == the twin's, derived from "
+              "the same calls %s" % (name, drains, twin.counts))
+    a = block["assertions"]
+    extra = ""
+    if name == "overload":
+        extra = ", priority goodput %s, applied p95 ratio %s" % (
+            a["priority_goodput"], a["p95_ratio_vs_unloaded"])
+    log("G1 %s (%s): card %.2f s, twin %.2f s; %d node starts; launches "
+        "verify %d (%d drains + %d warmup; twin drains %d) sha256 %d (%d "
+        "+ %d; twin %d); peak card memory %.1f MiB; slot latency p50 "
+        "%.3f virtual ms (the block's host-clock p50 %.3f ms); %d "
+        "common (node, height) headers, %d held equal, %d differ after "
+        "the restart%s"
+        % (name, card, card_s, twin_s, len(per), launches["verify"],
+           drains["verify"], warm["verify"], twin.counts["verify"],
+           launches["sha256"], drains["sha256"], warm["sha256"],
+           twin.counts["sha256"], peak_mb,
+           virtual_slot_p50_ms(rec.apps),
+           block["fleet"]["slot_latency_p50_ms"], len(common), len(held),
+           len(differ), extra))
+    return launches
+
+
+def g_start(jobs: list) -> list:
+    """Each job `(what, args, env[, cwd])`, `python -m <args>` from `cwd`
+    (the checkout's root by default), in a process of its own, all
+    started now; its output and error go to temporary files. Returns the
+    handles for `g_wait`."""
+    procs = []
+    for what, args, env, *cwd in jobs:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((what, time.perf_counter(), out, err, subprocess.Popen(
+            [sys.executable, "-m"] + list(args), cwd=cwd[0] if cwd else REPO,
+            env=env or M1_ENV, stdout=out, stderr=err)))
+    return procs
+
+
+def g_stop(procs: list) -> None:
+    """Kill what `g_start` started and is still running; close its
+    files."""
+    for _w, _t, out, err, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+        err.close()
+
+
+def g_wait(steps: list, procs: list) -> list:
+    """Wait for `g_start`'s processes; a non-zero exit fails the phase.
+    Records each step's seconds (its process's start-up included) and
+    returns each one's standard output's and error's lines, in order."""
+    got = []
+    try:
+        done = {}
+        deadline = time.perf_counter() + 900
+        while len(done) < len(procs):
+            check(time.perf_counter() < deadline,
+                  "%s end within 900 s" % [w for w, *_ in procs])
+            for k, (_w, t0, _o, _e, p) in enumerate(procs):
+                if k not in done and p.poll() is not None:
+                    done[k] = time.perf_counter() - t0
+            time.sleep(0.02)
+        for k, (what, _t0, out, err, p) in enumerate(procs):
+            steps.append((what, done[k]))
+            out.seek(0)
+            err.seek(0)
+            o, e = out.read(), err.read()
+            if p.returncode != 0:
+                log("%s stderr: %s" % (what, e[-4000:]))
+            check(p.returncode == 0, "%s exits 0 (%d)"
+                  % (what, p.returncode))
+            got.append((o.splitlines(), e.splitlines()))
+    finally:
+        g_stop(procs)
+    return got
+
+
+def g_cli(steps: list, jobs: list) -> list:
+    """`g_start` then `g_wait`: the jobs side by side, their results."""
+    return g_wait(steps, g_start(jobs))
+
+
+def card_counts(what: str, nodes: list) -> tuple:
+    """Each node's `launch_counters` (a command's second line): every
+    drain served by the card, and the process's kernel launches == the
+    drains plus the warmups. Returns the (verify, SHA-256) launches."""
+    v = [n["verifier"] for n in nodes]
+    h = [n["hasher"] for n in nodes if "hasher" in n]
+    check(all(sorted(k for k, d in (x["drains"] or {}).items()
+                     if d["drains"]) in ([], ["cuda"]) for x in v)
+          and all("cpu" not in (x["drains"] or {}) for x in h),
+          "%s: every drain served by the card" % what)
+    vk = v[0]["counters"]["kernel_launches"]
+    check(vk == sum(x["counters"]["batches_dispatched"] + x["warmed"]
+                    for x in v),
+          "%s: verify launches %d == the nodes' drains + warmups" % (
+              what, vk))
+    hk = h[0]["counters"]["kernel_launches"] if h else 0
+    check(hk == sum(sum(x["dispatches"].values()) + x["warmed"]
+                    for x in h),
+          "%s: SHA-256 launches %d == the nodes' drains + warmups" % (
+              what, hk))
+    return vk, hk
+
+
+def g_conf(d: str, name: str, backend=None, port=None, extra=()) -> str:
+    """A TOML config of R1's network in `d`: a node seed, the genesis of
+    the close phases (R_FREQ, CLOSE_MAX_TX_SET_SIZE), SQL and buckets of
+    its own, and the two backend lines only where `backend` is named."""
+    from stellar_core_tpu_torch.crypto import strkey
+    from stellar_core_tpu_torch.crypto.hashing import sha256
+    from stellar_core_tpu_torch.crypto.keys import SecretKey
+    lines = [
+        "NETWORK_PASSPHRASE = %s" % json.dumps(R_PASSPHRASE),
+        "NODE_SEED = %s" % json.dumps(strkey.encode_seed(
+            SecretKey.from_seed(sha256(b"g2-node")).seed)),
+        "DATABASE = %s" % json.dumps("sqlite3://" + os.path.join(
+            d, name + ".db")),
+        "BUCKET_DIR_PATH = %s" % json.dumps(os.path.join(
+            d, name + "-buckets")),
+        "CHECKPOINT_FREQUENCY = %d" % R_FREQ,
+        "TESTING_UPGRADE_MAX_TX_SET_SIZE = %d" % CLOSE_MAX_TX_SET_SIZE]
+    if backend is not None:
+        lines += ["SIG_VERIFY_BACKEND = %s" % json.dumps(backend),
+                  "HASH_BACKEND = %s" % json.dumps(backend)]
+    if port is not None:
+        lines.append("HTTP_PORT = %d" % port)
+    path = os.path.join(d, name + ".toml")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines + list(extra)) + "\n")
+    return path
+
+
+def g2_simulate_jobs(d: str) -> list:
+    """G2's `simulate` on the card and its CPU twin, as `g_start` jobs."""
+    args = ["stellar_core_tpu_torch", "simulate", "--ledgers",
+            str(G2_LEDGERS), "--txs", str(G2_TXS), "--conf"]
+    return [("G2 simulate", args + [g_conf(d, "sim")], None),
+            ("G2 simulate (CPU twin)", args + [g_conf(d, "sim-twin", "cpu")],
+             None)]
+
+
+def g2_simulate(out: list, tout: list, card: str) -> tuple:
+    """G2's `simulate` checks on the two processes' output; returns the
+    card process's (verify, SHA-256) launches."""
+    rate, got = json.loads(out[0]), json.loads(out[1])
+    twin = json.loads(tout[1])
+    top = 1 + G2_TXS + G2_LEDGERS
+    check(got["ledger"] == twin["ledger"] == top
+          and got["hash"] == twin["hash"],
+          "G2 simulate: ledger %d, its hash == the CPU twin's (%s, %s)"
+          % (top, got["hash"][:16], twin["hash"][:16]))
+    v = got["launches"]["verifier"]
+    admissions = G2_TXS + G2_LEDGERS * G2_TXS
+    cuda = (v["drains"] or {}).get("cuda", {})
+    check(v["counters"]["batches_dispatched"] == admissions
+          == cuda.get("drains") == cuda.get("sigs")
+          and cuda.get("pad_total") == 127 * admissions,
+          "G2 simulate: verify drains %s == %d admissions, one at 128 "
+          "lanes for each payment, none in a close"
+          % (cuda, admissions))
+    launches = card_counts("G2 simulate", [got["launches"]])
+    log("G2 simulate (%s): %d ledgers of %d payments after %d funding "
+        "closes, %s ledgers/s (%s tx/s); launches verify %d, sha256 %d; "
+        "the CPU twin %s ledgers/s (the two and gen-fuzz side by side)"
+        % (card, G2_LEDGERS, G2_TXS, G2_TXS, rate["ledgers_per_sec"],
+           rate["txs_per_sec"], launches[0], launches[1],
+           json.loads(tout[0])["ledgers_per_sec"]))
+    return launches
+
+
+def g2_generateload(steps: list, d: str, S, SC, card: str) -> tuple:
+    """G2's `run` node driven with `generateload` and `manualclose` over
+    its admin API, then closed again by a C-verifier twin from its SQL;
+    returns the node's (verify, SHA-256) launches."""
+    import socket
+    import sqlite3
+    from stellar_core_tpu_torch.crypto.batch_hasher import (
+        CudaBatchHasher, make_hasher,
+    )
+    from stellar_core_tpu_torch.crypto.batch_verifier import CpuSigVerifier
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    conf = g_conf(d, "run", port=port, extra=(
+        "RUN_STANDALONE = true", "MANUAL_CLOSE = true", "FORCE_SCP = true",
+        "ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING = true"))
+    node = M1Node(d, conf, port, "g2")
+    try:
+        steps.append(("G2 run (to its admin port)", node.wait_port()))
+        t0 = time.perf_counter()
+        got = m1_http(port, "generateload?accounts=%d&txs=0" % G2_ACCOUNTS)
+        check(got.get("accounts") == G2_ACCOUNTS and got["failed"] == 0,
+              "G2: generateload creates %d accounts (%s)" % (G2_ACCOUNTS,
+                                                             got))
+        closes = [m1_http(port, "manualclose")]
+        got = m1_http(port, "generateload?accounts=0&txs=%d" % G2_PAYMENTS)
+        check(got["submitted"] == 1 + G2_PAYMENTS and got["failed"] == 0,
+              "G2: generateload submits %d payments, none refused (%s)"
+              % (G2_PAYMENTS, got))
+        closes += [m1_http(port, "manualclose")
+                   for _ in range(G2_CLOSES - 1)]
+        steps.append(("G2 generateload and %d closes" % G2_CLOSES,
+                      time.perf_counter() - t0))
+        check([c.get("ledger") for c in closes]
+              == list(range(2, 2 + G2_CLOSES)),
+              "G2: manualclose closes %d-%d (%s)"
+              % (2, 1 + G2_CLOSES, closes))
+        v, h = m1_counts(port)
+        vs, vk, vw, vb = m1_launches(v, "verify")
+        hs, hk, hw, hb = m1_launches(h, "hash")
+        steps.append(("G2 run stop (SIGINT)", node.stop()))
+    finally:
+        node.close()
+    want = 1 + G2_PAYMENTS
+    check(vb == ["cuda"] and "cpu" not in hb and vs == want
+          and vk == vs + vw and hk == hs + hw,
+          "G2 run: verify drains %d on %s == %d admissions (the accounts' "
+          "transaction and each payment; the closes' candidates all "
+          "cached), kernel %d with %d warmup; SHA-256 %d + %d warmup"
+          % (vs, vb, want, vk, vw, hs, hw))
+    archive = os.path.join(d, "empty-archive")
+    os.makedirs(archive)
+    twin = r_node(d, "g2-twin", archive, CpuSigVerifier(),
+                  make_hasher("cpu"))
+    st = {"hasher": CudaBatchHasher(device="cpu"), "seen": set(),
+          "slot_hashes": [SC.ZERO_HASH] * 22}
+    owed = 0
+    db = sqlite3.connect(os.path.join(d, "run.db"))
+    try:
+        node_hashes = r_hashes(db, 1, 1 + G2_CLOSES)
+        check(node_hashes[1] == twin.ledger_manager.lcl_hash.hex(),
+              "G2: the twin's genesis == the node's")
+        for seq in range(2, 2 + G2_CLOSES):
+            twin.ledger_manager.value_externalized(lcd_from_db(db, seq))
+            owed += fresh_slots(S, SC, st, twin.bucket_manager.bucket_list)
+            check(twin.ledger_manager.lcl_hash.hex() == node_hashes[seq],
+                  "G2: the twin's ledger %d == the card node's" % seq)
+        ntx = db.execute("SELECT COUNT(*) FROM txhistory").fetchone()[0]
+    finally:
+        db.close()
+        r_stop(twin)
+    check(ntx == 1 + G2_PAYMENTS, "G2: %d transactions applied" % ntx)
+    check(hs == owed, "G2 run: SHA-256 launches by drains %d == %d "
+          "derived from the twin's bucket list close by close" % (hs, owed))
+    log("G2 run node (%s): generateload %d accounts then %d payments, %d "
+        "closes, every header == the C-verifier twin's; verify %d "
+        "launches (%d drains + %d warmup), SHA-256 %d (%d + %d; the "
+        "twin's bucket list owes the commitment %d)"
+        % (card, G2_ACCOUNTS, G2_PAYMENTS, G2_CLOSES, vk, vs, vw, hk, hs,
+           hw, owed))
+    return vk, hk
+
+
+def g2_gen_fuzz_job(d: str) -> tuple:
+    """G2's `gen-fuzz` as a `g_start` job, and the input's path."""
+    path = os.path.join(d, "input.bin")
+    return ("G2 gen-fuzz", ["stellar_core_tpu_torch", "gen-fuzz", path,
+                            "--mode", "tx", "--seed", str(G2_FUZZ_SEED),
+                            "--conf", g_conf(d, "fuzz")], None), path
+
+
+def g2_fuzz_jobs(d: str, path: str) -> list:
+    """G2's `fuzz --input` and `fuzz --mode overlay` as `g_start` jobs."""
+    conf = os.path.join(d, "fuzz.toml")
+    return [("G2 fuzz --input", ["stellar_core_tpu_torch", "fuzz", "--mode",
+                                 "tx", "--input", path, "--conf", conf],
+             None),
+            ("G2 fuzz --mode overlay",
+             ["stellar_core_tpu_torch", "fuzz", "--mode", "overlay",
+              "--iterations", str(G2_FUZZ_ITERATIONS), "--conf", conf],
+             None)]
+
+
+def g2_fuzz(gen: list, path: str, out: list, oout: list,
+            card: str) -> tuple:
+    """G2's fuzz checks on `gen-fuzz`'s, `fuzz --input`'s and `fuzz --mode
+    overlay`'s output; returns their (verify, SHA-256) launches."""
+    check(gen[-1].startswith("wrote ") and os.path.getsize(path) > 0,
+          "G2: gen-fuzz writes its input (%s)" % gen[-1])
+    one, tx_l = json.loads(out[0]), json.loads(out[1])
+    check(one["iterations"] == 1 and one["decode_rejects"] == 0
+          and tx_l["backend"] == "cuda-resilient",
+          "G2: fuzz --input takes its one input past the decode on the "
+          "card's stack (%s)" % one)
+    tx = card_counts("G2 fuzz --input", tx_l["launches"])
+    ov, ov_l = json.loads(oout[0]), json.loads(oout[1])
+    check(ov["iterations"] == G2_FUZZ_ITERATIONS
+          and ov["handler_errors"] == 0 and len(ov_l["launches"]) >= 2,
+          "G2: fuzz --mode overlay runs %d iterations, no handler raised "
+          "(%s)" % (G2_FUZZ_ITERATIONS, ov))
+    ovk = card_counts("G2 fuzz --mode overlay", ov_l["launches"])
+    check(ovk[0] > 0, "G2: the overlay fuzzer's nodes verified on the card")
+    log("G2 fuzz (%s): --input %s, launches verify %d sha256 %d; overlay "
+        "%s over %d nodes, launches verify %d sha256 %d"
+        % (card, one, tx[0], tx[1], ov, len(ov_l["launches"]), ovk[0],
+           ovk[1]))
+    return tx[0] + ovk[0], tx[1] + ovk[1]
+
+
+def g3_jobs(d: str) -> list:
+    """G3's two probes, on the card's stacks under hash seeds 1 and 2, as
+    `g_start` jobs. Each runs in a directory of its own under `d`: its
+    nodes keep their buckets in the default `buckets/` of the working
+    directory, and the two run side by side."""
+    jobs = []
+    for seed in (1, 2):
+        cwd = os.path.join(d, "probe-%d" % seed)
+        os.makedirs(cwd)
+        path = os.pathsep.join(
+            p for p in (REPO, M1_ENV.get("PYTHONPATH")) if p)
+        jobs.append(("G3 probe PYTHONHASHSEED=%d" % seed,
+                     ["stellar_core_tpu_torch.testing.hashseed_probe"],
+                     dict(M1_ENV, PYTHONHASHSEED=str(seed),
+                          PYTHONPATH=path), cwd))
+    return jobs
+
+
+def g3_probe(results: list, card: str) -> tuple:
+    """G3's checks on the two probes' output; returns their (verify,
+    SHA-256) launches."""
+    outs, launches = [], [0, 0]
+    for out, err in results:
+        outs.append("\n".join(out))
+        line = [x for x in err if x.startswith("hashseed_probe launches ")]
+        check(len(line) == 1, "G3: the probe prints its launch line")
+        got = card_counts("G3 probe", json.loads(
+            line[0][len("hashseed_probe launches "):]))
+        launches[0] += got[0]
+        launches[1] += got[1]
+    check(outs[0] == outs[1] and json.loads(outs[0]),
+          "G3: the probe's output under PYTHONHASHSEED 1 and 2 is "
+          "byte-identical (%d bytes)" % len(outs[0]))
+    log("G3 probe (%s): two runs byte-identical, %d bytes; launches "
+        "verify %d sha256 %d" % (card, len(outs[0]), launches[0],
+                                 launches[1]))
+    return tuple(launches)
+
+
+def simulation_path(S, E, K, SC, torch, t_smoke: float, card: str) -> dict:
+    """G1-G3 of the module docstring; returns the launches by kernel and
+    phase."""
+    from stellar_core_tpu_torch.testing import scenarios as SCN
+    SH = harness("torch_sim_harness")
+    names = G1_SCENARIOS
+    if time.perf_counter() - t_smoke > G1_CUT_AFTER_S:
+        names = G1_CUT
+        log("G1 cut to %s: the script had run %.0f s before it"
+            % (", ".join(names), time.perf_counter() - t_smoke))
+    t0 = time.perf_counter()
+    g1 = {"verify": 0, "sha256": 0}
+    for name in names:
+        got = g1_scenario(SCN, SH, E, S, torch, name, card)
+        g1["verify"] += got["verify"]
+        g1["sha256"] += got["sha256"]
+    log("G1: %.1f s in all" % (time.perf_counter() - t0))
+    # G2 and G3 overlap what does not depend on each other: the two
+    # `simulate`s beside `gen-fuzz`, then the `run` node driven while the
+    # two fuzzers and the two probes run
+    steps = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_g2_") as d:
+        gen_job, path = g2_gen_fuzz_job(d)
+        (out, _e), (tout, _te), (gen, _ge) = g_cli(
+            steps, g2_simulate_jobs(d) + [gen_job])
+        sim = g2_simulate(out, tout, card)
+        later = g_start(g2_fuzz_jobs(d, path) + g3_jobs(d))
+        try:
+            run = g2_generateload(steps, d, S, SC, card)
+        except BaseException:
+            g_stop(later)
+            raise
+        results = g_wait(steps, later)
+        fz = g2_fuzz(gen, path, results[0][0], results[1][0], card)
+        g3 = g3_probe(results[2:], card)
+    log("G2 and G3: %.1f s in all" % (time.perf_counter() - t0))
+    log("G2-G3 steps (%s), seconds with each process's start-up: %s"
+        % (card, ", ".join("%s %.2f" % kv for kv in steps)))
+    return {"verify": {"simulation G1": g1["verify"],
+                       "simulation G2": sim[0] + run[0] + fz[0],
+                       "simulation G3": g3[0]},
+            "sha256": {"simulation G1": g1["sha256"],
+                       "simulation G2": sim[1] + run[1] + fz[1],
+                       "simulation G3": g3[1]}}
 
 
 def main() -> int:
@@ -6694,6 +7374,10 @@ def smoke(torch, args, flight_dir: str) -> int:
     # --- overlay: the same quorum over authenticated peers, and TCP -------
     overlay = overlay_path(S, E, K, SC, card)
     lap("overlay")
+
+    # --- simulation: the scenario lab, the operator's commands, the probe --
+    simulation = simulation_path(S, E, K, SC, torch, t_smoke, card)
+    lap("simulation")
     log("paths' wall seconds (%s): %s; %.1f s in all"
         % (card, json.dumps(path_s), time.perf_counter() - t_smoke))
 
@@ -6707,12 +7391,14 @@ def smoke(torch, args, flight_dir: str) -> int:
         "launches": launches + sum(closes["verify"].values())
         + catchup["verify"] + catchup["main M1"]["verify"]
         + sum(herder["verify"].values())
-        + sum(overlay["verify"].values()),
+        + sum(overlay["verify"].values())
+        + sum(simulation["verify"].values()),
         "launches_by_path": {"verify main path": launches,
                              **closes["verify"],
                              "catchup": catchup["verify"],
                              "main M1": catchup["main M1"]["verify"],
-                             **herder["verify"], **overlay["verify"]},
+                             **herder["verify"], **overlay["verify"],
+                             **simulation["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
@@ -6727,12 +7413,14 @@ def smoke(torch, args, flight_dir: str) -> int:
         + sum(closes["sha256"].values()) + catchup["sha256"]
         + catchup["main M1"]["sha256"]
         + sum(herder["sha256"].values())
-        + sum(overlay["sha256"].values()),
+        + sum(overlay["sha256"].values())
+        + sum(simulation["sha256"].values()),
         "launches_by_path": {"hash main path": hash_launches,
                              **ledger["launches"], **closes["sha256"],
                              "catchup": catchup["sha256"],
                              "main M1": catchup["main M1"]["sha256"],
-                             **herder["sha256"], **overlay["sha256"]},
+                             **herder["sha256"], **overlay["sha256"],
+                             **simulation["sha256"]},
         "max_abs_err": float(max(r["mismatches"] for r in shapes.values())),
         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"],
         "bound_ms": main_s["bound_ms"], "bound_by": main_s["bound_by"],

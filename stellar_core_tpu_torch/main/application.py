@@ -1,9 +1,7 @@
 """Application: ownership and wiring of every subsystem.
 
 Copied from `stellar_core_tpu/main/application.py` at commit 94afec1;
-carry a fix in either copy to the other. Left out: `load_generator` (the
-admin `generateload` endpoint's LoadGenerator lives in `simulation/`,
-ROADMAP Queue 1 item 9).
+carry a fix in either copy to the other.
 
 Deliberately different:
 
@@ -18,7 +16,9 @@ Deliberately different:
 - `start` warms the card's stacks where they have `warmup` (the verify
   kernel's planned buckets, the hash kernel's shapes) on their own
   threads, as the reference warms its XLA programs; `stop` saves the
-  verifier's warmup plan beside the kernel build.
+  verifier's warmup plan beside the kernel build. `wait_for_warmups`
+  joins those threads, so a caller that reads launch counts (a command
+  that exits, the chip smoke) reads them whole.
 - `stop` also shuts the bucket manager's merge workers down, so a
   stopped node leaves no merge running against its bucket directory.
 - A database flagged by the `force-scp` command sets FORCE_SCP at `start`
@@ -206,6 +206,9 @@ class Application:
         self.external_queue = ExternalQueue(self)
         self.maintainer = Maintainer(self)
 
+        # the stacks whose kernel warmup `start` began
+        self._warming: list = []
+
         self._register_footprint()
 
     def _register_footprint(self) -> None:
@@ -360,11 +363,13 @@ class Application:
         if self.config.SIG_VERIFY_WARMUP and \
                 getattr(self.sig_verifier, "wants_prewarm", False):
             self.sig_verifier.warmup(wait=False)
+            self._warming.append(self.sig_verifier)
         # the hash kernel warms beside the verify kernel: the same
         # no-build-on-consensus rule
         if self.config.SIG_VERIFY_WARMUP and \
                 getattr(self.batch_hasher, "wants_warmup", False):
             self.batch_hasher.warmup(wait=False)
+            self._warming.append(self.batch_hasher)
         lm = self.ledger_manager
         if not lm.load_last_known_ledger():
             lm.start_new_ledger()
@@ -387,6 +392,12 @@ class Application:
             self.state = AppState.APP_SYNCED
         else:
             self.state = AppState.APP_ACQUIRING_CONSENSUS
+
+    def wait_for_warmups(self) -> None:
+        """Wait for the warmups `start` began on the stacks' threads (a
+        no-op where it began none)."""
+        for stack in self._warming:
+            stack.warmup(wait=True)
 
     def crank(self, block: bool = False) -> int:
         n = self.clock.crank(block)
@@ -445,6 +456,16 @@ class Application:
                 StellarMessage(MessageType.TRANSACTION, frame.envelope),
                 False)
         return status
+
+    @property
+    def load_generator(self):
+        """Lazy singleton LoadGenerator (admin `generateload`, overload
+        scenarios); constructed on first use so apps that never generate
+        load pay nothing."""
+        if not hasattr(self, "_load_generator"):
+            from ..simulation.load_generator import LoadGenerator
+            self._load_generator = LoadGenerator(self)
+        return self._load_generator
 
     def enable_buckets(self, bucket_dir: Optional[str] = None) -> None:
         from ..bucket.bucket_index import BucketDbStats

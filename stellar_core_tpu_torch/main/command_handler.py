@@ -1,11 +1,9 @@
 """CommandHandler: the operator admin API.
 
 Copied from `stellar_core_tpu/main/command_handler.py` at commit a6220d9;
-carry a fix in either copy to the other. Left out: the test-only
-`generateload` endpoint (its LoadGenerator lives in `simulation/`, ROADMAP
-Queue 1 item 9). The test-only `testacc` / `testtx` endpoints read
-ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING with getattr, since the port's
-Config leaves that knob out until item 9.
+carry a fix in either copy to the other. The test-only `generateload`
+endpoint drives the port's own `simulation/load_generator.py` through
+`Application.load_generator`.
 
 `verifier` reads the port's stack as the reference reads its own: the
 stack's `inner` is the `CudaSigVerifier` fleet, whose `_fleet_health`
@@ -1000,8 +998,7 @@ class CommandHandler:
     # -- test-only -----------------------------------------------------------
     def _require_test_mode(self):
         """Gate shared by every test-only endpoint."""
-        if not getattr(self.app.config,
-                       "ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING", False):
+        if not self.app.config.ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING:
             return {"error":
                     "set ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING to use"}
         return None
@@ -1076,6 +1073,20 @@ class CommandHandler:
                     to_key.public_key.key_bytes),
                 "amount": amt, "create": params.get("create") == "true",
                 "status": int(status)}
+
+    def cmd_generateload(self, params) -> dict:
+        """reference CommandHandler.cpp:103 (test-only)."""
+        gated = self._require_test_mode()
+        if gated is not None:
+            return gated
+        lg = self.app.load_generator
+        accounts = int(params.get("accounts", 10))
+        txs = int(params.get("txs", 10))
+        if accounts:
+            lg.generate_accounts(accounts)
+        if txs:
+            lg.generate_payments(txs)
+        return lg.status()
 
     # -- HTTP front-end ------------------------------------------------------
     def start_http(self, port: Optional[int] = None) -> int:

@@ -1,14 +1,30 @@
 """Command-line interface.
 
 Copied from `stellar_core_tpu/main/commandline.py` at commit bb973b8;
-carry a fix in either copy to the other. Left out: `fuzz`, `gen-fuzz`
-and `simulate` (`main/fuzz.py`, whose overlay mode drives `simulation/`,
-and the simulation commands; ROADMAP Queue 1 item 9). `print-xdr` and
-`dump-xdr` read the port's `xdr` types, and `test` runs the port's own
-tests (`tests/test_torch_*.py`). One deliberate difference: `catchup`
-prints a second line, its verify and hash launch counts
-(`CommandHandler.launch_counters`), since its process ends before an
-operator could ask its admin API.
+carry a fix in either copy to the other. Nothing is left out.
+`print-xdr` and `dump-xdr` read the port's `xdr` types, and `test` runs
+the port's own tests (`tests/test_torch_*.py`).
+
+Deliberately different:
+
+- `catchup`, `simulate` and `fuzz` print a second line after the
+  reference's: the process's verify and hash launch counts
+  (`CommandHandler.launch_counters`, one entry per node a `fuzz` run
+  built), since the process ends before an operator could ask its admin
+  API. `simulate`'s also holds the last closed ledger's hash. Each waits
+  for its nodes' kernel warmups first, so its counts are whole.
+- `fuzz` and `gen-fuzz` take `--conf` (the reference's take none) and
+  fuzz on its SIG_VERIFY_BACKEND, the card's stack unless the file names
+  the CPU (`main/fuzz.py`).
+- `simulate` stops its node and removes its temporary bucket directory
+  as it exits (the reference leaves both), and keeps the virtual clock at
+  least at the LCL's close time while it funds its senders: the
+  reference's funding closes never move the clock, so past about 60
+  senders the nominated close time (the LCL's + 1) runs more than the
+  herder's 60 s slip ahead of it and the funding transaction never
+  closes (ROADMAP Queue 3 item 12). After the funding it moves the clock
+  to where the reference's stands, so the close times, and every hash,
+  are the reference's wherever the reference closes.
 
 Role parity: reference `src/main/CommandLine.cpp:1039-1093` — subcommand
 dispatch for node operation (`run`, `new-db`, `force-scp`, `catchup`,
@@ -354,6 +370,127 @@ def cmd_infer_quorum(args) -> int:
     return 0
 
 
+def _verifier_counts(v) -> dict:
+    """`launch_counters()["verifier"]`'s shape for a verifier that no
+    Application owns (a fuzz run's `TestLedger`)."""
+    inner = getattr(v, "inner", v)
+    counters = {"batches_dispatched": getattr(inner, "batches_dispatched",
+                                              0)}
+    if getattr(inner, "_fleet_health", None) is not None:
+        from ..ops import ed25519 as _ed25519
+        counters["kernel_launches"] = _ed25519.LAUNCHES
+    st = v.stats.to_json() if v.stats is not None else {}
+    return {"drains": st.get("drains", {}).get("by_backend"),
+            "counters": counters,
+            "warmed": len(st.get("warmup", {}).get("buckets", {}) or {})}
+
+
+def cmd_fuzz(args) -> int:
+    """Mutational fuzz run over an untrusted intake surface (reference
+    `fuzz` AFL mode, src/test/FuzzerImpl.cpp; docs/fuzzing.md). With
+    --input, runs that single input and exits (the reference `fuzz`
+    contract for AFL integration)."""
+    import logging
+
+    from .fuzz import fuzz_overlay, fuzz_tx, run_one
+    backend = _load_config(args).SIG_VERIFY_BACKEND
+    logging.disable(logging.ERROR)
+    built: list = []
+    if args.input:
+        data = open(args.input, "rb").read()
+        stats = run_one(args.mode, data, backend=backend, built=built)
+    else:
+        fn = fuzz_tx if args.mode == "tx" else fuzz_overlay
+        stats = fn(iterations=args.iterations, seed=args.seed,
+                   backend=backend, built=built)
+    print(json.dumps({"mode": args.mode, **stats}))
+    apps = [b for b in built if hasattr(b, "command_handler")]
+    for app in apps:
+        app.wait_for_warmups()
+    nodes = [a.command_handler.launch_counters() for a in apps]
+    nodes += [{"verifier": _verifier_counts(b.verifier)} for b in built
+              if not hasattr(b, "command_handler")]
+    print(json.dumps({"backend": backend, "launches": nodes},
+                     sort_keys=True))
+    return 0
+
+
+def cmd_gen_fuzz(args) -> int:
+    """Write a random fuzzer input file (reference `gen-fuzz`)."""
+    from .fuzz import gen_input
+    data = gen_input(args.mode, args.seed,
+                     backend=_load_config(args).SIG_VERIFY_BACKEND)
+    with open(args.output, "wb") as f:
+        f.write(data)
+    print("wrote %d-byte %s fuzz input to %s"
+          % (len(data), args.mode, args.output))
+    return 0
+
+
+def cmd_simulate(args) -> int:
+    """Simulate applying synthetic payment ledgers offline and report the
+    close rate (reference `simulate`)."""
+    import os
+    import shutil
+    import tempfile
+
+    from ..crypto.keys import SecretKey
+    from ..testing import AppLedgerAdapter
+    cfg = _load_config(args)
+    cfg.RUN_STANDALONE = True
+    cfg.MANUAL_CLOSE = True
+    cfg.FORCE_SCP = True
+    cfg.UNSAFE_QUORUM = True
+    cfg.DATABASE = "in-memory"
+    if cfg.NODE_SEED is None:
+        cfg.NODE_SEED = SecretKey.from_seed(os.urandom(32))
+    cfg.QUORUM_SET = cfg.self_qset()
+    cfg.BUCKET_DIR_PATH = tempfile.mkdtemp(prefix="sct-simulate-")
+    try:
+        app = _make_app(cfg, real_time=False)
+        app.start()
+        ad = AppLedgerAdapter(app)
+        root = ad.root_account()
+        senders = []
+        t_fund = app.clock.now()
+        for _ in range(args.txs):
+            # each funding close nominates the LCL's close time + 1; the
+            # clock is kept at the LCL's, so that close time never runs
+            # past the allowed slip (the reference's funding loop stops
+            # closing at about 60 senders; ROADMAP Queue 3 item 12)
+            ct = app.ledger_manager.lcl_header.scpValue.closeTime
+            if app.clock.now() < ct:
+                app.clock.set_virtual_time(ct)
+            senders.append(root.create(10**10))
+        app.clock.set_virtual_time(max(
+            app.clock.now(),
+            t_fund + app.ledger_manager.last_closed_ledger_num()))
+        t0 = time.perf_counter()
+        for _ in range(args.ledgers):
+            for s in senders:
+                app.submit_transaction(
+                    s.tx([s.op_payment(root.account_id, 1)]))
+            app.clock.set_virtual_time(app.clock.now() + 1.0)
+            app.manual_close()
+        dt = time.perf_counter() - t0
+        print(json.dumps({
+            "ledgers": args.ledgers, "txs_per_ledger": args.txs,
+            "wall_s": round(dt, 3),
+            "ledgers_per_sec": round(args.ledgers / dt, 2),
+            "txs_per_sec": round(args.ledgers * args.txs / dt, 1)}))
+        app.wait_for_warmups()
+        lm = app.ledger_manager
+        print(json.dumps({
+            "ledger": lm.last_closed_ledger_num(),
+            "hash": lm.lcl_hash.hex(),
+            "launches": app.command_handler.launch_counters()},
+            sort_keys=True))
+        app.stop()
+    finally:
+        shutil.rmtree(cfg.BUCKET_DIR_PATH, ignore_errors=True)
+    return 0
+
+
 def cmd_check_quorum(args) -> int:
     """Check quorum intersection of the last network activity (reference
     `check-quorum`): builds the node→qset map from the newest SCP history
@@ -574,6 +711,15 @@ def build_parser() -> argparse.ArgumentParser:
         return p
 
     add("run", cmd_run, "run a node")
+    p = add("fuzz", cmd_fuzz, "fuzz an intake surface (tx|overlay)")
+    p.add_argument("--mode", choices=("tx", "overlay"), default="tx")
+    p.add_argument("--iterations", type=int, default=10000)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--input", help="run this single input file and exit")
+    p = add("gen-fuzz", cmd_gen_fuzz, "generate a random fuzzer input")
+    p.add_argument("output")
+    p.add_argument("--mode", choices=("tx", "overlay"), default="tx")
+    p.add_argument("--seed", type=int, default=1)
     p = add("check-quorum", cmd_check_quorum,
             "check quorum intersection of last network activity")
     p.add_argument("--critical", action="store_true",
@@ -596,6 +742,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("file")
     add("rebuild-ledger-from-buckets", cmd_rebuild_ledger_from_buckets,
         "rebuild SQL ledger state from the current bucket files")
+    p = add("simulate", cmd_simulate, "simulate applying ledgers")
+    p.add_argument("--ledgers", type=int, default=32)
+    p.add_argument("--txs", type=int, default=16)
     add("new-db", cmd_new_db, "reset DB to the genesis ledger")
     p = add("force-scp", cmd_force_scp,
             "start SCP from the LCL on next run")

@@ -5,9 +5,7 @@ fix in either copy to the other. Left out: SIG_VERIFY_COMPILE_CACHE_DIR
 (the XLA compile cache has no counterpart: the kernels build into
 `_build.BUILD_DIR`), NATIVE_PARALLEL_APPLY and CATCHUP_PIPELINE (no
 caller sets them; the apply engine and catchup's pipeline take their
-defaults), and ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING (the
-load generator, `simulation/`, ROADMAP Queue 1 item 9; the admin test
-endpoints read it with getattr, so a test may still set it).
+defaults).
 
 Deliberately different:
 
@@ -23,6 +21,8 @@ Deliberately different:
   TESTING_UPGRADE_DESIRED_FEE / _RESERVE / _MAX_TX_SET_SIZE, as
   stellar-core's config file does: a node started from the command line
   must build the genesis of the network whose archive it catches up from.
+  It reads ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING too (stellar-core's
+  config file carries it), so a `run` node can serve `generateload`.
 - `validate` (which `from_toml` runs) refuses a backend name the port
   does not build; the reference's "tpu" and "tpu-async" are refused with
   an error that names their counterparts "cuda-resilient" and
@@ -163,6 +163,7 @@ class Config:
         self.TESTING_UPGRADE_RESERVE = 5_000_000
         self.TESTING_UPGRADE_MAX_TX_SET_SIZE = 100
         self.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = False
+        self.ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING = False
 
         # history
         self.HISTORY: Dict[str, dict] = {}
@@ -311,6 +312,7 @@ class Config:
             # the reference's from_toml does not)
             "GENESIS_TOTAL_COINS", "TESTING_UPGRADE_DESIRED_FEE",
             "TESTING_UPGRADE_RESERVE", "TESTING_UPGRADE_MAX_TX_SET_SIZE",
+            "ARTIFICIALLY_GENERATE_LOAD_FOR_TESTING",
         ]
         for k in simple_keys:
             if k in data:

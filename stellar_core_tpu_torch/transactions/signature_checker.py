@@ -11,9 +11,10 @@ verifier whose flush raises (a failed drain on the card) surfaces as
 of turning it into a txINTERNAL_ERROR result, so a failed drain fails
 the close.
 
-Left out: the reference's fuzzing hook (`set_fuzzing_mode`, which makes
-every check pass; only its `main/fuzz.py` sets it). It comes back with a
-ported fuzz harness.
+The fuzzing hook (`set_fuzzing_mode`, reference `:32-37`) is kept: while
+it is on, every check passes with no verify at all, so a node that
+closed ledgers under it would never reach the card. Only `main/fuzz.py`
+sets it, and clears it in a `finally` around every run.
 
 Role parity: reference `src/transactions/SignatureChecker.{h,cpp}:18-120`:
 weight accumulation over ed25519 / pre-auth-tx / hash-x signers, hint
@@ -42,6 +43,15 @@ from ..crypto.batch_verifier import BatchSigVerifier
 from ..xdr import (
     DecoratedSignature, PublicKey, Signer, SignerKey, SignerKeyType,
 )
+
+
+_FUZZING_MODE = False  # reference SignatureChecker.cpp:33-35 parity hook
+
+
+def set_fuzzing_mode(on: bool) -> None:
+    global _FUZZING_MODE
+    _FUZZING_MODE = on
+
 
 def _hint_of(b32: bytes) -> bytes:
     return b32[-4:]
@@ -72,6 +82,8 @@ class SignatureChecker:
 
     def check_signature(self, signers: List[Signer],
                         needed_weight: int) -> bool:
+        if _FUZZING_MODE:
+            return True
         total = 0
 
         # pre-auth-tx signers match the contents hash directly
@@ -130,4 +142,6 @@ class SignatureChecker:
     def check_all_signatures_used(self) -> bool:
         """Reference: any unused signature makes the tx invalid
         (txBAD_AUTH_EXTRA)."""
+        if _FUZZING_MODE:
+            return True
         return all(self._used)

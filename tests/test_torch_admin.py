@@ -2,8 +2,8 @@
 command_handler.py`, `main/commandline.py`) held against the JAX
 package's.
 
-24 of the 26 cases of `tests/test_admin.py` and 7 of the 9 of
-`tests/test_cli_extra.py` run on both packages from the reference's own
+Every case of `tests/test_admin.py` (26) and of `tests/test_cli_extra.py`
+(9) runs on both packages from the reference's own
 source (`torch_mirror_harness.Mirror`), each side on its own
 `Application` and its own temporary directory. Every admin command's
 name, status and body shape, every close's LCL sequence and hash, and
@@ -11,11 +11,10 @@ every transaction admission's status are recorded on both sides
 (`torch_main_harness.node_records`), and the two records are equal; each
 case keeps its own assertions. The CLI cases' TOML configs name the CPU
 for both backends (`torch_main_harness.CPU_TOML`): the port's defaults
-are the card's stacks. Left out, until `simulation/` is ported (ROADMAP
-Queue 1 item 9): `test_generateload_endpoint` and
-`test_generateload_requires_testing_flag` (the `generateload` endpoint)
-`test_gen_fuzz_then_single_input` (the `gen-fuzz` and `fuzz` commands)
-and `test_simulate` (the `simulate` command). Tolerance: none.
+are the card's stacks. The `simulate`, `gen-fuzz` and `fuzz` commands,
+which read no config in those cases, get one naming the CPU on the port's
+side, and their first output line is read (the port's print their launch
+counts on a second; `torch_main_harness.CLI_CPU_CONF`). Tolerance: none.
 """
 
 import os
@@ -24,23 +23,22 @@ import sys
 import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_main_harness import CPU_TOML, node_records  # noqa: E402
+from torch_main_harness import (  # noqa: E402
+    CLI_CPU_CONF, CPU_TOML, node_records,
+)
 from torch_mirror_harness import Mirror  # noqa: E402
 
 MIRROR = Mirror(("test_admin.py", "test_cli_extra.py"), patch=node_records,
-                subs=CPU_TOML)
-WAIT_FOR_SIMULATION = ("test_generateload_endpoint",
-                       "test_generateload_requires_testing_flag",
-                       "test_gen_fuzz_then_single_input", "test_simulate")
-CASES = MIRROR.cases(drop=WAIT_FOR_SIMULATION)
+                subs=CPU_TOML, port_subs=CLI_CPU_CONF)
+CASES = MIRROR.cases()
 
 
 def test_mirrors_every_case():
-    """24 of test_admin.py's 26 and 7 of test_cli_extra.py's 9."""
+    """All 26 of test_admin.py and all 9 of test_cli_extra.py."""
     by_file = {}
     for f, _name, _i in CASES:
         by_file[f] = by_file.get(f, 0) + 1
-    assert by_file == {"test_admin.py": 24, "test_cli_extra.py": 7}
+    assert by_file == {"test_admin.py": 26, "test_cli_extra.py": 9}
 
 
 @pytest.mark.parametrize("case", CASES, ids=Mirror.case_id)

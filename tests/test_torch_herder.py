@@ -5,13 +5,16 @@ around it held against the JAX package's.
   (`torch_mirror_harness.Mirror`), every call that carries a decision
   recorded on both sides and the two records equal: `tests/
   test_tx_queue.py` and `test_surge_pricing.py` (each admission's
-  status, each txset built, surged or trimmed, by full hash), the
-  Application-free cases of `test_quorum_intersection.py` (each
-  checker's verdict, quorums seen and split, each tracker expansion,
-  each critical-group scan), of `test_ingress.py` (each admission
-  decision and retry hint, each pump, each `to_json`) and of
-  `test_slot_timeline.py` (each record's outcome, each journal read with
-  its perf-counter stamps left out). The reference's verifier-less
+  status, each txset built, surged or trimmed, by full hash), every case
+  of `test_quorum_intersection.py` (each checker's verdict, quorums seen
+  and split, each tracker expansion, each critical-group scan), of
+  `test_ingress.py` (each admission decision and retry hint, each pump,
+  each `to_json`) and of `test_slot_timeline.py` (each record's outcome,
+  each journal read with its perf-counter stamps left out). Their
+  Application cases (the background quorum checks, `tight_app`, the
+  standalone node's journal, the loopback simulation) run on the port's
+  own `main/application.py` and `simulation/`, on the CPU
+  (`torch_sim_harness.SIM_SUBS`). The reference's verifier-less
   queues and sets get the C verifier on both sides (the port's raise
   without one).
 - Twin networks: four reference herder nodes (the reference's
@@ -68,6 +71,7 @@ from stellar_core_tpu_torch.herder.tx_queue import (
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_herder_harness as H  # noqa: E402
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
+from torch_sim_harness import SIM_SUBS  # noqa: E402
 
 # --------------------------------------------------------------- mirrors
 
@@ -83,7 +87,6 @@ VERIFIER_SUBS = (
     (r"TestLedger\(ledger_version=",
      "TestLedger(verifier=CpuSigVerifier(), ledger_version="),
 )
-NO_APP = ((r"(?m)^from \S+\.main\.application import Application$", ""),)
 
 
 def _hashes(frames) -> list:
@@ -148,27 +151,25 @@ def _record_timeline(pkg, log):
 
 TXQ = Mirror(("test_tx_queue.py", "test_surge_pricing.py"),
              patch=_record_txq, subs=VERIFIER_SUBS)
-QI = Mirror(("test_quorum_intersection.py",), patch=_record_qi)
-ING = Mirror(("test_ingress.py",), patch=_record_ingress, subs=NO_APP)
-TL = Mirror(("test_slot_timeline.py",), patch=_record_timeline,
-            subs=NO_APP)
+# the Application cases (a standalone node, `tight_app`, the simulation
+# case) run on the port's own Application and `simulation/`, on the CPU
+QI = Mirror(("test_quorum_intersection.py",), patch=_record_qi,
+            port_subs=SIM_SUBS)
+ING = Mirror(("test_ingress.py",), patch=_record_ingress,
+             port_subs=SIM_SUBS)
+TL = Mirror(("test_slot_timeline.py",), patch=_record_timeline)
 MIRRORS = {
     "txq": (TXQ, TXQ.cases()),
-    # the simulation case and the two background-check cases need an
-    # Application (the port has none yet)
-    "qi": (QI, QI.cases(drop=("test_herder_tracker_via_simulation",),
-                        drop_fixtures=("tmp_path",))),
-    "ingress": (ING, ING.cases(
-        drop=("test_fairness_flooder_cannot_starve_priority",),
-        drop_fixtures=("tight_app",))),
-    "timeline": (TL, TL.cases(drop_fixtures=("app",))),
+    "qi": (QI, QI.cases()),
+    "ingress": (ING, ING.cases()),
+    "timeline": (TL, TL.cases()),
 }
 MIRROR_CASES = [(k, c) for k, (_m, cs) in MIRRORS.items() for c in cs]
 
 
 def test_mirrored_cases_collected():
     n = {k: len(cs) for k, (_m, cs) in MIRRORS.items()}
-    assert n == {"txq": 21, "qi": 17, "ingress": 12, "timeline": 7}
+    assert n == {"txq": 21, "qi": 20, "ingress": 15, "timeline": 10}
 
 
 @pytest.mark.parametrize("which,case", MIRROR_CASES,

@@ -9,8 +9,10 @@ cockpit's `ledger/apply_stats.py`, BucketDB's `bucket/bucket_index.py`,
 `overlay/` modules, `crypto/curve25519.py` and `util/fleet.py`, and the
 main slice's `main/application.py`, `main/command_handler.py`,
 `main/commandline.py`, `main/maintainer.py`, `util/footprint.py`,
-`history/inferred_quorum.py` and the package's `__main__`, among them,
-named in the first): every port module imported in a fresh interpreter leaves
+`history/inferred_quorum.py` and the package's `__main__`, and the
+simulation slice's `simulation/` modules, `testing/bench_records.py`,
+`testing/scenarios.py`, `testing/hashseed_probe.py` and `main/fuzz.py`,
+among them, named in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -101,7 +103,13 @@ def test_port_modules_import_no_jax():
               # the main slice: the node, its admin API and command line
               "main.application", "main.command_handler",
               "main.commandline", "main.maintainer", "util.footprint",
-              "history.inferred_quorum", "__main__"):
+              "history.inferred_quorum", "__main__",
+              # the simulation slice: fleets, load, scenarios, fuzzing
+              "simulation", "simulation.geography",
+              "simulation.topologies", "simulation.simulation",
+              "simulation.load_generator", "testing.bench_records",
+              "testing.scenarios", "testing.hashseed_probe",
+              "main.fuzz"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, os, sys\n"

@@ -8,12 +8,12 @@ feeding consensus) and FL1 (floats in consensus code). The allowlist is
 the reference's own (`stellar_core_tpu/analysis/allowlist.txt`), each
 entry's path rewritten to the port's copy of the file, keeping the
 entries whose file the port has and, where an entry names a function or
-class, whose file defines it (the port leaves out the `simulate`
-command until ROADMAP Queue 1 item 9). Every finding must be covered by such
-an entry, no file may fail to parse, and no entry may cover nothing:
-since the overlay slice brought `ShortHash` back, the port leaves out no
-allowlisted code. The main slice's command line brings its finding with
-it (the key generation of `gen-seed`), covered by the reference's entry.
+class, whose file defines it. Every finding must be covered by such an
+entry, no file may fail to parse, and no entry may cover nothing: since
+the simulation slice brought the `simulate` command back, the port leaves
+out no allowlisted code. The command line brings its findings with it
+(the key generation of `gen-seed`; `simulate`'s stopwatch and its
+throwaway node seed), each covered by the reference's entry.
 """
 
 import os
@@ -78,8 +78,10 @@ def test_port_is_clean_under_the_reference_allowlist(tmp_path):
     paths = {f.path for f in res.findings}
     assert "stellar_core_tpu_torch/overlay/transport.py" in paths
     assert "stellar_core_tpu_torch/crypto/hashing.py" in paths
-    # the main slice's command line: the key generation of `gen-seed`
-    # (D2), allowlisted as in the reference; the admin API has no finding
+    # the command line: the key generation of `gen-seed` (D2) and
+    # `simulate`'s stopwatch (D1, twice) and node seed (D2), allowlisted
+    # as in the reference; the admin API and the fuzzer have no finding
     main = sorted((f.rule, f.qualname) for f in res.findings
                   if f.path.startswith("stellar_core_tpu_torch/main/"))
-    assert main == [("D2", "cmd_gen_seed")]
+    assert main == [("D1", "cmd_simulate"), ("D1", "cmd_simulate"),
+                    ("D2", "cmd_gen_seed"), ("D2", "cmd_simulate")]

@@ -5,8 +5,9 @@ Every case of `tests/test_overlay.py` (17, the two `slow`-marked
 consensus cases included), of `tests/test_survey_load.py` (6) and nine of
 the ten of `tests/test_fleet.py` runs on both packages from the
 reference's own source (`torch_mirror_harness.Mirror`); the port's side
-builds its nodes with `torch_sim_harness` (`Simulation`, `topologies`)
-and its own `main/application.py` and `testing.AppLedgerAdapter`. On both sides every handshake's outcome
+builds its nodes with its own `simulation/` (`Simulation`, `topologies`,
+on the CPU: `torch_sim_harness.SIM_SUBS`), `main/application.py` and
+`testing.AppLedgerAdapter`. On both sides every handshake's outcome
 (`accept_authenticated_peer`: who accepted whom), every peer drop and its
 reason, every floodgate record and broadcast, every envelope the herder
 took in and every close (sequence and ledger hash) are recorded, and the
@@ -28,7 +29,7 @@ import torch_overlay_records as R  # noqa: E402
 
 MIRROR = Mirror(("test_overlay.py", "test_survey_load.py", "test_fleet.py"),
                 patch=R.record_overlay,
-                subs=SIM_SUBS)
+                port_subs=SIM_SUBS)
 CASES = MIRROR.cases(drop=("test_bench_multi_node_leg_emits_fleet_block",))
 
 

@@ -1,6 +1,7 @@
 """A mixed network over the real overlay: two reference validators (the
-JAX package's `Simulation` in peer mode) and two port validators
-(`torch_sim_harness.Simulation`), each quorum 3 of the 4.
+JAX package's `Simulation` in peer mode) and two port validators (the
+port's own `simulation/simulation.py` `Simulation`, on the CPU), each
+quorum 3 of the 4.
 
 Every pair of validators is joined by an in-process pipe whose two ends
 belong to the two nodes' own packages: each end is its package's
@@ -17,27 +18,24 @@ reference node applies on the port nodes. The relay-based mixed quorum
 of `tests/test_torch_herder.py` stays beside this one. Tolerance: none.
 """
 
-import os
-import sys
-
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-import torch_sim_harness as PS  # noqa: E402
-
-from stellar_core_tpu import xdr as RX  # noqa: E402
-from stellar_core_tpu.crypto.hashing import sha256  # noqa: E402
-from stellar_core_tpu.crypto.keys import SecretKey as RSecretKey  # noqa: E402
-from stellar_core_tpu.overlay.transport import (  # noqa: E402
+from stellar_core_tpu import xdr as RX
+from stellar_core_tpu.crypto.hashing import sha256
+from stellar_core_tpu.crypto.keys import SecretKey as RSecretKey
+from stellar_core_tpu.overlay.transport import (
     LoopbackTransport as RLoopback,
 )
-from stellar_core_tpu.simulation.simulation import (  # noqa: E402
+from stellar_core_tpu.simulation.simulation import (
     Simulation as RSimulation,
 )
-from stellar_core_tpu.testing import AppLedgerAdapter as RAdapter  # noqa: E402
-from stellar_core_tpu_torch import xdr as PX  # noqa: E402
-from stellar_core_tpu_torch.crypto.keys import SecretKey as PSecretKey  # noqa: E402,E501
-from stellar_core_tpu_torch.testing import AppLedgerAdapter as PAdapter  # noqa: E402,E501
-from stellar_core_tpu_torch.overlay.transport import (  # noqa: E402
+from stellar_core_tpu.testing import AppLedgerAdapter as RAdapter
+from stellar_core_tpu_torch import xdr as PX
+from stellar_core_tpu_torch.crypto.keys import SecretKey as PSecretKey  # noqa: E501
+from stellar_core_tpu_torch.testing import AppLedgerAdapter as PAdapter  # noqa: E501
+from stellar_core_tpu_torch.overlay.transport import (
     LoopbackTransport as PLoopback,
+)
+from stellar_core_tpu_torch.simulation.simulation import (
+    Simulation as PSimulation,
 )
 
 PASSPHRASE = "(sct) mixed overlay network"
@@ -46,7 +44,7 @@ PASSPHRASE = "(sct) mixed overlay network"
 def _network():
     seeds = [sha256(b"mixed-overlay-%d" % i) for i in range(4)]
     rsim = RSimulation(RSimulation.OVER_PEERS, PASSPHRASE)
-    psim = PS.Simulation(PS.Simulation.OVER_PEERS, PASSPHRASE)
+    psim = PSimulation(PSimulation.OVER_PEERS, PASSPHRASE, backend="cpu")
     rkeys = [RSecretKey.from_seed(s) for s in seeds]
     pkeys = [PSecretKey.from_seed(s) for s in seeds]
     rq = RX.SCPQuorumSet(threshold=3, innerSets=[],

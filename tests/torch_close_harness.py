@@ -128,11 +128,10 @@ def observe(lm, frames) -> dict:
 
 class Workload:
     """The closes' transactions, built and signed with the port's
-    TestAccount against the port side's state (or against `shim`, any
-    object with Shim's `network_id`, `header`, `seq_num` and `balance`)."""
+    TestAccount against the port side's state."""
 
-    def __init__(self, lm, shim=None):
-        self.shim = shim or Shim(lm)
+    def __init__(self, lm):
+        self.shim = Shim(lm)
         self.root = T.TestAccount(self.shim, T.root_secret_key())
 
         def acct(tag, i):

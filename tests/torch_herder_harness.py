@@ -4,8 +4,15 @@ for overlay.
 The relay now stands beside the port's real overlay (`overlay/`):
 `chip_smoke.py`'s S1 keeps it, so its numbers stand beside O1's, and the
 relay-based mixed quorum of `tests/test_torch_herder.py` uses it; O1
-does not (`torch_sim_harness.OverlayNet` keeps the relay's crank and
-slot helpers and takes the relay out).
+does not. O1's `OverlayNet`, at the end of this module, is the relay's
+network with the relay taken out: its nodes (`make_port_node`'s, on
+whatever verifier and hasher they were handed) each get an
+`OverlayManager` and reach each other only over authenticated loopback
+peers (`link`), so every envelope, transaction, txset and quorum set
+crosses as HMAC'd frames through the floodgate and the item fetchers. It
+keeps the relay's crank (each node's ready work, then its verifier's
+flush; the clocks moved together only when nothing runs and no verify is
+under way) and its slot and hash helpers.
 
 A port node is `torch_catchup_harness.make_port_app`'s namespace app (its
 own `LedgerManager` over sqlite, a `BucketManager`, a
@@ -50,6 +57,10 @@ from stellar_core_tpu_torch.herder.pending_envelopes import (
 )
 from stellar_core_tpu_torch.herder.txset import TxSetFrame
 from stellar_core_tpu_torch.main.config import Config
+from stellar_core_tpu_torch.overlay.overlay_manager import OverlayManager
+from stellar_core_tpu_torch.overlay.transport import (
+    ChaosTransport, LoopbackTransport,
+)
 from stellar_core_tpu_torch.transactions.transaction_frame import (
     TransactionFrame,
 )
@@ -432,3 +443,108 @@ class Traffic:
                 self.corrupted.add(f.full_hash())
             out.append(f.envelope_bytes())
         return out
+
+
+def link(app_a, app_b, chaos: bool = False):
+    """One authenticated overlay link over an in-process pipe: `app_a`
+    dials (WE_CALLED_REMOTE), each end owned by and delivering onto its
+    own app's clock; with `chaos` each end is wrapped in a ChaosTransport
+    driven by its app's fault injector. Returns the two ends."""
+    ta, tb = LoopbackTransport.pair(app_a.clock, app_b.clock)
+    if chaos:
+        ta = ChaosTransport(ta, app_a.clock,
+                            faults=getattr(app_a, "faults", None))
+        tb = ChaosTransport(tb, app_b.clock,
+                            faults=getattr(app_b, "faults", None))
+    name_a = getattr(app_a.config, "NODE_NAME", "") or "a"
+    name_b = getattr(app_b.config, "NODE_NAME", "") or "b"
+    app_b.overlay_manager.add_loopback_peer(tb, outbound=False,
+                                            address=(name_a, 0))
+    app_a.overlay_manager.add_loopback_peer(ta, outbound=True,
+                                            address=(name_b, 0))
+    return ta, tb
+
+
+# ----------------------------------------------------------- OverlayNet
+
+class OverlayNet(Relay):
+    """`Relay`'s network over the real overlay (see the module
+    docstring; `chip_smoke.py`'s O1). `envelopes` lists every SCP
+    envelope a node originated (sender index, slot, XDR bytes), as the
+    relay's does."""
+
+    def __init__(self, network_id: bytes) -> None:
+        super().__init__(network_id)
+        self.links = []
+
+    def join(self, name, app, **_kw) -> Node:
+        node = Node(self, name, app, *self._package())
+        app.overlay_manager = OverlayManager(app)
+        om = app.overlay_manager
+        idx = len(self.nodes)
+        self_id = app.config.node_id()
+        broadcast = om.broadcast_message
+
+        def broadcast_message(msg, force=False):
+            if msg.disc == PX.MessageType.SCP_MESSAGE and \
+                    msg.value.statement.nodeID == self_id:
+                raw = msg.value.to_xdr()
+                if raw not in node.sent:
+                    node.sent.add(raw)
+                    self.envelopes.append(
+                        (idx, msg.value.statement.slotIndex, raw))
+            return broadcast(msg, force)
+
+        om.broadcast_message = broadcast_message
+        self.nodes.append(node)
+        return node
+
+    @staticmethod
+    def _package():
+        from stellar_core_tpu_torch import xdr as X
+        from stellar_core_tpu_torch.herder.txset import TxSetFrame
+        from stellar_core_tpu_torch.transactions.transaction_frame import (
+            TransactionFrame,
+        )
+        return X, TxSetFrame, TransactionFrame
+
+    def link(self, i: int, j: int):
+        """Node i dials node j over an in-process pipe."""
+        self.links.append((i, j))
+        return link(self.nodes[i].app, self.nodes[j].app)
+
+    def authenticated(self) -> bool:
+        """Every link authenticated on both ends, and no peer pending."""
+        for i, j in self.links:
+            for a, b in ((i, j), (j, i)):
+                p = self.peer(a, b)
+                if p is None or not p.is_authenticated():
+                    return False
+        return not any(n.app.overlay_manager.pending_peers
+                       for n in self.nodes)
+
+    def submit(self, first: int, blob: bytes) -> int:
+        """A transaction envelope's bytes submitted at node `first`, as
+        `Application.submit_transaction` does: its herder's
+        `recv_transaction`, and a flood through its overlay when that
+        accepts it (status 0). Returns the status."""
+        node = self.nodes[first]
+        X = node.X
+        frame = node.TransactionFrame.make_from_wire(
+            self.network_id, X.TransactionEnvelope.from_xdr(blob))
+        status = node.app.herder.recv_transaction(frame)
+        if status == 0:
+            node.app.overlay_manager.broadcast_message(
+                X.StellarMessage(X.MessageType.TRANSACTION, frame.envelope),
+                False)
+        return status
+
+    def peer(self, i: int, j: int):
+        """Node i's authenticated peer for node j."""
+        key = self.nodes[j].app.config.node_id().to_xdr()
+        return self.nodes[i].app.overlay_manager.get_peer(key)
+
+    def stop(self) -> None:
+        for node in self.nodes:
+            node.app.overlay_manager.shutdown()
+

@@ -26,6 +26,7 @@ the reference reads the same two lines as its own defaults.
 """
 
 import contextlib
+import functools
 
 from torch_mirror_harness import record_calls
 
@@ -40,6 +41,37 @@ CPU_TOML = (
      r"""'NODE_SEED = "%s"\\n' 'SIG_VERIFY_BACKEND = "cpu"\\n' """
      r"""'HASH_BACKEND = "cpu"\\n'"""),
 )
+
+
+# the port side's rewrites of the CLI cases whose reference commands read
+# no config (`simulate` without `--conf`, `gen-fuzz` and `fuzz`, which
+# take none there): each gets `--conf` naming the CPU (`cpu_conf`), and
+# the `simulate` and `fuzz` outputs are read from their first line (the
+# port's commands print their launch counts on a second)
+CLI_CPU_CONF = (
+    (r'cli_main\(\["(simulate|gen-fuzz|fuzz)", ',
+     r'cli_main(["\1", "--conf", __import__("torch_main_harness")'
+     r'.cpu_conf(), '),
+    (r'(cli_main\(\["(?:simulate|fuzz)",[^\n]*\n\s*out = json\.loads\('
+     r'capsys\.readouterr\(\)\.out)\)',
+     r'\1.splitlines()[0])'),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def cpu_conf() -> str:
+    """A TOML config naming the CPU for both backends, with a node seed
+    (a config file needs one), written once in a directory of its own;
+    its path."""
+    import os
+    import tempfile
+    from stellar_core_tpu_torch.crypto import strkey
+    d = tempfile.mkdtemp(prefix="sct-cpu-conf-")
+    path = os.path.join(d, "cpu.toml")
+    with open(path, "w") as fh:
+        fh.write('SIG_VERIFY_BACKEND = "cpu"\nHASH_BACKEND = "cpu"\n'
+                 'NODE_SEED = "%s"\n' % strkey.encode_seed(b"\x07" * 32))
+    return path
 
 
 def shape(body, depth: int = 0):

@@ -16,6 +16,8 @@ classes a case imports inside its own body (`record_calls`). `run`
 clears the side's `log`, reseeds the side's global RNG (as the suite's
 conftest reseeds the reference's before every test), runs the case and
 returns what the recorders appended. A test holds the two logs equal.
+`port_subs` rewrite the port side alone (`torch_sim_harness.SIM_SUBS`
+names the CPU where the port's default is the card).
 """
 
 import contextlib
@@ -33,11 +35,12 @@ SEED = 0xFEEDFACE     # tests/conftest.py's per-test reseed
 
 class Mirror:
     def __init__(self, files, hook=None, patch=None, subs=(),
-                 siblings=()) -> None:
+                 siblings=(), port_subs=()) -> None:
         """`subs`: (pattern, replacement) pairs applied to both sides'
         source after the package rewrite, `{pkg}` in a replacement
-        naming the side's package; `siblings`: module names the files
-        import from each other."""
+        naming the side's package; `port_subs`: pairs applied to the
+        port side's source alone, after `subs`; `siblings`: module names
+        the files import from each other."""
         self.files = tuple(files)
         self.patch = patch
         self.sides = {}
@@ -51,7 +54,8 @@ class Mirror:
                     src = fh.read()
                 src = re.sub(r"\bstellar_core_tpu\b", pkg, src)
                 src = re.sub(r"(?m)^@pytest\.fixture.*$", "", src)
-                for pat, rep in subs:
+                for pat, rep in tuple(subs) + (tuple(port_subs)
+                                        if side == "port" else ()):
                     src = re.sub(pat, rep.replace("{pkg}", pkg), src)
                 for sib in siblings:
                     src = re.sub(r"\bfrom %s import" % sib,
