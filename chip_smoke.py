@@ -353,7 +353,11 @@ R1. a CPU node (the C verifier, `make_hasher("cpu")`, the Python apply
    `test_catchup.py::test_publish_layout` checks it (the HAS, the four
    categories, every bucket it names). Prints the closes' p50, the
    publishes' seconds and the archive's bytes. This node is the oracle of
-   R2-R5;
+   R2-R5. R1 runs with the earlier phases' objects frozen out of the
+   cyclic collector's reach (`gc.freeze()` after one full collection,
+   `gc.unfreeze()` after R1), so its full collections walk only the
+   objects made since; prints the frozen count. R2-R5 collect over all
+   of them again;
 R2. a fresh card node catches up complete: SUCCESS at 127; every ledger's
    hash, the bucket-list hash and the commitment root equal the
    publisher's; the verify launches per drain equal the count derived
@@ -612,6 +616,16 @@ G3. the hash-seed probe (`python -m
    under PYTHONHASHSEED 1 and 2, side by side: byte-identical outputs;
    its standard error's launch line as in G2.
 
+The lint, first, on the card's host and before the build: the port's
+own engine over the port's package with the port's allowlist, through
+its command line as an operator runs it (`python -m
+stellar_core_tpu_torch.analysis --json`; the Python rules D1, D2, T1,
+E1, F1, M1, S1, FL1, B1, the C rules N1-N4 over `native/*.c` and the
+CUDA sources `csrc/*.cu`/`*.cuh`, and A1). Checks: no violation, no
+stale allowlist entry, no parse error, and findings behind the allowlist
+(the rules ran). Prints its files, its findings by rule against the
+allowlist's entries, and its seconds.
+
 It prints the card's name and power limit, the build time, both kernels'
 ptxas reports (registers, stack frame, spills, shared memory; each from
 the log of the build that made its library, marked when that build was
@@ -621,7 +635,8 @@ the toolkit has it) and, for the SHA-256 kernel, each warp role's loop
 per block (instructions, ptxas's stall clocks, opcodes), the
 kernels' times, the paths' throughput and latency, their host layers
 timed alone, the profiled drains' device busy share, each path's wall
-seconds on one line, a `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
+seconds on one line (the lint's too) beside the card's name and power
+limit, a `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
 launches are the verify main path's, C2-C5p's, R2-R5's, M1's, S1-S2's,
 O1-O2's and G1-G3's, the sha256 entry's the hash main path's, L2-L4's,
 C1-C5p's, R2-R5's, M1's, S1-S2's, O1-O2's and G1-G3's, each split in
@@ -4334,7 +4349,21 @@ def r_close(app, blobs: list) -> float:
 
 
 def r1_publish(S, E, K, tmp: str, card: str) -> dict:
-    """R1 of the module docstring; returns the publisher and its archive."""
+    """R1 of the module docstring; returns the publisher and its archive.
+    The objects alive before it are frozen out of the collector's reach
+    for its length (one full collection first, so no garbage is frozen)."""
+    import gc
+    gc.collect()
+    gc.freeze()
+    try:
+        return r1_frozen(S, E, K, tmp, card, gc.get_freeze_count())
+    finally:
+        gc.unfreeze()
+
+
+def r1_frozen(S, E, K, tmp: str, card: str, frozen: int) -> dict:
+    """R1 itself, with the `frozen` objects of the earlier phases out of
+    the collector's reach."""
     from stellar_core_tpu_torch import testing as T
     from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
     from stellar_core_tpu_torch.crypto.batch_verifier import make_verifier
@@ -4402,12 +4431,13 @@ def r1_publish(S, E, K, tmp: str, card: str) -> dict:
         "then %d payments of %d signatures a ledger) in %.1f s; close p50 "
         "%.1f ms, p99 %.1f ms (p99 of %d samples is their maximum); "
         "publishes of checkpoints %d and %d %s s; the archive %d bytes "
-        "(%d buckets named by its HAS); %s"
+        "(%d buckets named by its HAS); %s, %d objects of the earlier phases "
+        "frozen"
         % (card, R_TOP, CLOSE_TXS, CLOSE_TXS, CLOSE_SIGS, wall,
            float(np.percentile(close_ms, 50)), p99(close_ms), len(close_ms),
            R_FREQ - 1, R_TIP,
            "/".join("%.2f" % x for x in publish_s if x > 1e-3), size,
-           len(has.bucket_hashes()), gcp.line()))
+           len(has.bucket_hashes()), gcp.line(), frozen))
     header = r_header(pub, R_TIP)
     return {"pub": pub, "archive": archive, "root": roots[R_TIP],
             "bucket_list": header.bucketListHash, "roots": roots}
@@ -7075,6 +7105,46 @@ def simulation_path(S, E, K, SC, torch, t_smoke: float, card: str) -> dict:
                        "simulation G3": g3[1]}}
 
 
+def lint_path(card: str) -> None:
+    """The lint of the module docstring: the port's engine over the port's
+    package, through its command line."""
+    from stellar_core_tpu_torch.analysis import default_config
+    from stellar_core_tpu_torch.analysis.engine import load_allowlist
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "stellar_core_tpu_torch.analysis", "--json"],
+                       capture_output=True, text=True, cwd=REPO,
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode in (0, 1) and r.stdout.lstrip().startswith("{"),
+          "lint: the command ran (rc %d): %s"
+          % (r.returncode, r.stderr[-2000:]))
+    out = json.loads(r.stdout)
+    for f in out["violations"]:
+        log("lint violation: %(rule)s %(path)s:%(line)d (%(qualname)s) "
+            "%(message)s" % f)
+    for e in out["stale_entries"]:
+        log("lint stale allowlist entry: %(rule)s %(path)s#%(qual)s "
+            "(line %(lineno)d)" % e)
+    for err in out["parse_errors"]:
+        log("lint parse error: %s" % err)
+    check(r.returncode == 0 and out["ok"] and not out["violations"]
+          and not out["stale_entries"] and not out["parse_errors"],
+          "lint: no unallowed finding, stale entry or parse error")
+    rules = Counter(f["rule"] for f in out["findings"])
+    check(sum(rules.values()) > 0, "lint: the rules found the sites the "
+          "allowlist names")
+    entries = load_allowlist(default_config().allowlist_path)
+    files = out["cache"]["hits"] + out["cache"]["misses"]
+    log("lint (%s): `python -m stellar_core_tpu_torch.analysis` over "
+        "stellar_core_tpu_torch/, %d files (%d from its cache): %d "
+        "findings (%s), every one behind the allowlist's %d entries; 0 "
+        "violations, 0 stale entries, 0 parse errors; %.1f s"
+        % (card, files, out["cache"]["hits"], sum(rules.values()),
+           ", ".join("%s %d" % kv for kv in sorted(rules.items())),
+           len(entries), wall))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7113,6 +7183,22 @@ def smoke(torch, args, flight_dir: str) -> int:
              "clock_hz": float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6}
     log("SMs %d, max SM clock %.0f MHz" % (props["sms"],
                                            props["clock_hz"] / 1e6))
+
+    # each path's wall seconds, for the budget (PERF.md §5)
+    path_s = {}
+    t_path = t_smoke
+
+    def lap(name: str) -> None:
+        nonlocal t_path
+        now = time.perf_counter()
+        path_s[name] = round(now - t_path, 1)
+        t_path = now
+
+    lap("start-up")
+
+    # --- the lint, on the card's host --------------------------------------
+    lint_path(card)
+    lap("lint")
 
     # --- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -7327,16 +7413,6 @@ def smoke(torch, args, flight_dir: str) -> int:
     prep_mode_drains(BV, K, E, S, native, drain, cpu_ref[:n_drain])
     async_scp_phase(BV, K, E, S, rng, burst_pool, cpu_ref[n_drain:])
     breaker_phase(BV, K, E, S, drain, got, flight_dir)
-
-    # each later path's wall seconds, for the budget (PERF.md §5)
-    path_s = {}
-    t_path = t_smoke
-
-    def lap(name: str) -> None:
-        nonlocal t_path
-        now = time.perf_counter()
-        path_s[name] = round(now - t_path, 1)
-        t_path = now
 
     fleet = fleet_path(torch, vectors, corpus, drain, cpu_ref[:n_drain],
                        props)

@@ -25,6 +25,10 @@ Deliberately different:
   closes (ROADMAP Queue 3 item 12). After the funding it moves the clock
   to where the reference's stands, so the close times, and every hash,
   are the reference's wherever the reference closes.
+- `fuzz` silences logging below ERROR only while it runs: the
+  reference's `logging.disable(logging.ERROR)` stays in force after the
+  command returns, so a caller in the same process (a test, an embedding
+  program) loses every later warning (ROADMAP Queue 3 item 13).
 
 Role parity: reference `src/main/CommandLine.cpp:1039-1093` — subcommand
 dispatch for node operation (`run`, `new-db`, `force-scp`, `catchup`,
@@ -392,9 +396,17 @@ def cmd_fuzz(args) -> int:
     contract for AFL integration)."""
     import logging
 
-    from .fuzz import fuzz_overlay, fuzz_tx, run_one
     backend = _load_config(args).SIG_VERIFY_BACKEND
+    silenced = logging.root.manager.disable
     logging.disable(logging.ERROR)
+    try:
+        return _fuzz(args, backend)
+    finally:
+        logging.disable(silenced)
+
+
+def _fuzz(args, backend: str) -> int:
+    from .fuzz import fuzz_overlay, fuzz_tx, run_one
     built: list = []
     if args.input:
         data = open(args.input, "rb").read()

@@ -31,7 +31,10 @@ length of each C call. `applyc.c` and `xdrc.c` are copies too; the loaders
 of their extensions follow the same file's at commit c67d465, except that
 a failed build or load raises (the reference returns None and its callers
 fall back to Python), and no environment variable turns them off (the
-apply engine has `LedgerManager.use_native_apply`).
+apply engine has `LedgerManager.use_native_apply`). `SCT_SANITIZE`
+builds every library and extension here with a sanitizer
+(`_build.SANITIZE_MODE`, read when this module is imported, as the
+reference reads it).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import threading
 from typing import Optional
 
 import numpy as np
+
+from .. import _build  # noqa: F401  (reads SCT_SANITIZE at import)
 
 _LOCK = threading.Lock()
 _ED_LIB = None

@@ -2,8 +2,7 @@
  * a fix in either copy to the other. Changed: the module's name, which is
  * `_sctapply_torch` (its PyModuleDef and PyInit), so that this extension
  * and the reference's never share a name in one process; one comment
- * drops the reference's tracker reference. Left out: the
- * `SCT_SANITIZE` builds (ROADMAP Queue 1). Deliberately different, in the
+ * drops the reference's tracker reference. Deliberately different, in the
  * Python around it (`ledger/native_apply.py`): a close with no verifier
  * raises, and an exception raised by the verify callback propagates out of
  * `apply_close` (NULL with the error set) and fails the close as

@@ -14,9 +14,9 @@ and on the Python phases alike. The reference's `_drive_closes` makes
 its traffic with each package's own `simulation/load_generator.py`, and
 each case keeps its assertions, the admin endpoint's and the
 Prometheus exposition's included. The taxonomy case
-reads `docs/observability.md` through the reference's analysis package
-on both sides (the port has no `analysis/`). The only tolerance is the
-reference's own `_breakdown_sums` bound on the per-op parts' sum against
+reads `docs/observability.md` through each side's own analysis package
+(the port's `analysis/crules.py` on the port's side). The only tolerance
+is the reference's own `_breakdown_sums` bound on the per-op parts' sum against
 the apply wall.
 """
 
@@ -27,12 +27,6 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_mirror_harness import Mirror, record_calls  # noqa: E402
-
-SUBS = (
-    (r"from stellar_core_tpu_torch\.analysis\.crules import",
-     "from stellar_core_tpu.analysis.crules import"),
-)
-
 
 def _hook(side, pkg, mods, log):
     mod = mods["test_apply_cockpit.py"]
@@ -69,7 +63,7 @@ def _record_cockpit(pkg, log):
 
 
 MIRROR = Mirror(("test_apply_cockpit.py",), hook=_hook,
-                patch=_record_cockpit, subs=SUBS)
+                patch=_record_cockpit)
 CASES = MIRROR.cases()
 
 

@@ -24,6 +24,8 @@ from stellar_core_tpu_torch.crypto.batch_hasher import (
 )
 from stellar_core_tpu_torch.ops import sha256 as TS
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 
 def _mixed_msgs(seed: int = 0):
     """tests/test_batch_hasher.py:56-60 from a seeded generator: mixed

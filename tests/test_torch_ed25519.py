@@ -41,18 +41,11 @@ from stellar_core_tpu_torch.ops import ed25519 as TE
 from stellar_core_tpu_torch.ops.field import int_from_limbs
 from stellar_core_tpu_torch.testing.vectors import _vectors
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 BUCKET = 128
 VECTORS = _vectors()
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain version issues many tiny ops; one intra-op thread per
-    test worker keeps parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _corpus(n: int, seed: int = 7):

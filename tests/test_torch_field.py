@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from stellar_core_tpu.ops import field as JF
 from stellar_core_tpu_torch.ops import field as TF
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 P = TF.P
 B = 24
 
@@ -38,15 +40,6 @@ def _inputs(seed: int) -> np.ndarray:
 def _value(limbs: np.ndarray, lane: int) -> int:
     return TF.int_from_limbs(np.asarray(limbs)[:, lane])
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain version issues many tiny ops; one intra-op thread per
-    test worker keeps parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 A = _inputs(1)

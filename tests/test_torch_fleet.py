@@ -41,13 +41,8 @@ from stellar_core_tpu_torch.util.faults import FaultInjector
 from stellar_core_tpu_torch.util.metrics import MetricsRegistry
 from stellar_core_tpu_torch.xdr import PublicKey
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

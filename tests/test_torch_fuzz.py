@@ -105,3 +105,36 @@ def test_fuzzing_mode_off_after_a_raising_run(monkeypatch):
         fuzz.run_one("tx", blob, backend="cpu")
     assert seen == [True]
     assert sc._FUZZING_MODE is False
+
+
+def test_fuzz_command_restores_logging_reference_fault(tmp_path, capsys):
+    """The reference's `fuzz` command leaves `logging.disable(ERROR)` in
+    force after it returns (ROADMAP Queue 3 item 13), so a caller in the
+    same process loses every later warning; the port's silences logging
+    only while it runs. Both run the same input to the same stats."""
+    import json
+    import logging
+
+    from stellar_core_tpu.main.commandline import main as ref_main
+    from stellar_core_tpu_torch.crypto import strkey
+    from stellar_core_tpu_torch.main.commandline import main as port_main
+    conf = tmp_path / "cpu.toml"
+    conf.write_text('SIG_VERIFY_BACKEND = "cpu"\nHASH_BACKEND = "cpu"\n'
+                    'NODE_SEED = "%s"\n' % strkey.encode_seed(b"\x07" * 32))
+    blob = tmp_path / "input.bin"
+    assert ref_main(["gen-fuzz", str(blob), "--mode", "tx",
+                     "--seed", "7"]) == 0
+    left, stats = {}, {}
+    try:
+        for side, main, extra in (("port", port_main, ["--conf", str(conf)]),
+                                  ("ref", ref_main, [])):
+            logging.disable(logging.NOTSET)
+            capsys.readouterr()
+            assert main(["fuzz", "--mode", "tx", "--input", str(blob)]
+                        + extra) == 0
+            stats[side] = json.loads(capsys.readouterr().out.splitlines()[0])
+            left[side] = logging.root.manager.disable
+    finally:
+        logging.disable(logging.NOTSET)
+    assert stats["port"] == stats["ref"] and stats["ref"]["iterations"] == 1
+    assert left == {"port": logging.NOTSET, "ref": logging.ERROR}

@@ -46,6 +46,8 @@ from stellar_core_tpu_torch.util import faults as PF
 from stellar_core_tpu_torch.util import metrics as PM
 from stellar_core_tpu_torch.util import tracing as PT
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 LANES = (64, 256)
 TIMING = ("staged_s", "overlap_s", "last_overlap_pct")
 

@@ -12,7 +12,7 @@ main slice's `main/application.py`, `main/command_handler.py`,
 `history/inferred_quorum.py` and the package's `__main__`, and the
 simulation slice's `simulation/` modules, `testing/bench_records.py`,
 `testing/scenarios.py`, `testing/hashseed_probe.py` and `main/fuzz.py`,
-among them, named in the first): every port module imported in a fresh interpreter leaves
+and the lint slice's `analysis/` modules, among them, named in the first): every port module imported in a fresh interpreter leaves
 neither `jax` nor a `stellar_core_tpu` module in `sys.modules`; no import
 statement in the port's sources (including the ones inside functions,
 which an import-time check cannot reach) names them; and every relative
@@ -109,7 +109,11 @@ def test_port_modules_import_no_jax():
               "simulation.topologies", "simulation.simulation",
               "simulation.load_generator", "testing.bench_records",
               "testing.scenarios", "testing.hashseed_probe",
-              "main.fuzz"):
+              "main.fuzz",
+              # the lint slice: the engine, its rules and command line
+              "analysis", "analysis.engine", "analysis.rules",
+              "analysis.flowrules", "analysis.crules", "analysis.cache",
+              "analysis.__main__"):
         assert "stellar_core_tpu_torch." + m in mods, m
     code = (
         "import importlib, os, sys\n"

@@ -62,8 +62,9 @@ from stellar_core_tpu_torch.transactions.transaction_frame import (
 from torch_close_harness import (
     CORRUPT_EVERY, MULTISIG, NET, PORT, Shim, Workload, close_one, config,
     engine_candidates, engine_launches, make_port_side, observe,
-    one_torch_thread,
 )
+
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 REF = SimpleNamespace(X=RX, TransactionFrame=RTransactionFrame,
                       TxSetFrame=RTxSetFrame,
@@ -265,11 +266,10 @@ def cold_close_dispatches(tmp_path, native: bool, want_cold: int) -> None:
 
     # then the card's verifier, here its plain version
     v = port.app.sig_verifier = CudaSigVerifier(device="cpu")
-    with one_torch_thread():
-        assert derived_checks(port, ref, v, pay(5), True) == {
-            "validate": 1, "close": 0}
-        assert derived_checks(port, ref, v, pay(6), False) == {
-            "validate": 1, "close": want_cold}
+    assert derived_checks(port, ref, v, pay(5), True) == {
+        "validate": 1, "close": 0}
+    assert derived_checks(port, ref, v, pay(6), False) == {
+        "validate": 1, "close": want_cold}
     for lm in (port, ref):
         lm.app.bucket_manager.shutdown()
 

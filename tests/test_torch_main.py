@@ -41,6 +41,8 @@ from stellar_core_tpu_torch.main.config import Config
 from stellar_core_tpu_torch.testing import AppLedgerAdapter
 from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONUNBUFFERED="1",
            PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -29,17 +29,10 @@ from stellar_core_tpu_torch.parallel.mesh import (
 )
 from stellar_core_tpu_torch.testing.vectors import _vectors
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 LADDER = (16, 64)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain version issues many tiny ops; one intra-op thread per
-    test worker keeps parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(n, n_keys=6, tag=b"fleet"):

@@ -226,7 +226,7 @@ def test_failed_engine_build_raises(tmp_path, monkeypatch):
 def test_engine_loads_from_port_build_dir():
     mod = N.apply_engine()
     assert mod.__name__ == "_sctapply_torch"
-    assert os.path.dirname(mod.__file__) == _build.BUILD_DIR
+    assert os.path.dirname(mod.__file__) == _build.native_build_dir()
 
 
 class RaisingVerifier(CpuSigVerifier):

@@ -39,6 +39,8 @@ from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.ops import ed25519 as E
 from stellar_core_tpu_torch.parallel.mesh import pad_batch_to
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 
 @pytest.fixture(autouse=True)
 def _needs_cc():

@@ -57,7 +57,7 @@ def test_codec_module_loads_from_port_build_dir():
     import os
     mod = N.xdr_engine()
     assert mod.__name__ == "_sctxdr_torch"
-    assert os.path.dirname(mod.__file__) == _build.BUILD_DIR
+    assert os.path.dirname(mod.__file__) == _build.native_build_dir()
     # its rejections raise the port codec's error, not the reference's
     from stellar_core_tpu_torch.xdr.codec import XdrError
     with pytest.raises(XdrError):

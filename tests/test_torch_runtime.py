@@ -14,11 +14,11 @@ own source (`torch_mirror_harness.Mirror`), with every admin command,
 close, admission and `TestLedger` application recorded on both sides
 (`torch_main_harness.node_records`, which arms the port's checks as
 `tests/conftest.py` arms the reference's) and held equal. The catalog
-cases run the reference's lint engine (the port has no `analysis/`;
-ROADMAP Queue 1) with its M1 rule over each side's own package and
-catalog (the port's: `docs/metrics.md` and `docs/metrics-torch.md`, the
-metrics only the port registers): every metric the port registers is
-documented, and the scanner finds the core metrics in the port too. Tolerance: none.
+cases run each side's own lint engine with its M1 rule over its own
+package and catalog (the port's engine reads `docs/metrics.md` and
+`docs/metrics-torch.md`, the metrics only the port registers): every
+metric the port registers is documented, and the scanner finds the core
+metrics in the port too. Tolerance: none.
 """
 
 import os
@@ -30,36 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_main_harness import cpu_test_ledger, node_records  # noqa: E402
 from torch_mirror_harness import Mirror  # noqa: E402
 
-# the catalog's lint engine is the reference's on both sides, pointed at
-# the side's own package
-CATALOG_SUBS = (
-    (r"from stellar_core_tpu(_torch)?\.analysis",
-     "from stellar_core_tpu.analysis"),
-    (r"dataclasses\.replace\(default_config\(\), ",
-     "dataclasses.replace(default_config(), **_side_package(\"{pkg}\"), "),
-    (r"(?m)^def _m1_config\(\):", '''def _side_package(pkg):
-    import importlib
-    import os
-    import tempfile
-    d = os.path.dirname(importlib.import_module(pkg).__file__)
-    out = {"package_dir": d, "package_name": pkg}
-    if pkg.endswith("_torch"):
-        docs = os.path.join(os.path.dirname(d), "docs")
-        fd, path = tempfile.mkstemp(suffix=".md")
-        with os.fdopen(fd, "w") as fh:
-            for name in ("metrics.md", "metrics-torch.md"):
-                with open(os.path.join(docs, name)) as src:
-                    fh.write(src.read() + chr(10))
-        out["docs_metrics_path"] = path
-    return out
-
-
-def _m1_config():'''),
-)
-
 MIRROR = Mirror(("test_threads.py", "test_faults.py",
                  "test_metrics_catalog.py"),
-                hook=cpu_test_ledger, patch=node_records, subs=CATALOG_SUBS)
+                hook=cpu_test_ledger, patch=node_records)
 RUN_ELSEWHERE = ("test_breaker_state_machine_virtual_clock",
                  "test_trip_during_drain_returns_correct_results",
                  "test_tpu_flush_recompletes_futures_on_dispatch_exception",

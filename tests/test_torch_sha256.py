@@ -34,6 +34,8 @@ from stellar_core_tpu.ops import sha256 as JS
 from stellar_core_tpu_torch import _build
 from stellar_core_tpu_torch.ops import sha256 as TS
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 # every FIPS padding boundary (tests/test_batch_hasher.py:29-53) plus the
 # largest message of the largest block bucket
 BOUNDARY_LENS = (0, 1, 3, 54, 55, 56, 63, 64, 118, 119, 120, 128, 250,

@@ -27,6 +27,8 @@ from stellar_core_tpu_torch import native
 from stellar_core_tpu_torch.ops import sha256 as TS
 from stellar_core_tpu_torch.testing.entries import entry_records
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 STALE = -0x5A5A5A5B   # the stale buffer's fill word
 
 

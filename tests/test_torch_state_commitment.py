@@ -52,6 +52,8 @@ from stellar_core_tpu_torch.bucket.bucket import (
     bucket_entry_sort_key as port_sort_key, entry_record as port_entry_record,
 )
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 PROTO = 13
 
 

@@ -26,6 +26,7 @@ from stellar_core_tpu_torch.crypto.batch_hasher import make_hasher
 from stellar_core_tpu_torch.crypto.batch_verifier import (
     BatchSigVerifier, CpuSigVerifier, CudaSigVerifier,
 )
+from stellar_core_tpu_torch.crypto.keys import flush_verify_cache
 from stellar_core_tpu_torch.herder.txset import TxSetFrame
 from stellar_core_tpu_torch.herder.upgrades import (
     UpgradeParameters, Upgrades,
@@ -42,7 +43,7 @@ from stellar_core_tpu_torch.xdr import (
 )
 
 from test_torch_ledgertxn import CASES as LEDGERTXN_CASES, port_cases
-from torch_close_harness import one_torch_thread
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 
 class CpuTestLedger(T.TestLedger):
@@ -88,9 +89,8 @@ def test_upgrades_case(name):
 def test_transactions_on_the_verify_kernels_plain_version():
     """The card's verifier on the host (`CudaSigVerifier(device="cpu")`,
     the kernel's plain version) drives a case's accounts and payment."""
-    with one_torch_thread():
-        ledger = T.TestLedger(verifier=CudaSigVerifier(device="cpu"))
-        TX.test_create_account_and_payment(ledger, ledger.root_account)
+    ledger = T.TestLedger(verifier=CudaSigVerifier(device="cpu"))
+    TX.test_create_account_and_payment(ledger, ledger.root_account)
 
 
 # -- no verifier, no verify --------------------------------------------------
@@ -266,6 +266,9 @@ def test_gapped_value_raises():
 
 
 def test_failed_drain_fails_and_rolls_back_the_close():
+    # an earlier case may have verified the same payment: the drain must
+    # see it
+    flush_verify_cache()
     lm = _manager(_FailingVerifier())
     root = T.TestAccount(_Shim(lm), T.root_secret_key())
     before = lm.lcl_hash

@@ -22,17 +22,10 @@ from stellar_core_tpu_torch.crypto.keys import SecretKey
 from stellar_core_tpu_torch.testing.vectors import _vectors
 from stellar_core_tpu_torch.xdr import PublicKey
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 SMALL_LADDER = (4, 8, 16)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain version issues many tiny ops; one intra-op thread per
-    test worker keeps parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _triples(n: int, seed: int):

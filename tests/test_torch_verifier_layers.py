@@ -55,19 +55,14 @@ from stellar_core_tpu_torch.util.metrics import MetricsRegistry
 from stellar_core_tpu_torch.util.timer import ClockMode, VirtualClock
 from stellar_core_tpu_torch.util.timer import VirtualTimer
 
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
+
 REF = {"bv": RBV, "registry": RefRegistry, "faults": RefFaultInjector,
        "clock": RefVirtualClock, "mode": RefClockMode,
        "timer": RefVirtualTimer}
 PORT = {"bv": BV, "registry": MetricsRegistry, "faults": FaultInjector,
         "clock": VirtualClock, "mode": ClockMode, "timer": VirtualTimer}
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -6,7 +6,6 @@ and what a close must agree on. It imports only the port, so the
 `cuda`-marked tests can use it where the JAX package is absent.
 """
 
-import contextlib
 import hashlib
 from types import SimpleNamespace
 
@@ -365,15 +364,3 @@ def engine_launches(candidates, bucket: int = 8192) -> int:
     return -(-misses // bucket)
 
 
-@contextlib.contextmanager
-def one_torch_thread():
-    """Run the verify kernel's plain version on one intra-op thread: the
-    suite runs six workers on the host's cores, and torch's default of a
-    thread per core in each of them oversubscribes the host many times."""
-    import torch
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)

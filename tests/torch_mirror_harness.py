@@ -17,16 +17,21 @@ clears the side's `log`, reseeds the side's global RNG (as the suite's
 conftest reseeds the reference's before every test), runs the case and
 returns what the recorders appended. A test holds the two logs equal.
 `port_subs` rewrite the port side alone (`torch_sim_harness.SIM_SUBS`
-names the CPU where the port's default is the card).
+names the CPU where the port's default is the card). A run that silences
+logging for the process (the reference's `fuzz` command) is undone after
+it, so the cases after it on the same worker still log.
 """
 
 import contextlib
 import inspect
 import itertools
+import logging
 import os
 import re
 import sys
 import types
+
+import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {"ref": "stellar_core_tpu", "port": "stellar_core_tpu_torch"}
@@ -117,6 +122,7 @@ class Mirror:
         __import__(s["pkg"] + ".util.rnd", fromlist=["g_random"]) \
             .g_random.seed(SEED)
         del s["log"][:]
+        silenced = logging.root.manager.disable
         teardown = []
         patch = self.patch(s["pkg"], s["log"]) if self.patch is not None \
             else contextlib.nullcontext()
@@ -130,6 +136,7 @@ class Mirror:
         finally:
             for gen in reversed(teardown):
                 next(gen, None)
+            logging.disable(silenced)
         return list(s["log"])
 
 
