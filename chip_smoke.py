@@ -17,7 +17,9 @@ which verifies each close's candidate signatures in one `prewarm_many`),
 the catchup that replays published checkpoints through that close, and a
 network of herder nodes reaching consensus on the values that close,
 first through a relay, then over the port's overlay: authenticated
-loopback peers and localhost TCP.
+loopback peers and localhost TCP, simulated fleets, and last the
+reference's operation-semantics cases, their signatures decided on the
+card.
 Every close node runs as the reference's default node: its SQL root's
 point reads served from the bucket list by BucketDB, the close cockpit
 (`ledger/apply_stats.py`) on, the apply engine; the CPU twins and the
@@ -616,6 +618,31 @@ G3. the hash-seed probe (`python -m
    under PYTHONHASHSEED 1 and 2, side by side: byte-identical outputs;
    its standard error's launch line as in G2.
 
+The reference's operation semantics (T1, after G3), each case driven
+with the counts set to 0 just before it and read just after:
+
+T1. the 428 cases of the reference's 14 operation-semantics files whose
+   cases sign transactions (`T1_FILES`: payments, path payments, offers,
+   exchange, liabilities, allow-trust, inflation, the upgrade matrix,
+   envelopes, multisig and merges in a set and in the queue, fee bumps,
+   result codes), loaded from the checkout's `tests/` by
+   `torch_mirror_harness.Mirror(..., sides=("port",))`, which reads their
+   source as text and points it at the port (no `jax`, no
+   `stellar_core_tpu`). Each case runs twice, from an empty verify cache
+   each time: as written, its `TestLedger()`s verifying on the card's bare
+   fleet (`make_verifier()`), and on a twin whose `TestLedger`s take the C
+   verifier behind the card stack's boundary (`t1_twin`). Checks: every
+   assertion of the case on both; the two records equal
+   (`torch_ops_records.op_records`: each application's return value, each
+   result and a fee bump's inner result and the header as XDR, a SHA-256
+   over the root's entries; the type of each exception a case expects);
+   the card's launches == its drains == the twin's drains after the cache
+   (a flush after an enqueue that missed, a `verify_many` of any triple);
+   every triple the card decided decided alike by the twin's backend, and
+   no other; afterwards neither `jax` nor `stellar_core_tpu` in
+   `sys.modules`. Prints the cases, frames, signatures the card decided
+   and rejected, launches and seconds.
+
 The lint, first, on the card's host and before the build: the port's
 own engine over the port's package with the port's allowlist, through
 its command line as an operator runs it (`python -m
@@ -638,12 +665,12 @@ timed alone, the profiled drains' device busy share, each path's wall
 seconds on one line (the lint's too) beside the card's name and power
 limit, a `{"kernels": [...]}` line (three entries; the ed25519_verify entry's
 launches are the verify main path's, C2-C5p's, R2-R5's, M1's, S1-S2's,
-O1-O2's and G1-G3's, the sha256 entry's the hash main path's, L2-L4's,
+O1-O2's, G1-G3's and T1's, the sha256 entry's the hash main path's, L2-L4's,
 C1-C5p's, R2-R5's, M1's, S1-S2's, O1-O2's and G1-G3's, each split in
 `launches_by_path`, R2, R2p and R3-R5 under `catchup`, M1 under `main
 M1`, S1 and S2 under `herder S1` and `herder S2`, O1 and O2 under
 `overlay O1` and `overlay O2`, G1-G3 under `simulation G1` to
-`simulation G3`)
+`simulation G3`, T1 under `semantics T1`)
 and, last,
 `{"ok": true, "device": {...}}`. Any failed check raises (exit code
 1) and prints no result; so does a machine without CUDA.
@@ -843,6 +870,16 @@ G2_FUZZ_ITERATIONS = 300
 # gen-fuzz's seed: its mutated envelope still decodes, so `fuzz --input`
 # takes it through the frame, the fee and sequence checks and the apply
 G2_FUZZ_SEED = 15
+# T1: the reference's operation-semantics files whose cases sign
+# transactions, each with the count `pytest --collect-only` gives
+T1_FILES = {"test_payment_matrix.py": 23, "test_path_payment_matrix.py": 41,
+            "test_path_payment_vectors.py": 18, "test_offer_matrix.py": 28,
+            "test_exchange_vectors.py": 76, "test_liabilities_matrix.py": 78,
+            "test_op_liability_matrix.py": 17,
+            "test_allow_trust_matrix.py": 10, "test_inflation_matrix.py": 4,
+            "test_upgrades_matrix.py": 31, "test_txenvelope_matrix.py": 25,
+            "test_multisig_merge_queue_matrix.py": 38,
+            "test_fee_bump_vectors.py": 17, "test_txresults_matrix.py": 22}
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the node's processes run from the checkout's root, unbuffered so their
 # output reaches its files as it is printed
@@ -7105,6 +7142,134 @@ def simulation_path(S, E, K, SC, torch, t_smoke: float, card: str) -> dict:
                        "simulation G3": g3[1]}}
 
 
+def t1_twin(BV, K, tally: dict):
+    """T1's twin verifier: the C verifier behind the card stack's boundary.
+    It prewarms where the card's does (`wants_prewarm`), records each
+    triple that reached its backend after the cache with its decision, and
+    counts its drains as the card would launch them: a `flush` after an
+    `enqueue` that missed the cache, and a `verify_many` of any triple."""
+
+    class Twin(BV.CpuSigVerifier):
+        wants_prewarm = True
+
+        def __init__(self) -> None:
+            self._missed = False
+
+        def enqueue(self, key, sig, msg):
+            ck = K._cache_key(key.key_bytes, sig, msg)
+            with K._cache_lock:
+                hit = K._verify_cache.maybe_get(ck)
+            fut = super().enqueue(key, sig, msg)
+            if hit is None:
+                self._missed = True
+                tally["decided"].append(((key.key_bytes, sig, msg),
+                                         fut.result()))
+            return fut
+
+        def flush(self) -> None:
+            if self._missed:
+                tally["drains"] += 1
+                self._missed = False
+
+        def verify_many(self, triples):
+            out = super().verify_many(triples)
+            if triples:
+                tally["drains"] += 1
+                tally["decided"].extend(zip(triples, out))
+            return out
+
+    return Twin
+
+
+def t1_decisions(pairs: list, what: str) -> dict:
+    """{triple: decision} of a side's (triple, decision) pairs; one triple
+    decided twice must be decided alike."""
+    out = {}
+    for t, ok in pairs:
+        check(out.setdefault(t, ok) == ok, "%s: one triple decided two "
+              "ways" % what)
+    return out
+
+
+def t1_frames(log: list) -> int:
+    """The frames a case's record shows applied: (name, summary) entries
+    of `torch_ops_records.op_records`."""
+    return sum(1 if e[0] == "apply_frame" else len(e[1][1]) for e in log
+               if e[0] in ("apply_frame", "close_with"))
+
+
+def semantics_path(E, K, BV, card: str) -> dict:
+    """T1 of the module docstring: the reference's operation-semantics
+    cases on the port, the card deciding their signatures, each case
+    against a C-verifier twin."""
+    import functools
+    H = harness("torch_mirror_harness")
+    R = harness("torch_ops_records")
+    t0 = time.perf_counter()
+    M = H.Mirror(("test_ledgertxn.py",) + tuple(T1_FILES),
+                 hook=R.record_raises, subs=R.VERIFIER_SUBS,
+                 siblings=("test_ledgertxn",), sides=("port",))
+    cases = [c for c in M.cases() if c[0] in T1_FILES]
+    for f, n in T1_FILES.items():
+        check(sum(c[0] == f for c in cases) == n,
+              "T1: %d cases of %s, as pytest collects" % (n, f))
+    card_calls = []
+    orig = BV.CudaSigVerifier.verify_many
+
+    def card_verify_many(self, triples):
+        out = orig(self, triples)
+        card_calls.append(list(zip(triples, out)))
+        return out
+
+    frames = decided = rejected = launches = drains = 0
+    BV.CudaSigVerifier.verify_many = card_verify_many
+    try:
+        for case in cases:
+            what = "T1 " + H.Mirror.case_id(case)
+            K.flush_verify_cache()
+            del card_calls[:]
+            M.patch = R.op_records
+            n0 = E.LAUNCHES
+            card_log = M.run("port", case)
+            n = E.LAUNCHES - n0
+            card_pairs = [p for call in card_calls for p in call]
+            tally = {"drains": 0, "decided": []}
+            K.flush_verify_cache()
+            M.patch = functools.partial(R.op_records,
+                                        verifier=t1_twin(BV, K, tally))
+            twin_log = M.run("port", case)
+            check(card_log == twin_log, "%s: the card's record == the "
+                  "twin's" % what)
+            check(n == len(card_calls) == tally["drains"],
+                  "%s: %d launches, one per card drain (%d), == the "
+                  "twin's drains after the cache (%d)"
+                  % (what, n, len(card_calls), tally["drains"]))
+            got = t1_decisions(card_pairs, what + " (card)")
+            want = t1_decisions(tally["decided"], what + " (twin)")
+            check(got == want, "%s: the card decided every triple the "
+                  "twin's backend decided, alike" % what)
+            frames += t1_frames(card_log)
+            decided += len(card_pairs)
+            rejected += sum(1 for _t, ok in card_pairs if not ok)
+            launches += n
+            drains += tally["drains"]
+    finally:
+        BV.CudaSigVerifier.verify_many = orig
+    check(launches > 0 and rejected > 0, "T1: the card decided the cases' "
+          "signatures and rejected some")
+    check(not any(m == "jax" or m.startswith(("jax.", "stellar_core_tpu."))
+                  or m == "stellar_core_tpu" for m in sys.modules),
+          "T1: neither jax nor stellar_core_tpu was imported")
+    wall = time.perf_counter() - t0
+    log("semantics T1 (%s): %d reference cases of %d files on the port, "
+        "each on the card and on a C-verifier twin, records equal; %d "
+        "frames; the card decided %d signatures (%d rejected, as the twin "
+        "decided them) in %d launches == the twin's %d drains after the "
+        "cache; %.1f s" % (card, len(cases), len(T1_FILES), frames,
+                           decided, rejected, launches, drains, wall))
+    return {"verify": launches, "cases": len(cases), "s": wall}
+
+
 def lint_path(card: str) -> None:
     """The lint of the module docstring: the port's engine over the port's
     package, through its command line."""
@@ -7454,6 +7619,10 @@ def smoke(torch, args, flight_dir: str) -> int:
     # --- simulation: the scenario lab, the operator's commands, the probe --
     simulation = simulation_path(S, E, K, SC, torch, t_smoke, card)
     lap("simulation")
+
+    # --- the reference's operation-semantics cases, decided on the card ---
+    semantics = semantics_path(E, K, BV, card)
+    lap("semantics T1")
     log("paths' wall seconds (%s): %s; %.1f s in all"
         % (card, json.dumps(path_s), time.perf_counter() - t_smoke))
 
@@ -7468,13 +7637,14 @@ def smoke(torch, args, flight_dir: str) -> int:
         + catchup["verify"] + catchup["main M1"]["verify"]
         + sum(herder["verify"].values())
         + sum(overlay["verify"].values())
-        + sum(simulation["verify"].values()),
+        + sum(simulation["verify"].values()) + semantics["verify"],
         "launches_by_path": {"verify main path": launches,
                              **closes["verify"],
                              "catchup": catchup["verify"],
                              "main M1": catchup["main M1"]["verify"],
                              **herder["verify"], **overlay["verify"],
-                             **simulation["verify"]},
+                             **simulation["verify"],
+                             "semantics T1": semantics["verify"]},
         "max_abs_err": float(main_b["mismatches"]),
         "ms": main_b["ms"], "plain_ms": main_b["plain_ms"],
         "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],

@@ -5,10 +5,10 @@ JAX package's.
   ledgertxn (its lines 34-249 and 302-456), run against the port: level
   arithmetic, the spill schedule through a real list, merge lifecycle
   semantics, manager adoption, GC and `assume_state`, shadowing, a single
-  entry bubbling down, and the skip list. Left out, because the port has
-  neither layer yet: `test_apply_buckets_restores_state` (the applicator
-  writes through ledgertxn) and `test_skip_list_nonzero_in_closed_headers`
-  (it closes ledgers through the reference's Application).
+  entry bubbling down, and the skip list. The other two,
+  `test_apply_buckets_restores_state` (the applicator writes through
+  ledgertxn) and `test_skip_list_nonzero_in_closed_headers` (it closes
+  ledgers through an Application), run in `test_torch_app_cases.py`.
 - A differential: the same seeded batches (accounts, trustlines, offers,
   data entries of `testing/entries.py`, with updates and tombstones, and a
   pre-12 protocol run with shadows) through the reference's and the port's

@@ -12,9 +12,9 @@ Mirrored from `tests/test_history_matrix.py`: the stalled publish, the
 publish queue across a restart, the pristine queued HAS, multiple
 archives, publish/catchup alternation with a stall, the prefix and
 recent targets, the second gap, the protocol change mid-archive, the
-corrupt bucket and the tampered header. Left out:
+corrupt bucket and the tampered header.
 `test_initialize_existing_history_store_fails`, which drives
-`main/commandline.py`'s `new-hist` (the port has no command line yet).
+`main/commandline.py`'s `new-hist`, runs in `test_torch_app_cases.py`.
 From `tests/test_restart_continuity.py`:
 `test_restart_resumes_chain_and_state`, and the stale local HAS that
 restarts on an empty bucket list (`_restore_bucket_list`'s fallback);

@@ -22,7 +22,9 @@ fails only when its function first runs). The first also loads the port's
 two CPython extensions, the apply engine and the codec's C route: each
 comes from `stellar_core_tpu_torch/build/` under the port's own module
 name (`_sctapply_torch`, `_sctxdr_torch`), and loading them pulls in
-nothing of JAX or the JAX package.
+nothing of JAX or the JAX package. A fourth runs `chip_smoke.py`'s T1
+path on the CPU: the reference's operation-semantics files loaded for
+the port alone and a signing case run on them import neither.
 """
 
 import ast
@@ -137,6 +139,34 @@ def test_port_modules_import_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip() == str(len(mods))
+
+
+def test_port_only_mirror_imports_no_jax():
+    """`chip_smoke.py`'s T1 path: the reference's operation-semantics
+    files loaded for the port alone (`Mirror(..., sides=("port",))`) and
+    a signing case run on them leave neither `jax` nor a
+    `stellar_core_tpu` module in `sys.modules`."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import functools\n"
+        "import chip_smoke\n"
+        "from torch_mirror_harness import Mirror\n"
+        "import torch_ops_records as R\n"
+        "M = Mirror(('test_ledgertxn.py',) + tuple(chip_smoke.T1_FILES),\n"
+        "           hook=R.record_raises, subs=R.VERIFIER_SUBS,\n"
+        "           siblings=('test_ledgertxn',), sides=('port',),\n"
+        "           patch=functools.partial(R.op_records,\n"
+        "                                   verifier=R.host_verifier))\n"
+        "case = [c for c in M.cases() if c[1] == 'test_bad_signature'][0]\n"
+        "assert M.run('port', case)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'stellar_core_tpu')]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),

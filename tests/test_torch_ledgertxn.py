@@ -16,9 +16,6 @@ Two parts:
 """
 
 import inspect
-import os
-import re
-import types
 
 import numpy as np
 import pytest
@@ -30,24 +27,7 @@ from stellar_core_tpu.ledger import ledgertxn as RL
 from stellar_core_tpu_torch.database.database import Database as PDatabase
 from stellar_core_tpu_torch.ledger import ledgertxn as PL
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def port_cases(test_file: str, drop=()) -> types.ModuleType:
-    """A reference test module's source with every `stellar_core_tpu`
-    import pointed at the port (lines matching a pattern of `drop`
-    removed), executed as a module of its own."""
-    path = os.path.join(REPO, "tests", test_file)
-    with open(path) as fh:
-        lines = [ln for ln in fh.read().split("\n")
-                 if not any(re.search(d, ln) for d in drop)]
-    src = re.sub(r"\bstellar_core_tpu\b", "stellar_core_tpu_torch",
-                 "\n".join(lines))
-    mod = types.ModuleType("port_" + test_file[:-3])
-    mod.__file__ = path
-    exec(compile(src, path, "exec"), mod.__dict__)
-    return mod
-
+from torch_mirror_harness import port_cases
 
 CASES = port_cases("test_ledgertxn.py")
 ROOT_CASES = sorted(n for n in dir(CASES) if n.startswith("test_")

@@ -7,7 +7,12 @@ card. Held against the JAX package: the fleet verifier at N = 1, 2, 3, 4
 and 8 against the reference's `CpuSigVerifier` (with the N=3 rounding of
 a bucket to a multiple of the fleet), `multichip_verify` of 13 items on 8
 members against `verify_oracle`, and the multi-device dry run. Without a
-card, the fleet's default constructions raise. Tolerance: none.
+card, the fleet's default constructions raise. These are the port's
+counterparts of `tests/test_multichip.py`, whose cases drive JAX's mesh
+(`make_mesh`, `sharded_verify_fn`) over 8 virtual CPU devices and do not
+run on the port; its weak-scaling timing has none on the CPU (the card's
+scaling over 1-4 members is timed in `chip_smoke.py`'s phase 4b).
+Tolerance: none.
 """
 
 import numpy as np

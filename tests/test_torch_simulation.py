@@ -49,6 +49,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_main_harness import cpu_test_ledger  # noqa: E402
 from torch_mirror_harness import Mirror  # noqa: E402
+from torch_ops_records import TPU_NAME_SUBS  # noqa: E402
 from torch_sim_harness import SIM_SUBS  # noqa: E402
 import torch_overlay_records as R  # noqa: E402
 
@@ -62,13 +63,6 @@ COMMIT = Mirror(("test_state_commitment.py",), patch=R.record_overlay)
 COMMIT_CASES = [c for c in COMMIT.cases() if c[1] ==
                 "test_thirty_ledger_replay_oracle_checkpoints_and_proofs"]
 
-# the reference's TPU names, pointed at the port's
-BATCH_SUBS = (
-    (r"\bTpuSigVerifier\(\)", 'CudaSigVerifier(device="cpu")'),
-    (r"\bTpuSigVerifier\b", "CudaSigVerifier"),
-    (r'"tpu-async"', '"cuda-async"'),
-    (r"import verify_batch_jit", "import verify_kernel as verify_batch_jit"),
-)
 # a fleet on real-time verify threads whose virtual clocks run on while a
 # batch verifies: the kernel's plain version (seconds a batch on the CPU)
 # lets the stuck timer fire before the first slot externalizes, so here
@@ -130,7 +124,7 @@ def _c_decides():
 
 
 BATCH = Mirror(("test_batch_boundary.py",), patch=_card_on_cpu,
-               hook=cpu_test_ledger, port_subs=BATCH_SUBS + SIM_SUBS)
+               hook=cpu_test_ledger, port_subs=TPU_NAME_SUBS + SIM_SUBS)
 BATCH_CASES = BATCH.cases(drop=("test_live_path_latency_slo",))
 
 

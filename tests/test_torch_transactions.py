@@ -42,7 +42,8 @@ from stellar_core_tpu_torch.xdr import (
     LedgerKey, StellarValue, StellarValueExt, TransactionResultCode,
 )
 
-from test_torch_ledgertxn import CASES as LEDGERTXN_CASES, port_cases
+from test_torch_ledgertxn import CASES as LEDGERTXN_CASES
+from torch_mirror_harness import port_cases
 import torch_threads  # noqa: F401  (one intra-op thread a worker)
 
 

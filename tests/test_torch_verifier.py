@@ -4,8 +4,10 @@
 same boundary the card uses: bucket padding, chunking of oversize drains,
 the verify-result cache, enqueue/flush futures. Its decisions must equal
 the port's `CpuSigVerifier` (native C) and the JAX package's
-`CpuSigVerifier` on the same triples; the ladder is patched small so the
-plain version stays quick on the CPU. Tolerance: none.
+`CpuSigVerifier` on the same triples, the adversarial vectors of
+`tests/test_ed25519_adversarial.py` among them (the port's copy,
+`testing/vectors.py`); the ladder is patched small so the plain version
+stays quick on the CPU. Tolerance: none.
 """
 
 import numpy as np
