@@ -543,10 +543,11 @@ class BatchSigVerifier:
         checkpoint drain (PERF.md), so the port keeps the loop."""
         with self._span("crypto.prewarm", backend=self.name,
                         n=len(triples)) as sp:
-            cks = [_keys._cache_key(k, s, m) for (k, s, m) in triples]
+            with self._span("crypto.cache_keys"):
+                cks = [_keys._cache_key(k, s, m) for (k, s, m) in triples]
             out: List[Optional[bool]] = [None] * len(triples)
             todo: List[Tuple[int, Triple, bytes]] = []  # (idx, triple, key)
-            with _keys._cache_lock:
+            with self._span("crypto.cache_probe"), _keys._cache_lock:
                 for i, (t, ck) in enumerate(zip(triples, cks)):
                     hit = _keys._verify_cache.maybe_get(ck)
                     if hit is not None:
@@ -556,7 +557,7 @@ class BatchSigVerifier:
             sp.set_tag("cache_hits", len(triples) - len(todo))
             if todo:
                 results = self.verify_many([t for (_i, t, _ck) in todo])
-                with _keys._cache_lock:
+                with self._span("crypto.cache_fill"), _keys._cache_lock:
                     for ((i, _t, ck), ok) in zip(todo, results):
                         _keys._verify_cache.put(ck, ok)
                         out[i] = ok
@@ -761,15 +762,26 @@ class CudaSigVerifier(BatchSigVerifier):
     def _stage_chunk(self, chunk: Sequence[Triple], route) -> dict:
         """Prepare one sub-batch and copy it to its member(s). Runs on the
         staging worker when double-buffered; the returned blob is all
-        dispatch needs."""
+        dispatch needs. `ops/ed25519.prepare_batch`'s steps are called one
+        by one, so each has its span (on a host without the C prep the
+        plain path recodes inside `crypto.stage.prep`)."""
         fn, b, idxs = route
-        prep = _e.prepare_batch(
-            [t[0] for t in chunk], [t[1] for t in chunk],
-            [t[2] for t in chunk])
-        padded = pad_batch_to(prep, b)
-        return {"args": self._device_args(padded, idxs),
-                "pre_ok": prep["pre_ok"], "n": len(chunk), "b": b,
-                "fn": fn, "idxs": idxs}
+        with self._span("crypto.stage", n=len(chunk), bucket=b):
+            with self._span("crypto.stage.prep"):
+                good, pub_arr, sig_arr, msgs = _e.pack_batch(
+                    [t[0] for t in chunk], [t[1] for t in chunk],
+                    [t[2] for t in chunk])
+                prep, native = _e.prepare_packed(good, pub_arr, sig_arr,
+                                                 msgs)
+            with self._span("crypto.stage.recode"):
+                if native:
+                    prep = _e.finish_native(prep, good)
+            with self._span("crypto.stage.pad"):
+                padded = pad_batch_to(prep, b)
+            with self._span("crypto.stage.copy"):
+                args = self._device_args(padded, idxs)
+        return {"args": args, "pre_ok": prep["pre_ok"], "n": len(chunk),
+                "b": b, "fn": fn, "idxs": idxs}
 
     def _device_args(self, padded: dict, idxs: tuple) -> tuple:
         """Explicit host->device placement: each member's lanes copied
@@ -941,7 +953,9 @@ class CudaSigVerifier(BatchSigVerifier):
                                     n=n, bucket=b, pad=b - n,
                                     devices=len(idxs)):
                         # one launch per member, each on its own stream
-                        ok_dev = staged["fn"](*staged["args"])
+                        with self._span("crypto.launch", bucket=b,
+                                        lanes_real=n, members=len(idxs)):
+                            ok_dev = staged["fn"](*staged["args"])
                         # double buffer: chunk K+1 is prepared and copied
                         # on the staging worker while the fleet runs chunk
                         # K. It starts after the launches, so its host
@@ -950,7 +964,10 @@ class CudaSigVerifier(BatchSigVerifier):
                         job = _StagingJob(self, chunks[k + 1]) \
                             if k + 1 < len(chunks) else None
                         wait_t0 = real_monotonic()
-                        ok = np.asarray(ok_dev)   # blocks on the gather
+                        with self._span("crypto.gather"):
+                            # blocks on the gather: the pinned output,
+                            # the copy back and the stream wait
+                            ok = np.asarray(ok_dev)
                         wait_t1 = real_monotonic()
                 except Exception:
                     # a raising dispatch cannot name the guilty member: it
@@ -1310,14 +1327,11 @@ class ResilientBatchVerifier(BatchSigVerifier):
     def verify_many(self, triples: Sequence[Triple]) -> List[bool]:
         if self.breaker.allow():
             try:
-                # the primary attempt has its own span, so a dispatch
-                # failure is tagged on the drain it killed
-                with self._span("crypto.dispatch_primary",
-                                backend=self.primary.name,
-                                n=len(triples)):
-                    if self.faults is not None:
-                        self.faults.fire_point("device.dispatch")
-                    out = self.primary.verify_many(triples)
+                # a failure inside the primary's drain is tagged `error`
+                # on its `crypto.verify_many` span
+                if self.faults is not None:
+                    self.faults.fire_point("device.dispatch")
+                out = self.primary.verify_many(triples)
                 self.breaker.record_success()
                 return out
             except Exception as e:

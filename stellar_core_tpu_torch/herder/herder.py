@@ -49,6 +49,7 @@ from ..util.cache import RandomEvictionCache
 from ..util.log import get_logger
 from ..util.threads import main_thread_only
 from ..util.timer import VirtualTimer
+from ..util.tracing import app_span
 from ..xdr import (
     EnvelopeType, LedgerCloseValueSignature, LedgerUpgrade, SCPEnvelope,
     SCPQuorumSet, SCPStatementType, StellarValue, StellarValueExt, Uint32,
@@ -731,7 +732,17 @@ class Herder:
         across envelopes into one device dispatch and complete on the main
         loop (the PendingEnvelopes 'verifying' state — async analog of the
         reference's fetch-before-feed buffering). `on_verified(ok)` fires
-        when the decision lands (immediately on the sync backend)."""
+        when the decision lands (immediately on the sync backend). The
+        span `herder.recv_scp_envelope` covers the whole call: the
+        verify's enqueue, a sync backend's flush and `on_verified`."""
+        with app_span(self.app, "herder.recv_scp_envelope", cat="scp",
+                      slot=envelope.statement.slotIndex) as sp:
+            state = self._recv_scp_envelope(envelope, on_verified)
+            sp.set_tag("state", state)
+            return state
+
+    def _recv_scp_envelope(self, envelope: SCPEnvelope,
+                           on_verified) -> int:
         m = self._metrics()
         if m is not None:
             m.new_meter("scp.envelope.receive").mark()
@@ -954,7 +965,6 @@ class Herder:
     # -- nomination ----------------------------------------------------------
     @main_thread_only
     def trigger_next_ledger(self, ledger_seq_to_trigger: int) -> None:
-        from ..util.tracing import app_span
         lm = self.app.ledger_manager
         cfg = self.app.config
         lcl = lm.lcl_header

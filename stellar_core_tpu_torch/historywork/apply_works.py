@@ -287,20 +287,25 @@ class ApplyCheckpointWork(BasicWork):
         self._pipeline.submit(first, triples)
 
     def _load(self) -> bool:
-        lpath = os.path.join(self.download_dir,
-                             "ledger-%08x.xdr" % self.checkpoint)
-        tpath = os.path.join(self.download_dir,
-                             "transactions-%08x.xdr" % self.checkpoint)
-        if not os.path.exists(lpath):
-            return False
-        with XDRInputFileStream(lpath) as ins:
-            for e in ins.read_all(LedgerHeaderHistoryEntry):
-                self._headers[e.header.ledgerSeq] = e
-        if os.path.exists(tpath):
-            with XDRInputFileStream(tpath) as ins:
-                for t in ins.read_all(TransactionHistoryEntry):
-                    self._txsets[t.ledgerSeq] = t.txSet
-        return True
+        """Read and decode the checkpoint's ledger headers and transaction
+        sets, under the span `catchup.load_files` (one a load, whoever
+        calls it)."""
+        with app_span(self.app, "catchup.load_files", cat="catchup",
+                      checkpoint=self.checkpoint):
+            lpath = os.path.join(self.download_dir,
+                                 "ledger-%08x.xdr" % self.checkpoint)
+            tpath = os.path.join(self.download_dir,
+                                 "transactions-%08x.xdr" % self.checkpoint)
+            if not os.path.exists(lpath):
+                return False
+            with XDRInputFileStream(lpath) as ins:
+                for e in ins.read_all(LedgerHeaderHistoryEntry):
+                    self._headers[e.header.ledgerSeq] = e
+            if os.path.exists(tpath):
+                with XDRInputFileStream(tpath) as ins:
+                    for t in ins.read_all(TransactionHistoryEntry):
+                        self._txsets[t.ledgerSeq] = t.txSet
+            return True
 
     def _prewarm_redundant(self) -> bool:
         """The checkpoint prewarm exists to batch crypto into one device
@@ -444,10 +449,7 @@ class ApplyCheckpointWork(BasicWork):
         from ..ledger.ledger_manager import LedgerCloseData
 
         if not self._loaded:
-            with app_span(self.app, "catchup.load_files", cat="catchup",
-                          checkpoint=self.checkpoint):
-                ok = self._load()
-            if not ok:
+            if not self._load():
                 return FAILURE
             self._prewarm()
             self._loaded = True

@@ -73,7 +73,8 @@ class Application:
         # before every subsystem so each can hold a direct reference;
         # disabled tracing costs one attribute check per span site
         from ..util.tracing import FlightRecorder, Tracer
-        self.tracer = Tracer(capacity=config.TRACE_CAPACITY)
+        self.tracer = Tracer(capacity=config.TRACE_CAPACITY,
+                             gc_spans=True)
         if config.TRACE_ENABLED:
             self.tracer.enable()
         self.flight_recorder = FlightRecorder(

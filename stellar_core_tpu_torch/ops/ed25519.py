@@ -605,10 +605,20 @@ def prepare_batch(pubs: list[bytes], sigs: list[bytes],
     compiler, else from `prepare_batch_plain`. Rows that `pre_ok` rejects
     carry no meaning and may differ between the two paths."""
     good, pub_arr, sig_arr, msgs = pack_batch(pubs, sigs, msgs)
+    prep, native = prepare_packed(good, pub_arr, sig_arr, msgs)
+    return finish_native(prep, good) if native else prep
+
+
+def prepare_packed(good: np.ndarray, pub_arr: np.ndarray,
+                   sig_arr: np.ndarray, msgs: list) -> tuple:
+    """(prep, native) of `pack_batch`'s output: the C prep's arrays, still
+    to be made the kernel's by `finish_native` (True), or the plain path's
+    finished arrays where the host has no C prep (False). `prepare_batch`
+    is these steps in one call; the verifier calls them one by one."""
     prep = _native.prepare_batch_native(pub_arr, sig_arr, msgs)
     if prep is not None:
-        return finish_native(prep, good)
-    return _prepare_numpy(good, pub_arr, sig_arr, msgs)
+        return prep, True
+    return _prepare_numpy(good, pub_arr, sig_arr, msgs), False
 
 
 def prepare_batch_plain(pubs: list[bytes], sigs: list[bytes],

@@ -3,7 +3,8 @@
 Copied (`Span`, `_NoopSpan`, `tracer_span`, `tracer_instant`, `Tracer`,
 `FlightRecorder`) from `stellar_core_tpu/util/tracing.py` at commit
 abe2377, and `app_span` at commit 6dc7ba8; carry a fix in either copy to
-the other.
+the other. The collector spans (`Tracer(gc_spans=True)`, below) are the
+port's own and are not carried back: the copies differ there.
 
 - `Tracer`: nested spans with tags in a bounded ring buffer. Disabled
   (the default) a span is one attribute check, so the instrumentation
@@ -19,6 +20,51 @@ the other.
   a JSON file; a dump failure is logged, never raised.
 - `tracer_span` / `tracer_instant`: spans and instants against a
   possibly-absent, possibly-disabled tracer (a no-op then).
+- Collector spans: a tracer built with `gc_spans=True` records each
+  cyclic collection while it is enabled, as a span `gc.gen0`/`gc.gen1`/
+  `gc.gen2` (tags `collected`, `uncollectable`) on the collecting thread,
+  under the span that thread has open. Each such tracer puts one hook in
+  `gc.callbacks` on `enable()` and takes it out on `disable()`, or when
+  the tracer is freed while enabled; otherwise the interpreter runs no
+  callback of the port's. `Application` builds its tracer so; a bare
+  `Tracer()` records none, so a trace over a fixed ring holds only the
+  program's spans. Under a load heavy in young-generation collections
+  (thousands a second) the collector spans can fill a small ring and
+  evict the spans around them: `dropped` counts the spans evicted since
+  `enable()`, so read it before trusting a window, and give a long trace
+  a larger ring (`Config.TRACE_CAPACITY`, or `enable(capacity=...)`).
+
+The port's spans beyond the reference's ("dispatch thread" is the thread
+that called `verify_many`: the main loop on the synchronous stacks, the
+`ThreadedBatchVerifier` worker on `cuda-async`):
+
+- `crypto.cache_keys`, `crypto.cache_probe`, `crypto.cache_fill`, under
+  `crypto.prewarm` on the caller's thread: the hashlib loop of a drain's
+  verify-cache keys, the lookups and the puts after the drain (the last
+  two under the cache lock).
+- `crypto.stage` (tags `n`, `bucket`), `CudaSigVerifier._stage_chunk`:
+  one chunk's host prep and copies, under `crypto.verify_many` on the
+  dispatch thread for the first chunk, a root span on the
+  `crypto.verify-staging` worker for the rest. Its children in order:
+  `crypto.stage.prep` (`pack_batch` and the C prep; without the C prep
+  the plain numpy prep, recode included), `crypto.stage.recode` (the C
+  prep's digits made signed, `finish_native`), `crypto.stage.pad`
+  (`pad_batch_to`), `crypto.stage.copy` (`place_shards`: pinning,
+  host-to-device copies, ready events).
+- `crypto.launch` (tags `bucket`, `lanes_real`, `members`) then
+  `crypto.gather`, under `crypto.dispatch` on the dispatch thread: the
+  kernel launches, one a member, and the decisions brought back (pinned
+  output, device-to-host copy, stream wait). The resilient layer has no
+  span of its own around the primary's drain: a failed drain is tagged
+  `error` on the primary's `crypto.verify_many`.
+- `herder.recv_scp_envelope` (cat `scp`, tags `slot`, `state` set on
+  return), a root span on the main loop: the whole
+  `Herder.recv_scp_envelope` call, the verify's enqueue, a synchronous
+  stack's flush and `on_verified` inside it.
+- `catchup.load_files` (tag `checkpoint`), in `ApplyCheckpointWork._load`
+  itself under the caller's span: one a load, from `on_run` or called
+  directly.
+- `gc.gen0` / `gc.gen1` / `gc.gen2` (cat `gc`): above.
 
 Threading: span stacks are thread-local (a worker thread's spans nest on
 their own stack); the ring append is a deque operation.
@@ -26,12 +72,14 @@ their own stack); the ring append is a deque operation.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
 import threading
 import time
 import traceback
+import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
@@ -123,11 +171,45 @@ def app_span(app, name: str, cat: str = "core", **tags):
     return tracer_span(getattr(app, "tracer", None), name, cat, **tags)
 
 
+def _collector_hook(ref: "weakref.ref[Tracer]") -> Callable:
+    """A `gc.callbacks` entry that records each collection as a
+    `gc.gen<N>` span on the tracer `ref` names, directly (never pushed),
+    its parent the innermost span open on the collecting thread."""
+    t0: List[Optional[float]] = [None]
+
+    def hook(phase: str, info: dict) -> None:
+        t = ref()
+        if t is None or not t.enabled:
+            return
+        if phase == "start":
+            t0[0] = t._now()
+            return
+        if t0[0] is None:
+            return
+        s = Span(t, "gc.gen%d" % info["generation"], "gc",
+                 {"collected": info["collected"],
+                  "uncollectable": info["uncollectable"]})
+        s.t0, t0[0] = t0[0], None
+        s.dur = t._now() - s.t0
+        s.sid = t._new_sid()
+        st = t._stack()
+        s.parent = st[-1].sid if st else 0
+        t._record(s)
+    return hook
+
+
+def _unhook(hook: Callable) -> None:
+    if hook in gc.callbacks:
+        gc.callbacks.remove(hook)
+
+
 class Tracer:
-    """Bounded-ring span recorder; see module docstring."""
+    """Bounded-ring span recorder; see module docstring. With `gc_spans`,
+    every cyclic collection while enabled is recorded as a span too."""
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY,
-                 now_fn: Callable[[], float] = time.perf_counter) -> None:
+                 now_fn: Callable[[], float] = time.perf_counter,
+                 gc_spans: bool = False) -> None:
         self.enabled = False
         self._now = now_fn
         self._buf: deque = deque(maxlen=capacity)
@@ -135,6 +217,8 @@ class Tracer:
         self._next_sid = 0
         self._sid_lock = threading.Lock()
         self.dropped = 0   # spans evicted from the ring since enable()
+        self.gc_spans = gc_spans
+        self._gc_unhook: Optional[weakref.finalize] = None
 
     @property
     def capacity(self) -> int:
@@ -146,9 +230,18 @@ class Tracer:
             self._buf = deque(self._buf, maxlen=capacity)
         self.dropped = 0
         self.enabled = True
+        if self.gc_spans and self._gc_unhook is None:
+            hook = _collector_hook(weakref.ref(self))
+            gc.callbacks.append(hook)
+            # a tracer freed while enabled takes its hook with it
+            self._gc_unhook = weakref.finalize(self, _unhook, hook)
+            self._gc_unhook.atexit = False
 
     def disable(self) -> None:
         self.enabled = False
+        if self._gc_unhook is not None:
+            self._gc_unhook()
+            self._gc_unhook = None
 
     def clear(self) -> None:
         self._buf.clear()
