@@ -24,20 +24,26 @@ from .signature_checker import SignatureChecker
 
 class OperationFrame:
     """Base class; subclasses implement do_check_valid/do_apply and may
-    override threshold_level/needed_signers."""
+    override threshold_level/needed_signers.
+
+    The frame does not own its transaction (the reference's
+    `TransactionFrame&`): it keeps only the parent's source account, its
+    fallback source, so a transaction frame and its op frames form no
+    cycle, and whoever holds the transaction frame holds its lifetime."""
 
     op_type: int = -1
 
     def __init__(self, op: Operation, parent_tx) -> None:
         self.op = op
-        self.tx = parent_tx
+        # the parent's (for a fee bump, the inner transaction's) source
+        self._tx_source = parent_tx.tx.sourceAccount
         self.result: Optional[OperationResult] = None
 
     # -- source account -----------------------------------------------------
     def source_account_id(self) -> PublicKey:
         if self.op.sourceAccount is not None:
             return self.op.sourceAccount.account_id
-        return self.tx.source_account_id()
+        return self._tx_source.account_id
 
     # -- signature / threshold ----------------------------------------------
     def threshold_level(self) -> int:
